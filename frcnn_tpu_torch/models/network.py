@@ -1,0 +1,212 @@
+"""Detector assembly (``frcnn_tpu/models/network.py``): the two-stage
+Faster R-CNN test path with fixed output shapes.
+
+  * ``predict``: preprocess → backbone trunk → RPN → proposal layer
+    (K1) → RoIAlign (K2) → tail + heads; raw outputs.
+  * ``detect``: predict + delta decode, clip, rescale to original image
+    coordinates, per-class threshold + NMS (K1), global top-k → (B, D, 6).
+
+Dtypes follow the JAX module: trunk, RPN convs and tail in the compute
+dtype, RPN outputs cast to f32; ``cls_score``/``bbox_pred`` run in f32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from frcnn_tpu_torch.config import Config
+from frcnn_tpu_torch.models.backbones import build_backbone, preprocess_images
+from frcnn_tpu_torch.models.proposals import proposal_layer_batch
+from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
+from frcnn_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
+from frcnn_tpu_torch.ops.nms import batched_class_nms
+from frcnn_tpu_torch.ops.roi_align import extract_roi_features
+
+
+def decode_boxes(out, im_info, cfg, num_classes: int):
+    """Un-normalize deltas by BBOX_NORMALIZE_STDS/MEANS, decode per class,
+    clip, rescale to original image coords.  Returns (B, N, 4C)."""
+    rois, bbox_pred = out["rois"], out["bbox_pred"]
+    c = num_classes
+    if cfg.TEST.BBOX_REG:
+        stds = torch.tensor(cfg.TRAIN.BBOX_NORMALIZE_STDS, dtype=torch.float32,
+                            device=rois.device).repeat(c)
+        means = torch.tensor(cfg.TRAIN.BBOX_NORMALIZE_MEANS, dtype=torch.float32,
+                             device=rois.device).repeat(c)
+        boxes = bbox_transform_inv(rois, bbox_pred * stds + means)
+        boxes = clip_boxes(boxes, im_info[:, :2])
+    else:
+        boxes = rois.repeat(1, 1, c)
+    return boxes / im_info[:, 2][:, None, None]
+
+
+def postprocess_detections(out, im_info, cfg, num_classes: int, max_per_image: int,
+                           use_kernels: bool = True):
+    """Per-class score threshold + NMS over all B*C problems in one call,
+    then a global top-k.  Returns (detections (B, D, 6)
+    [x1, y1, x2, y2, score, class], valid (B, D))."""
+    d = max_per_image
+    boxes = decode_boxes(out, im_info, cfg, num_classes)
+    scores = out["cls_prob"]
+    b, n, c = scores.shape
+    cls_boxes = boxes.reshape(b, n, c, 4).permute(0, 2, 1, 3).reshape(b * c, n, 4)
+    cls_scores = scores.permute(0, 2, 1).reshape(b * c, n)
+    thresh = torch.tensor(cfg.TEST.SCORE_THRESH, dtype=torch.float32, device=scores.device)
+    valid = (out["roi_valid"][:, None, :] & (scores.permute(0, 2, 1) > thresh)).reshape(b * c, n)
+    per_cls = min(d, n)
+
+    idx, keep = batched_class_nms(cls_boxes, cls_scores, cfg.TEST.NMS, per_cls,
+                                  valid=valid, use_kernels=use_kernels)
+    idx = idx.long()
+    g_boxes = torch.take_along_dim(cls_boxes, idx[..., None], dim=1)
+    g_scores = torch.where(keep, torch.take_along_dim(cls_scores, idx, dim=1), -1.0)
+    g_scores = g_scores.reshape(b, c, per_cls)
+    cls_ids = torch.arange(c, dtype=torch.float32, device=scores.device)[None, :, None]
+    cls_ids = cls_ids.expand(b, c, per_cls)
+    g_scores = torch.where(cls_ids > 0, g_scores, -1.0)  # drop background
+    # stable descending sort: ties take the lowest index first, as lax.top_k
+    top_scores, top_idx = torch.sort(g_scores.reshape(b, c * per_cls), dim=1,
+                                     descending=True, stable=True)
+    top_scores, top_idx = top_scores[:, :d], top_idx[:, :d]
+    det_valid = top_scores > 0
+    det = torch.cat([
+        torch.take_along_dim(g_boxes.reshape(b, c * per_cls, 4), top_idx[..., None], dim=1),
+        top_scores[..., None],
+        torch.take_along_dim(cls_ids.reshape(b, -1), top_idx, dim=1)[..., None]], dim=2)
+    det = torch.where(det_valid[..., None], det, 0.0)
+    return det, det_valid
+
+
+class FasterRCNN(nn.Module):
+    """The detector.  The backbone's children (``conv1``, ``bn1``,
+    ``layer1``..``layer4``) are registered on the detector itself, so the
+    state_dict carries the lineage's flat torchvision names beside
+    ``rpn_net``, ``rpn_cls_score``, ``rpn_bbox_pred``, ``cls_score`` and
+    ``bbox_pred``.  ``rpn_cls_score`` keeps the lineage channel order: a
+    background block of A channels, then a foreground block."""
+
+    def __init__(self, backbone: nn.Module, num_classes: int, config: Config,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        object.__setattr__(self, "backbone", backbone)  # not a child: no prefix
+        for name, child in backbone.named_children():
+            self.add_module(name, child)
+        self.num_classes = num_classes
+        self.config = config
+        self.dtype = dtype
+        a = config.num_anchors
+        self.rpn_net = nn.Conv2d(backbone.feat_channels, 512, 3, padding=1)
+        self.rpn_cls_score = nn.Conv2d(512, a * 2, 1)
+        self.rpn_bbox_pred = nn.Conv2d(512, a * 4, 1)
+        self.cls_score = nn.Linear(backbone.tail_dim, num_classes)
+        self.bbox_pred = nn.Linear(backbone.tail_dim, num_classes * 4)
+        self._anchor_cache: dict = {}
+
+    @property
+    def use_kernels(self) -> bool:
+        return self.config.DEVICE.USE_KERNELS
+
+    def _conv(self, x, conv: nn.Conv2d, padding: int = 0):
+        return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=padding)
+
+    def _rpn(self, feat):
+        """feat (B, C, H, W) → (fg_prob (B, K), deltas (B, K, 4)) in anchor
+        order (row-major cells, A contiguous per cell), f32.  fg_prob is
+        sigmoid(fg − bg), as the JAX module computes it."""
+        b, _, h, w = feat.shape
+        a = self.config.num_anchors
+        x = F.relu(self._conv(feat, self.rpn_net, padding=1))
+        cls = self._conv(x, self.rpn_cls_score).float()
+        box = self._conv(x, self.rpn_bbox_pred).float()
+        prob = torch.sigmoid(cls[:, a:] - cls[:, :a]).permute(0, 2, 3, 1).reshape(b, h * w * a)
+        deltas = box.permute(0, 2, 3, 1).reshape(b, h * w * a, 4)
+        return prob, deltas
+
+    def _anchors(self, h: int, w: int, device):
+        key = (h, w, str(device))
+        if key not in self._anchor_cache:
+            anchors, _ = generate_anchors_pre(
+                h, w, self.config.FEAT_STRIDE[0], ratios=self.config.ANCHOR_RATIOS,
+                scales=self.config.ANCHOR_SCALES)
+            self._anchor_cache[key] = torch.from_numpy(anchors).to(device)
+        return self._anchor_cache[key]
+
+    def _pool(self, feat, rois):
+        """feat (B, C, h, w), rois (B, N, 4) image coords → (B, N, p, p, C)."""
+        cfg = self.config
+        return extract_roi_features(
+            feat.permute(0, 2, 3, 1), rois, mode=cfg.POOLING_MODE,
+            output_size=cfg.POOLING_SIZE, spatial_scale=1.0 / cfg.FEAT_STRIDE[0],
+            sampling_ratio=cfg.DEVICE.ROI_SAMPLING_RATIO, use_kernels=self.use_kernels)
+
+    def _classify(self, pooled):
+        """(B, N, p, p, C) → (cls_prob (B, N, classes), bbox_pred (B, N, 4*classes))."""
+        b, n = pooled.shape[:2]
+        flat = pooled.reshape((b * n,) + pooled.shape[2:]).to(self.dtype).permute(0, 3, 1, 2)
+        fc = self.backbone.head_to_tail(flat).float()
+        cls_logits = F.linear(fc, self.cls_score.weight, self.cls_score.bias)
+        bbox = F.linear(fc, self.bbox_pred.weight, self.bbox_pred.bias)
+        return (torch.softmax(cls_logits, dim=-1).reshape(b, n, -1), bbox.reshape(b, n, -1))
+
+    def predict(self, images, im_info):
+        """images (B, H, W, 3) BGR; im_info (B, 3) [h, w, scale] → dict of
+        rois, roi_scores, roi_valid, cls_prob, bbox_pred."""
+        cfg = self.config
+        if cfg.TEST.MODE != "nms":
+            raise ValueError(f"TEST.MODE {cfg.TEST.MODE!r} is not ported (only 'nms')")
+        x = preprocess_images(images, cfg, self.dtype).permute(0, 3, 1, 2)
+        feat = self.backbone.extract_features(x)
+        fg_prob, deltas = self._rpn(feat)
+        anchors = self._anchors(feat.shape[2], feat.shape[3], feat.device)
+        rois, roi_scores, roi_valid = proposal_layer_batch(
+            fg_prob, deltas, anchors, im_info,
+            pre_nms_top_n=cfg.TEST.RPN_PRE_NMS_TOP_N,
+            post_nms_top_n=cfg.TEST.RPN_POST_NMS_TOP_N,
+            nms_thresh=cfg.TEST.RPN_NMS_THRESH, use_kernels=self.use_kernels)
+        cls_prob, bbox_pred = self._classify(self._pool(feat, rois))
+        return {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid,
+                "cls_prob": cls_prob, "bbox_pred": bbox_pred}
+
+    def detect(self, images, im_info, max_per_image: int | None = None):
+        """Serving path: (detections (B, D, 6) [x1, y1, x2, y2, score, class]
+        in original image coordinates, valid (B, D))."""
+        out = self.predict(images, im_info)
+        return postprocess_detections(out, im_info, self.config, self.num_classes,
+                                      max_per_image or self.config.TEST.MAX_PER_IMAGE,
+                                      use_kernels=self.use_kernels)
+
+
+def build_model(net: str, num_classes: int, cfg: Config, dtype=torch.float32):
+    """Model factory: net in res50 | res101 | res152 (C4)."""
+    return FasterRCNN(build_backbone(net, cfg), num_classes, cfg, dtype=dtype)
+
+
+@torch.no_grad()
+def init_random_(model: FasterRCNN, generator: torch.Generator):
+    """Seeded random weights that keep activations O(1) through a frozen-BN
+    ResNet (trunk output std 1-3, where the JAX init grows ~1000x): convs
+    N(0, 2/fan_in), the last BN of each residual branch scaled to 0.5, the
+    raw O(100) pixels scaled down by the stem's BN; RPN and head weights
+    N(0, 0.01) / N(0, 0.001) as the lineage, except rpn_cls_score at 0.05 so
+    the RPN scores spread over (0, 1); biases zero.  All draws come from
+    ``generator`` on the CPU."""
+
+    def normal_(t, std):
+        t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+    for name, module in model.named_modules():
+        if isinstance(module, nn.Conv2d):
+            fan_in = module.in_channels * module.kernel_size[0] * module.kernel_size[1]
+            normal_(module.weight, math.sqrt(2.0 / fan_in))
+        if name.endswith("bn3") or name.endswith("downsample.1"):
+            module.weight.fill_(0.5)
+    model.bn1.weight.fill_(1.0 / 64.0)  # raw pixels are O(100)
+    for head, std in ((model.rpn_net, 0.01), (model.rpn_cls_score, 0.05),
+                      (model.rpn_bbox_pred, 0.01), (model.cls_score, 0.01),
+                      (model.bbox_pred, 0.001)):
+        normal_(head.weight, std)
+        head.bias.zero_()

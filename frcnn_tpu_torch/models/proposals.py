@@ -1,0 +1,46 @@
+"""Proposal generation (``frcnn_tpu/models/proposals.py``): decode RPN
+deltas, clip, drop anchors centred on padding, take the top pre-NMS boxes
+by score, greedy NMS, pad to a fixed count with a validity mask."""
+
+from __future__ import annotations
+
+import torch
+
+from frcnn_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
+from frcnn_tpu_torch.ops.nms import NEG_INF, nms_fixed_batched
+
+
+def _anchor_validity(anchors, im_info):
+    """anchors (K, 4), im_info (B, 3) → (B, K): anchor centre inside the
+    actual (unpadded) image."""
+    cx = (anchors[:, 0] + anchors[:, 2]) * 0.5
+    cy = (anchors[:, 1] + anchors[:, 3]) * 0.5
+    return ((cx >= 0) & (cx < im_info[:, 1:2]) & (cy >= 0) & (cy < im_info[:, 0:1]))
+
+
+def proposal_layer_batch(scores, deltas, anchors, im_info, *, pre_nms_top_n: int,
+                         post_nms_top_n: int, nms_thresh: float,
+                         use_kernels: bool = True):
+    """scores (B, K) foreground probabilities, deltas (B, K, 4), anchors
+    (K, 4), im_info (B, 3) [h, w, scale] → (rois (B, P, 4), scores (B, P),
+    valid (B, P)), P = post_nms_top_n; padding rois are zero boxes."""
+    k = scores.shape[1]
+    proposals = clip_boxes(bbox_transform_inv(anchors, deltas), im_info[:, :2])
+    scores = torch.where(_anchor_validity(anchors, im_info), scores, NEG_INF)
+    pre_n = min(pre_nms_top_n, k)
+    # stable descending sort: ties take the lowest index first, as lax.top_k
+    top_scores, top_idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    top_scores, top_idx = top_scores[:, :pre_n], top_idx[:, :pre_n]
+    top_boxes = torch.take_along_dim(proposals, top_idx[..., None], dim=1)
+    top_valid = top_scores > NEG_INF / 2
+
+    # sorted with invalid entries last: the NMS needs no second sort
+    keep_idx, keep_valid = nms_fixed_batched(
+        top_boxes, top_scores, nms_thresh, post_nms_top_n, valid=top_valid,
+        use_kernels=use_kernels, presorted=True)
+    keep_idx = keep_idx.long()
+    rois = torch.take_along_dim(top_boxes, keep_idx[..., None], dim=1)
+    roi_scores = torch.where(keep_valid, torch.take_along_dim(top_scores, keep_idx, dim=1),
+                             0.0)
+    rois = torch.where(keep_valid[..., None], rois, 0.0)
+    return rois, roi_scores, keep_valid

@@ -1,0 +1,126 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``frcnn_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into ONE shared library with a plain C interface, at first
+use, into ``frcnn_tpu_torch/_build/`` (git-ignored), and loaded with
+``ctypes``.  The library name carries a hash of the sources and flags, so an
+edited kernel is rebuilt and a stale library is never loaded.  No PyTorch
+header is compiled: a build takes seconds, not minutes.
+
+Each wrapper counts its launches in ``LAUNCH_COUNTS``: a run can then show
+that the main path really went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCH_COUNTS: collections.Counter = collections.Counter()
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of the extern "C" launchers (each returns a cudaError_t).
+_SIGNATURES = {
+    "frcnn_nms_batched": (_P, _P, _I, _I, _F, _I, _P, _P, _P),
+    "frcnn_roi_align_fwd": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P),
+    "frcnn_fused_bottleneck": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+BUILD_LOG = ""     # nvcc's output (ptxas register/spill report) of the last build
+BUILD_SECONDS = 0.0
+
+
+def reset_launch_counts() -> None:
+    LAUNCH_COUNTS.clear()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library():
+    """The loaded kernel library, built on first call."""
+    global _lib, BUILD_LOG, BUILD_SECONDS
+    with _lock:
+        if _lib is not None:
+            return _lib
+        import time
+
+        sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+        digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        for src in sources:
+            with open(src, "rb") as f:
+                digest.update(f.read())
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        path = os.path.join(BUILD_DIR, f"libfrcnn_kernels_{digest.hexdigest()[:16]}.so")
+        if not os.path.exists(path):
+            t0 = time.perf_counter()
+            tmp = f"{path}.{os.getpid()}.tmp"
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+                                  capture_output=True, text=True)
+            BUILD_LOG = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+            os.replace(tmp, path)
+            BUILD_SECONDS = time.perf_counter() - t0
+        lib = ctypes.CDLL(path)
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+        lib.frcnn_error_string.argtypes = [ctypes.c_int]
+        lib.frcnn_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call launcher ``name`` on the current stream; raise on a CUDA error.
+
+    The launch is asynchronous.  Tensors whose pointers were passed may be
+    freed when the caller returns: PyTorch's caching allocator hands their
+    memory out again only in the order of this stream."""
+    import torch
+
+    lib = library()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        msg = lib.frcnn_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def check_cuda(name: str, t, dtype=None, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of the given dtype/shape
+    whose data pointer is 32-byte aligned (vector loads, wmma tiles)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 32:
+        raise ValueError(f"{name}: data pointer is not 32-byte aligned")

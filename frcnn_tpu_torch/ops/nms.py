@@ -1,0 +1,63 @@
+"""Non-maximum suppression with fixed output shapes (``frcnn_tpu/ops/nms.py``).
+
+Greedy semantics of the lineage: boxes in descending score order; box j is
+suppressed iff an earlier *kept* box i has IoU(i, j) > thresh.  The keep
+mask comes from K1 (``ops/cuda/nms_kernel.py``) on CUDA tensors, or from
+its plain twin ``nms_mask``.  Sorts are stable, so ties keep the lowest
+index first, as ``jnp.argsort`` and ``lax.top_k`` do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from frcnn_tpu_torch.ops.cuda.nms_kernel import nms_mask_batched
+from frcnn_tpu_torch.ops.cuda.nms_kernel import nms_mask_reference as nms_mask  # noqa: F401
+
+NEG_INF = -1e10
+
+
+def nms_fixed_batched(boxes, scores, thresh, max_out: int, valid=None,
+                      use_kernels: bool = True, presorted: bool = False):
+    """Batched sort + greedy NMS + pad: boxes (B, N, 4), scores (B, N),
+    valid (B, N) → (indices (B, max_out) int32, keep_valid (B, max_out)).
+
+    ``presorted=True``: boxes are already in descending score order with
+    every invalid entry after every valid one; padding indices are then 0,
+    otherwise they point at each row's best box."""
+    b, n = scores.shape
+    if valid is None:
+        valid = torch.ones((b, n), dtype=torch.bool, device=scores.device)
+    if presorted:
+        sboxes, svalid, order = boxes, valid, None
+    else:
+        s = torch.where(valid, scores, NEG_INF)
+        order = torch.argsort(-s, dim=1, stable=True)
+        sboxes = torch.take_along_dim(boxes, order[..., None], dim=1)
+        svalid = torch.take_along_dim(valid, order, dim=1)
+
+    if use_kernels:
+        # rows past the first max_out kept are dropped below, so the kernel
+        # may stop once every problem has max_out kept
+        keep = nms_mask_batched(sboxes, thresh, svalid, max_keep=max_out)
+    else:
+        keep = nms_mask(sboxes, thresh, svalid)
+
+    arange = torch.arange(n, device=scores.device)
+    rank = torch.where(keep, arange[None, :], n)
+    take = torch.argsort(rank, dim=1, stable=True)[:, :max_out]
+    out_valid = torch.take_along_dim(keep, take, dim=1)
+    if presorted:
+        gathered, fallback = take, torch.zeros_like(take[:, :1])
+    else:
+        gathered, fallback = torch.take_along_dim(order, take, dim=1), order[:, :1]
+    out_idx = torch.where(out_valid, gathered, fallback).to(torch.int32)
+    return out_idx, out_valid
+
+
+def batched_class_nms(boxes, scores, thresh, max_out: int, valid=None,
+                      use_kernels: bool = True):
+    """Per-class test-time NMS: boxes (P, N, 4), scores (P, N), valid (P, N)
+    for P = images x classes problems → (indices (P, max_out), keep)."""
+    return nms_fixed_batched(boxes, scores, thresh, max_out, valid=valid,
+                             use_kernels=use_kernels)
