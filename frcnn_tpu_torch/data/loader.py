@@ -1,5 +1,9 @@
-"""Image preparation for the test path (``frcnn_tpu/data/loader.py``:
-``pick_scale_and_bucket`` and ``prep_im_for_blob``), without cv2.
+"""Image preparation and training minibatches (``frcnn_tpu/data/loader.py``),
+without cv2: ``pick_scale_and_bucket``, ``prep_im_for_blob``,
+``snap_to_bucket``, ``im_list_to_blob``, ``get_minibatch`` and
+``RoIDataLayer``.  Images come from a ``reader`` callable (image path →
+BGR uint8 array); the JAX package's native C++ prep and image caches are
+not ported.
 
 The resize is bilinear in numpy with the sampling of
 ``cv2.resize(im, None, fx=scale, fy=scale, interpolation=INTER_LINEAR)``:
@@ -72,3 +76,137 @@ def prep_im_for_blob(im, target_size: int, max_size: int, buckets,
     rh, rw = min(resized.shape[0], bh), min(resized.shape[1], bw)
     out[:rh, :rw, :] = resized[:rh, :rw]
     return out, scale
+
+
+def snap_to_bucket(hws, buckets):
+    """Smallest configured bucket covering the componentwise max of the
+    (h, w) shapes; the componentwise max over all buckets when none does
+    (a batch that mixes orientations)."""
+    need_h = max(h for h, _ in hws)
+    need_w = max(w for _, w in hws)
+    fitting = [b for b in buckets if b[0] >= need_h and b[1] >= need_w]
+    if fitting:
+        return min(fitting, key=lambda b: (b[0] * b[1], b))
+    return (max(b[0] for b in buckets), max(b[1] for b in buckets))
+
+
+def im_list_to_blob(ims):
+    """Pad (H, W, 3) images to their max shape → (N, H, W, 3) float32."""
+    max_shape = np.array([im.shape for im in ims]).max(axis=0)
+    blob = np.zeros((len(ims), max_shape[0], max_shape[1], 3), dtype=np.float32)
+    for i, im in enumerate(ims):
+        blob[i, : im.shape[0], : im.shape[1], :] = im
+    return blob
+
+
+def get_minibatch(roidb, cfg, rng=None, reader=None):
+    """One fixed-shape minibatch from roidb entries: data (B, bh, bw, 3)
+    raw BGR float32, im_info (B, 3) [h, w, scale] of the scaled unpadded
+    image, gt_boxes (B, MAX_GT, 4) scaled, gt_labels (B, MAX_GT) int32,
+    gt_valid (B, MAX_GT) bool.  ``reader`` maps ``entry["image"]`` to a BGR
+    uint8 array."""
+    if reader is None:
+        raise ValueError("get_minibatch needs a reader callable (image path -> BGR array)")
+    rng = rng or np.random
+    t = cfg.TRAIN
+    buckets = cfg.DEVICE.BUCKETS
+    max_gt = cfg.DEVICE.MAX_GT
+    # per-image scale sampled from TRAIN.SCALES, as the reference minibatch
+    targets = [t.SCALES[rng.randint(0, len(t.SCALES))] if len(t.SCALES) > 1
+               else t.SCALES[0] for _ in roidb]
+
+    prepped, scales = [], []
+    for entry, target in zip(roidb, targets):
+        im = reader(entry["image"])
+        if im is None:
+            raise ValueError(f"failed to read {entry['image']}")
+        if entry.get("flipped", False):
+            im = im[:, ::-1, :]
+        padded, scale = prep_im_for_blob(im, target, t.MAX_SIZE, buckets)
+        prepped.append((im.shape[:2], padded))
+        scales.append(scale)
+    # one static shape per batch: the smallest bucket covering every image's
+    bucket_hw = snap_to_bucket([p[1].shape[:2] for p in prepped], buckets)
+    images, infos = [], []
+    for ((h, w), padded), scale in zip(prepped, scales):
+        if padded.shape[:2] != bucket_hw:
+            up = np.zeros(bucket_hw + (3,), dtype=np.float32)
+            up[: padded.shape[0], : padded.shape[1]] = padded
+            padded = up
+        images.append(padded)
+        infos.append([np.round(h * scale), np.round(w * scale), scale])
+
+    gtb, gtl, gtv = [], [], []
+    for entry, scale in zip(roidb, scales):
+        gt_inds = np.where(entry["gt_classes"] > 0)[0] \
+            if "gt_classes" in entry else np.arange(len(entry["boxes"]))
+        boxes = entry["boxes"][gt_inds].astype(np.float32) * scale
+        labels = (entry["gt_classes"][gt_inds] if "gt_classes" in entry
+                  else np.ones(len(gt_inds))).astype(np.int32)
+        n = min(len(boxes), max_gt)
+        b = np.zeros((max_gt, 4), np.float32)
+        lab = np.zeros((max_gt,), np.int32)
+        v = np.zeros((max_gt,), bool)
+        b[:n], lab[:n], v[:n] = boxes[:n], labels[:n], True
+        gtb.append(b)
+        gtl.append(lab)
+        gtv.append(v)
+
+    return {"data": np.stack(images), "im_info": np.asarray(infos, np.float32),
+            "gt_boxes": np.stack(gtb), "gt_labels": np.stack(gtl), "gt_valid": np.stack(gtv)}
+
+
+class RoIDataLayer:
+    """Epoch-less minibatch iterator over a shuffled permutation (reference
+    lib/roi_data_layer/layer.py), seeded with RNG_SEED.  With batches of
+    several images and both bucket orientations configured, each batch is
+    orientation-pure, as in the JAX package."""
+
+    def __init__(self, roidb, cfg, reader=None):
+        self._roidb = roidb
+        self._cfg = cfg
+        self._batch = cfg.TRAIN.IMS_PER_BATCH
+        self._reader = reader
+        self._rng = np.random.RandomState(cfg.RNG_SEED)
+        self._shuffle_roidb_inds()
+
+    def _shuffle_roidb_inds(self):
+        group = self._cfg.TRAIN.ASPECT_GROUPING or (
+            self._batch > 1 and len(self._cfg.DEVICE.BUCKETS) > 1)
+        if group and len(self._roidb) > 0:
+            widths = np.array([r["width"] for r in self._roidb])
+            heights = np.array([r["height"] for r in self._roidb])
+            horz = widths >= heights
+            b = self._batch
+            groups, partial = [], []
+            for inds in (np.where(horz)[0], np.where(~horz)[0]):
+                inds = self._rng.permutation(inds)
+                for i in range(0, len(inds), b):
+                    g = inds[i:i + b]
+                    (groups if len(g) == b else partial).append(g)
+            order = self._rng.permutation(len(groups))
+            # full orientation-pure groups first, the partial tails last
+            self._perm = np.concatenate([groups[i] for i in order] + partial)
+        else:
+            self._perm = self._rng.permutation(len(self._roidb))
+        self._cur = 0
+
+    def _get_next_minibatch_inds(self):
+        if self._cur + self._batch > len(self._roidb):
+            self._shuffle_roidb_inds()
+        if self._batch <= len(self._roidb):
+            inds = self._perm[self._cur: self._cur + self._batch]
+            self._cur += self._batch
+            return inds
+        # a roidb smaller than the batch: chain whole permutations
+        out = list(self._perm)
+        while len(out) < self._batch:
+            self._shuffle_roidb_inds()
+            out.extend(self._perm)
+        self._cur = len(self._roidb)
+        return np.asarray(out[: self._batch])
+
+    def forward(self):
+        inds = self._get_next_minibatch_inds()
+        return get_minibatch([self._roidb[i] for i in inds], self._cfg, self._rng,
+                             reader=self._reader)

@@ -12,6 +12,11 @@ its weight to the input's dtype (bf16 on the card), as the JAX modules do.
 
 The stem is the plain 7x7/s2 conv → BN → relu → 3x3/s2 maxpool; the JAX
 package's space-to-depth stem computes the same thing for a TPU's lanes.
+
+Training: frozen BN is buffers, never parameters; ``freeze_fixed_blocks``
+sets ``requires_grad=False`` on conv1 and layer1..layer``FIXED_BLOCKS``
+(``frozen_param`` of the JAX ResNetV1), so autograd neither computes their
+gradients nor runs the backward below the first trainable layer.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from frcnn_tpu_torch.ops.cuda.fused_block import fused_bottleneck
+from frcnn_tpu_torch.ops.cuda.fused_block import FusedBottleneckFunction
 
 _RESNET_DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
@@ -109,7 +114,8 @@ class Bottleneck(nn.Module):
         if self.downsample is not None:
             md, bds = self.downsample[1].folded(dt)
             wds = self.downsample[0].weight[:, :, 0, 0].t().to(dt) * md
-        out = fused_bottleneck(x.permute(0, 2, 3, 1), w1, a1, w2, a2, w3, a3, wds, bds)
+        out = FusedBottleneckFunction.apply(x.permute(0, 2, 3, 1), w1, a1, w2, a2, w3, a3,
+                                            wds, bds)
         return out.permute(0, 3, 1, 2)
 
 
@@ -149,6 +155,13 @@ class ResNetV1(nn.Module):
         """pooled (N, 1024, p, p) → (N, 2048)."""
         return self.layer4(pooled).mean(dim=(2, 3))
 
+    def freeze_fixed_blocks(self, fixed_blocks: int) -> None:
+        """conv1 and layer1..layer{fixed_blocks} stop training
+        (cfg.RESNET.FIXED_BLOCKS); BN is frozen throughout."""
+        frozen = [self.conv1] + [getattr(self, f"layer{i}") for i in range(1, fixed_blocks + 1)]
+        for module in frozen:
+            module.requires_grad_(False)
+
 
 def preprocess_images(images, cfg, dtype):
     """Mean-subtract and scale (B, H, W, 3) BGR pixels; returns NHWC in dtype."""
@@ -160,6 +173,8 @@ def preprocess_images(images, cfg, dtype):
 def build_backbone(name: str, cfg):
     """ResNet factory (reference tools/trainval_net.py --net)."""
     if name in ("res50", "res101", "res152"):
-        return ResNetV1(depth=int(name[3:]),
-                        fused=cfg.DEVICE.FUSED_RESNET_BLOCKS and cfg.DEVICE.USE_KERNELS)
+        net = ResNetV1(depth=int(name[3:]),
+                       fused=cfg.DEVICE.FUSED_RESNET_BLOCKS and cfg.DEVICE.USE_KERNELS)
+        net.freeze_fixed_blocks(cfg.RESNET.FIXED_BLOCKS)
+        return net
     raise ValueError(f"backbone {name!r} is not ported (expected res50, res101, res152)")

@@ -1,10 +1,13 @@
 """Detector assembly (``frcnn_tpu/models/network.py``): the two-stage
-Faster R-CNN test path with fixed output shapes.
+Faster R-CNN with fixed output shapes.
 
   * ``predict``: preprocess → backbone trunk → RPN → proposal layer
     (K1) → RoIAlign (K2) → tail + heads; raw outputs.
   * ``detect``: predict + delta decode, clip, rescale to original image
     coordinates, per-class threshold + NMS (K1), global top-k → (B, D, 6).
+  * ``train_forward``: the trunk and RPN, the train proposal layer (K1),
+    anchor targets (K4, K5) and proposal targets, RoIAlign (K2 forward,
+    K2b backward), the tail and heads, and the four losses.
 
 Dtypes follow the JAX module: trunk, RPN convs and tail in the compute
 dtype, RPN outputs cast to f32; ``cls_score``/``bbox_pred`` run in f32.
@@ -20,7 +23,10 @@ from torch import nn
 
 from frcnn_tpu_torch.config import Config
 from frcnn_tpu_torch.models.backbones import build_backbone, preprocess_images
+from frcnn_tpu_torch.models.losses import detection_losses_compact
 from frcnn_tpu_torch.models.proposals import proposal_layer_batch
+from frcnn_tpu_torch.models.targets import (anchor_target_compact, proposal_target_layer,
+                                            uniform_draws)
 from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
 from frcnn_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
 from frcnn_tpu_torch.ops.nms import batched_class_nms
@@ -113,10 +119,12 @@ class FasterRCNN(nn.Module):
     def _conv(self, x, conv: nn.Conv2d, padding: int = 0):
         return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=padding)
 
-    def _rpn(self, feat):
+    def _rpn(self, feat, sel=None):
         """feat (B, C, H, W) → (fg_prob (B, K), deltas (B, K, 4)) in anchor
         order (row-major cells, A contiguous per cell), f32.  fg_prob is
-        sigmoid(fg − bg), as the JAX module computes it."""
+        sigmoid(fg − bg), as the JAX module computes it.  With ``sel``
+        (B, S) anchor ids, also the (bg, fg) logits of those anchors
+        (B, S, 2), read from the bg-block/fg-block channel layout."""
         b, _, h, w = feat.shape
         a = self.config.num_anchors
         x = F.relu(self._conv(feat, self.rpn_net, padding=1))
@@ -124,7 +132,11 @@ class FasterRCNN(nn.Module):
         box = self._conv(x, self.rpn_bbox_pred).float()
         prob = torch.sigmoid(cls[:, a:] - cls[:, :a]).permute(0, 2, 3, 1).reshape(b, h * w * a)
         deltas = box.permute(0, 2, 3, 1).reshape(b, h * w * a, 4)
-        return prob, deltas
+        if sel is None:
+            return prob, deltas
+        # channel j*A + a of cell c is logit j of anchor c*A + a
+        logits = cls.reshape(b, 2, a, h * w).permute(0, 3, 2, 1).reshape(b, h * w * a, 2)
+        return prob, deltas, torch.take_along_dim(logits, sel[..., None], dim=1)
 
     def _anchors(self, h: int, w: int, device):
         key = (h, w, str(device))
@@ -144,13 +156,15 @@ class FasterRCNN(nn.Module):
             sampling_ratio=cfg.DEVICE.ROI_SAMPLING_RATIO, use_kernels=self.use_kernels)
 
     def _classify(self, pooled):
-        """(B, N, p, p, C) → (cls_prob (B, N, classes), bbox_pred (B, N, 4*classes))."""
+        """(B, N, p, p, C) → (cls_logits (B, N, classes), cls_prob (B, N,
+        classes), bbox_pred (B, N, 4*classes))."""
         b, n = pooled.shape[:2]
         flat = pooled.reshape((b * n,) + pooled.shape[2:]).to(self.dtype).permute(0, 3, 1, 2)
         fc = self.backbone.head_to_tail(flat).float()
         cls_logits = F.linear(fc, self.cls_score.weight, self.cls_score.bias)
         bbox = F.linear(fc, self.bbox_pred.weight, self.bbox_pred.bias)
-        return (torch.softmax(cls_logits, dim=-1).reshape(b, n, -1), bbox.reshape(b, n, -1))
+        return (cls_logits.reshape(b, n, -1), torch.softmax(cls_logits, dim=-1).reshape(b, n, -1),
+                bbox.reshape(b, n, -1))
 
     def predict(self, images, im_info):
         """images (B, H, W, 3) BGR; im_info (B, 3) [h, w, scale] → dict of
@@ -167,7 +181,7 @@ class FasterRCNN(nn.Module):
             pre_nms_top_n=cfg.TEST.RPN_PRE_NMS_TOP_N,
             post_nms_top_n=cfg.TEST.RPN_POST_NMS_TOP_N,
             nms_thresh=cfg.TEST.RPN_NMS_THRESH, use_kernels=self.use_kernels)
-        cls_prob, bbox_pred = self._classify(self._pool(feat, rois))
+        _, cls_prob, bbox_pred = self._classify(self._pool(feat, rois))
         return {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid,
                 "cls_prob": cls_prob, "bbox_pred": bbox_pred}
 
@@ -178,6 +192,43 @@ class FasterRCNN(nn.Module):
         return postprocess_detections(out, im_info, self.config, self.num_classes,
                                       max_per_image or self.config.TEST.MAX_PER_IMAGE,
                                       use_kernels=self.use_kernels)
+
+    def train_forward(self, images, im_info, gt_boxes, gt_labels, gt_valid, draws):
+        """TRAIN forward: images (B, H, W, 3) BGR, im_info (B, 3), gt_boxes
+        (B, G, 4) padded, gt_labels (B, G), gt_valid (B, G); ``draws`` is a
+        ``torch.Generator`` on the model's device, or a dict of the uniform
+        draws ``uniform_draws`` makes (anchor_fg, anchor_bg (B, K); roi_fg,
+        roi_bg (B, P + G) for P = min(RPN_POST_NMS_TOP_N, RPN_PRE_NMS_TOP_N,
+        K) proposals).  Returns (losses dict of batch-mean scalars,
+        aux dict)."""
+        cfg = self.config
+        t = cfg.TRAIN
+        b = images.shape[0]
+        x = preprocess_images(images, cfg, self.dtype).permute(0, 3, 1, 2)
+        feat = self.backbone.extract_features(x)
+        anchors = self._anchors(feat.shape[2], feat.shape[3], feat.device)
+        if isinstance(draws, torch.Generator):
+            n_rois = min(t.RPN_POST_NMS_TOP_N, t.RPN_PRE_NMS_TOP_N, anchors.shape[0])
+            draws = uniform_draws(draws, b, anchors.shape[0], n_rois + gt_boxes.shape[1])
+
+        at = anchor_target_compact(anchors, gt_boxes, gt_valid, im_info, draws["anchor_fg"],
+                                   draws["anchor_bg"], cfg)
+        fg_prob, deltas, cls_rows = self._rpn(feat, at.sel)
+        rois, roi_scores, roi_valid = proposal_layer_batch(
+            fg_prob.detach(), deltas.detach(), anchors, im_info,
+            pre_nms_top_n=t.RPN_PRE_NMS_TOP_N, post_nms_top_n=t.RPN_POST_NMS_TOP_N,
+            nms_thresh=t.RPN_NMS_THRESH, use_kernels=self.use_kernels)
+        pt = proposal_target_layer(rois, roi_valid, gt_boxes, gt_labels, gt_valid,
+                                   draws["roi_fg"], draws["roi_bg"], cfg, self.num_classes)
+
+        cls_logits, cls_prob, bbox_pred = self._classify(self._pool(feat, pt.rois))
+        box_rows = torch.take_along_dim(deltas, at.sel[..., None], dim=1)
+        per_image = detection_losses_compact(cls_rows, box_rows, at, cls_logits, bbox_pred, pt)
+        losses = {name: v.mean() for name, v in per_image.items()}
+        aux = {"rois": pt.rois, "roi_labels": pt.labels, "cls_prob": cls_prob,
+               "n_fg": (pt.labels > 0).sum(), "n_proposals": roi_valid.sum(),
+               "proposals": rois, "proposal_scores": roi_scores, "proposal_valid": roi_valid}
+        return losses, aux
 
 
 def build_model(net: str, num_classes: int, cfg: Config, dtype=torch.float32):

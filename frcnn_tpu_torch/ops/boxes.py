@@ -14,6 +14,26 @@ import torch
 BBOX_XFORM_CLIP = math.log(1000.0 / 16.0)
 
 
+def bbox_transform(ex_rois, gt_rois, eps: float = 1e-14):
+    """Encode gt boxes relative to example boxes: (..., 4), (..., 4) →
+    (..., 4) deltas (dx, dy, dw, dh), widths clamped below at ``eps``."""
+    ex_w = ex_rois[..., 2] - ex_rois[..., 0] + 1.0
+    ex_h = ex_rois[..., 3] - ex_rois[..., 1] + 1.0
+    ex_cx = ex_rois[..., 0] + 0.5 * ex_w
+    ex_cy = ex_rois[..., 1] + 0.5 * ex_h
+
+    gt_w = gt_rois[..., 2] - gt_rois[..., 0] + 1.0
+    gt_h = gt_rois[..., 3] - gt_rois[..., 1] + 1.0
+    gt_cx = gt_rois[..., 0] + 0.5 * gt_w
+    gt_cy = gt_rois[..., 1] + 0.5 * gt_h
+
+    dx = (gt_cx - ex_cx) / torch.clamp(ex_w, min=eps)
+    dy = (gt_cy - ex_cy) / torch.clamp(ex_h, min=eps)
+    dw = torch.log(torch.clamp(gt_w, min=eps) / torch.clamp(ex_w, min=eps))
+    dh = torch.log(torch.clamp(gt_h, min=eps) / torch.clamp(ex_h, min=eps))
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
 def bbox_transform_inv(boxes, deltas, clip: bool = True):
     """Decode deltas (..., 4*K) on top of boxes (..., 4); same shape as deltas."""
     boxes = boxes.to(deltas.dtype)

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch twins.
 
-K1 ``nms_kernel`` (batched greedy NMS), K2 ``roi_align_kernel`` (RoIAlign
-forward), K3 ``fused_block`` (fused stride-1 bottleneck).  Sources live in
+K1 ``nms_kernel`` (batched greedy NMS), K2/K2b ``roi_align_kernel``
+(RoIAlign forward and backward), K3 ``fused_block`` (fused stride-1
+bottleneck), K4 ``overlap_kernel`` (anchor-overlap statistics), K5
+``select_kernel`` (threshold top-k).  Sources live in
 ``frcnn_tpu_torch/csrc``; ``build`` compiles them at first use.  Importing
 these modules needs neither a card nor ``nvcc``.
 """

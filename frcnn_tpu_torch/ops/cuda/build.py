@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 Every ``frcnn_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, at first
-use, into ``frcnn_tpu_torch/_build/`` (git-ignored), and loaded with
+(``sm_90a``), one ``nvcc`` per source, all started together, and the
+objects are linked into ONE shared library with a plain C interface, at
+first use, into ``frcnn_tpu_torch/_build/`` (git-ignored), and loaded with
 ``ctypes``.  The library name carries a hash of the sources and flags, so an
 edited kernel is rebuilt and a stale library is never loaded.  No PyTorch
 header is compiled: a build takes seconds, not minutes.
@@ -26,17 +27,21 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of the extern "C" launchers (each returns a cudaError_t).
+# C signatures of the extern "C" launchers, the stream last (each returns a
+# cudaError_t).
 _SIGNATURES = {
     "frcnn_nms_batched": (_P, _P, _I, _I, _F, _I, _P, _P, _P),
     "frcnn_roi_align_fwd": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P),
+    "frcnn_roi_align_bwd": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P),
     "frcnn_fused_bottleneck": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P),
+    "frcnn_anchor_overlap_stats": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
+    "frcnn_topk_threshold": (_P, _I, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -77,11 +82,26 @@ def library():
         if not os.path.exists(path):
             t0 = time.perf_counter()
             tmp = f"{path}.{os.getpid()}.tmp"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                                  capture_output=True, text=True)
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+            nvcc = _nvcc()
+            objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+                     for src, obj in zip(sources, objs)]
+            logs = [proc.communicate()[0] for proc in procs]
+            BUILD_LOG = "".join(logs)
+            failed = [src for src, proc in zip(sources, procs) if proc.returncode != 0]
+            if not failed:
+                link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                      capture_output=True, text=True)
+                BUILD_LOG += link.stdout + link.stderr
+                if link.returncode != 0:
+                    failed = ["link"]
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
+            if failed:
+                raise RuntimeError(f"nvcc failed for {failed}:\n{BUILD_LOG}")
             os.replace(tmp, path)
             BUILD_SECONDS = time.perf_counter() - t0
         lib = ctypes.CDLL(path)
@@ -105,7 +125,11 @@ def launch(name: str, *args) -> None:
 
     lib = library()
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, name)(*args, stream)
+    fn = getattr(lib, name)
+    if len(args) + 1 != len(fn.argtypes):
+        raise TypeError(f"{name}: {len(args)} arguments + stream, C signature has "
+                        f"{len(fn.argtypes)}")
+    err = fn(*args, stream)
     if err != 0:
         msg = lib.frcnn_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

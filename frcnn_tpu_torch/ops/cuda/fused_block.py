@@ -12,9 +12,16 @@ bf16 after bias + relu, where the TPU kernel rounds them.
 
 ``bottleneck_reference`` is the plain twin (``bottleneck_reference`` of the
 JAX module): three convolutions with the same folded weights, biases added
-in f32, rounding to the input dtype at the same points.  In bf16 on a card
-its convolutions are cuDNN's, whose outputs are also rounded to bf16 before
-the bias; in f32 it is exact math up to summation order.
+in f32 (f64 for f64 inputs), rounding to the input dtype at the same
+points.  In bf16 on a card its convolutions are cuDNN's, whose outputs are
+also rounded to bf16 before the bias; in f32 it is exact math up to
+summation order.
+
+``FusedBottleneckFunction`` gives the block its gradient: forward K3 (the
+twin on CPU tensors), backward autograd of ``bottleneck_reference``
+recomputed from the saved inputs, as the JAX module's ``_id_bwd`` /
+``_ds_bwd``.  The TPU package has no backward kernel for the block, so
+neither has this one.
 """
 
 from __future__ import annotations
@@ -32,21 +39,22 @@ def bottleneck_reference(x, w1, b1, w2, b2, w3, b3, wds=None, bds=None):
     (mid, Cout); optional projection wds (Cin, Cout); bias vectors.
     Returns (B, H, W, Cout) in x's dtype."""
     dt = x.dtype
+    acc = torch.promote_types(dt, torch.float32)
     xn = x.permute(0, 3, 1, 2)
 
     def conv(v, k_oihw, pad=0):
-        return F.conv2d(v, k_oihw.to(dt), padding=pad).float()
+        return F.conv2d(v, k_oihw.to(dt), padding=pad).to(acc)
 
     def act(v, bias):
-        return torch.relu(v + bias.float()[:, None, None]).to(dt)
+        return torch.relu(v + bias.to(acc)[:, None, None]).to(dt)
 
     y = act(conv(xn, w1.t()[:, :, None, None]), b1)
     y = act(conv(y, w2.permute(3, 2, 0, 1), 1), b2)
-    y = conv(y, w3.t()[:, :, None, None]) + b3.float()[:, None, None]
+    y = conv(y, w3.t()[:, :, None, None]) + b3.to(acc)[:, None, None]
     if wds is not None:
-        res = conv(xn, wds.t()[:, :, None, None]) + bds.float()[:, None, None]
+        res = conv(xn, wds.t()[:, :, None, None]) + bds.to(acc)[:, None, None]
     else:
-        res = xn.float()
+        res = xn.to(acc)
     return torch.relu(y + res).to(dt).permute(0, 2, 3, 1).contiguous()
 
 
@@ -84,3 +92,35 @@ def fused_bottleneck(x, w1, b1, w2cat, b2, w3, b3, wds=None, bds=None):
                  *ptrs, out.data_ptr())
     build.LAUNCH_COUNTS["fused_block"] += 1
     return out
+
+
+class FusedBottleneckFunction(torch.autograd.Function):
+    """``fused_bottleneck`` with a gradient: the forward is K3 (its twin on
+    CPU tensors); the backward recomputes ``bottleneck_reference`` from the
+    saved inputs under ``enable_grad`` and differentiates it (JAX:
+    ``fused_bottleneck_vjp`` / ``fused_bottleneck_ds_vjp``).  Arguments as
+    ``fused_bottleneck``; ``wds``/``bds`` may be None."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2cat, b2, w3, b3, wds, bds):
+        ctx.save_for_backward(x, w1, b1, w2cat, b2, w3, b3, wds, bds)
+        return fused_bottleneck(x, w1, b1, w2cat, b2, w3, b3, wds, bds)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        wanted = [i for i, t in enumerate(saved) if t is not None and ctx.needs_input_grad[i]]
+        if not wanted:
+            return (None,) * len(saved)
+        inputs = [t.detach().requires_grad_(i in wanted) if t is not None else None
+                  for i, t in enumerate(saved)]
+        x, w1, b1, w2cat, b2, w3, b3, wds, bds = inputs
+        mid = w1.shape[1]
+        with torch.enable_grad():
+            out = bottleneck_reference(x, w1, b1, w2cat.reshape(3, 3, mid, mid), b2,
+                                       w3, b3, wds, bds)
+            grads = torch.autograd.grad(out, [inputs[i] for i in wanted], grad)
+        result = [None] * len(saved)
+        for i, g in zip(wanted, grads):
+            result[i] = g
+        return tuple(result)

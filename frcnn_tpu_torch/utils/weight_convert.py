@@ -23,7 +23,7 @@ _BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
 def _t(a):
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
 def _conv(kernel):

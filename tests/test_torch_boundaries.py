@@ -1,12 +1,15 @@
 """Boundaries of the PyTorch port, on the CPU: it imports no jax, its
 config keeps the JAX package's keys and defaults, its kernel wrappers run
-their plain twins (and count no launch) on CPU tensors, ``chip_smoke.py``
-fails without a card, and the cv2-free resize stays within a stated bound
-of ``cv2.resize``."""
+their plain twins (and count no launch) on CPU tensors, the ctypes
+signatures match the CUDA sources, ``chip_smoke.py`` (with or without
+``--only kernels`` or ``--profile``) fails without a card, and the cv2-free resize stays
+within a stated bound of ``cv2.resize``."""
 
 import dataclasses
+import glob
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -23,7 +26,9 @@ from frcnn_tpu_torch.data.loader import prep_im_for_blob, resize_bilinear
 from frcnn_tpu_torch.ops.cuda import build
 from frcnn_tpu_torch.ops.cuda.fused_block import fused_bottleneck
 from frcnn_tpu_torch.ops.cuda.nms_kernel import nms_mask_batched
-from frcnn_tpu_torch.ops.cuda.roi_align_kernel import roi_align_forward
+from frcnn_tpu_torch.ops.cuda.overlap_kernel import anchor_overlap_stats
+from frcnn_tpu_torch.ops.cuda.roi_align_kernel import roi_align_backward, roi_align_forward
+from frcnn_tpu_torch.ops.cuda.select_kernel import topk_threshold
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,11 +46,34 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_chip_smoke_fails_without_a_card():
-    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
-                          text=True, timeout=300)
+@pytest.mark.parametrize("args", [[], ["--only", "kernels"], ["--profile"]])
+def test_chip_smoke_fails_without_a_card(args):
+    proc = subprocess.run([sys.executable, "chip_smoke.py", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+    assert "no CUDA device" in proc.stderr          # the arguments parsed
+
+
+def test_chip_smoke_rejects_unknown_only():
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--only", "train"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 2 and "invalid choice" in proc.stderr
+
+
+def test_ctypes_signatures_match_sources():
+    """Every extern "C" launcher's parameter count (the stream included)
+    equals its ctypes signature: a missing pointer argument is passed as a
+    32-bit int and crashes the process on the card."""
+    declared = {}
+    for src in glob.glob(os.path.join(build.CSRC, "*.cu")):
+        with open(src) as f:
+            text = f.read()
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            declared[name] = len(params.split(","))
+    assert set(declared) == set(build._SIGNATURES)
+    for name, params in declared.items():
+        assert len(build._SIGNATURES[name]) == params, name
 
 
 def test_config_keys_and_defaults_match_jax():
@@ -77,6 +105,13 @@ def test_wrappers_on_cpu_run_twins_and_count_nothing(rng):
     w = [torch.randn(16, 4), torch.randn(4), torch.randn(36, 4), torch.randn(4),
          torch.randn(4, 16), torch.randn(16)]
     assert fused_bottleneck(x, *w).shape == (1, 5, 7, 16)
+    assert roi_align_backward(torch.randn(1, 1, 7, 7, 4), torch.tensor([[[0.0, 0.0, 60.0, 40.0]]]),
+                              (6, 8)).shape == (1, 6, 8, 4)
+    stats = anchor_overlap_stats(boxes[0], boxes[:, :3], torch.ones(2, 3, dtype=torch.bool),
+                                 torch.ones(2, 70, dtype=torch.bool))
+    assert [t.shape for t in stats] == [(2, 70)] * 3
+    vals, idx = topk_threshold(torch.randn(2, 50), 7)
+    assert vals.shape == idx.shape == (2, 7) and idx.dtype == torch.int32
     assert sum(build.LAUNCH_COUNTS.values()) == 0
     with pytest.raises(ValueError):
         build.check_cuda("x", x)  # the kernels take CUDA tensors only
