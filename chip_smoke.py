@@ -2,14 +2,17 @@
 """Smoke run of the PyTorch port (``frcnn_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --only kernels   # stop after the kernel phases (1-9)
-    python3 chip_smoke.py --profile        # and a stage breakdown of the train step (14)
+    python3 chip_smoke.py --only kernels   # stop after the kernel phases (1-11)
+    python3 chip_smoke.py --profile        # and stage breakdowns of the train step
+                                           # and of FPN detect (18, 19)
 
 Phases, each of which raises on failure (the script then exits non-zero):
   0. the card: name and power limit from nvidia-smi, torch/CUDA versions;
   1. build the hand-written kernels from frcnn_tpu_torch/csrc with nvcc;
-  2. K1 (batched NMS) against its plain twin: nms_fixed_batched indices and
-     valid masks equal, uncapped keep masks bit-equal;
+  2. K1 (batched NMS) against its plain twin at the C4 proposal shape (8 x
+     6000), the FPN proposal shape (8 x 4741, an invalid NEG_INF tail) and
+     the per-class shape (168 x 300): nms_fixed_batched indices and valid
+     masks equal; uncapped keep masks bit-equal;
   3. K2 (RoIAlign forward) against its twin, f32 and bf16, at the serving
      shape (8 x 300 rois, 50x76x1024) and the train shape (8 x 128 rois,
      38x64x1024);
@@ -21,24 +24,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
   7. K4 (anchor-overlap stats) bit-equal to its twin at the train shape
      (21888 anchors, 8 x 64 padded gt);
   8. K5 (threshold top-k) indices equal to its twin at (8, 21888), k 128
-     and 256, and on rows of ties, NaN and +-inf, and k = S;
-  9. (with ``--only kernels``: print the kernel results and the card line
+     and 256, on rows of ties, NaN and +-inf, and k = S, and at the FPN
+     serving rows (8, 182400) and (8, 45600), k 1000;
+  9. K6 (multilevel RoIAlign forward) against its twin, f32 and bf16, at
+     the FPN serving shape (P2-P5 of 800x1216, 256 channels, 8 x 300
+     rois), every level populated and with one level empty; and K6 with
+     every roi on one level bit-equal to K2 on that level;
+ 10. single-problem NMS (``nms_fixed``, K1 at B = 1: the TPU package's
+     K1b) at 6000 boxes, t=0.7: indices and valid equal to the twin;
+ 11. (with ``--only kernels``: print the kernel results and the card line
      and stop; a partial run prints no ok line);
- 10. the serving path: res50 C4, 21 classes, seeded random weights, bf16
+ 12. the serving path: res50 C4, 21 classes, seeded random weights, bf16
      trunk, one 800x1216 bucket; 3 requests of 8 images through
      ``Detector``, with the kernels' launch counts, then the steady-state
      batch time;
- 11. one image through ``detect`` in f32 on the card and on a CPU copy of
+ 13. one image through ``detect`` in f32 on the card and on a CPU copy of
      the same model; detections matched one to one;
- 12. the train path: ``SolverWrapper.train_model`` for 5 steps of batch 8
+ 14. the FPN serving path: res50_fpn, the same bucket, batch, weights seed
+     and requests as 12: first the served RPN's bf16 logit product at P2
+     against the f32 product of the same operands, then the requests with
+     their launch counts per batch (K3 6, K5 2, K1 2, K6 1), then the
+     steady-state batch time;
+ 15. one image through FPN ``detect`` in f32 on the card and on a CPU copy,
+     matched one to one;
+ 16. the train path: ``SolverWrapper.train_model`` for 5 steps of batch 8
      at 608x1024, bf16 trunk, over a synthetic in-memory roidb; launch
      counts per step, finite losses, frozen parameters bit-unchanged and
      trainable ones changed; then the steady-state step time;
- 13. one f32 train step on the card and on a CPU copy with the same weights
+ 17. one f32 train step on the card and on a CPU copy with the same weights
      and draws: losses and parameter updates matched;
- 14. (with ``--profile``) CUDA events around each stage of a steady-state
+ 18. (with ``--profile``) CUDA events around each stage of a steady-state
      train step and torch.profiler over 3 steps: stage times, the device's
-     idle share and the top kernels, also in chiprun_out/profile_train.json.
+     idle share and the top kernels, also in chiprun_out/profile_train.json;
+ 19. (with ``--profile``) the same for a steady-state FPN detect batch,
+     into chiprun_out/profile_fpn.json.
 Then one JSON line of per-kernel results, the card line, and, last, the
 JSON ok line.  TF32 is off for convolutions and matmuls throughout, so f32
 comparisons are f32.
@@ -53,6 +72,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -111,7 +131,7 @@ def random_boxes(rng, b, n, size=800.0, clusters=40):
 
 def check_nms(dev):
     from frcnn_tpu_torch.ops.cuda.nms_kernel import nms_mask_batched, nms_mask_reference
-    from frcnn_tpu_torch.ops.nms import nms_fixed_batched
+    from frcnn_tpu_torch.ops.nms import NEG_INF, nms_fixed_batched
 
     rng = np.random.RandomState(0)
     results = {}
@@ -139,6 +159,26 @@ def check_nms(dev):
     valid[3] = False                                   # a problem with no valid box
     prop_args, prop_kw = fixed("proposals (8, 6000, t=0.7, cap 300)", boxes, scores,
                                valid, 0.7, 300, True)
+    # the FPN proposal shape (4741 = 74 * 64 + 5 candidates, a partial last
+    # block), fed as FPN ``_propose`` feeds it: sorted, the anchors centred
+    # on padding last with score NEG_INF and valid = score > NEG_INF / 2
+    b, n = 8, FPN_CANDIDATES
+    boxes = random_boxes(rng, b, n, size=1216.0, clusters=60)
+    boxes[0] = np.tile(boxes[0, :100], (n // 100 + 1, 1))[:n]   # 100 distinct: the walk
+    scores = -np.sort(-rng.uniform(0, 1, (b, n)), axis=1).astype(np.float32)  # reaches the tail
+    n_valid = rng.randint(2500, n + 1, b)
+    n_valid[0], n_valid[1] = n, n - 1                  # no padding; one invalid in the tail
+    scores[np.arange(n)[None, :] >= n_valid[:, None]] = NEG_INF
+    fpn_args, fpn_kw = fixed(f"FPN proposals (8, {n}, t=0.7, cap 300)", boxes, scores,
+                             scores > NEG_INF / 2, 0.7, 300, True)
+    k = nms_mask_batched(fpn_args[0], 0.7, fpn_kw["valid"])
+    t = nms_mask_reference(fpn_args[0], 0.7, fpn_kw["valid"])
+    torch.cuda.synchronize()
+    if not torch.equal(k, t):
+        raise AssertionError(f"K1 FPN proposals uncapped: keep masks differ "
+                             f"({(k != t).sum().item()} bits)")
+    log(f"K1 FPN proposals uncapped (8, {n}, t=0.7): keep masks bit-equal, "
+        f"{k[:, -(n % 64):].sum().item()} kept in the partial last block")
     # per-class shape: unsorted scores, score-threshold validity, cap 100
     b, n = 168, 300
     boxes = random_boxes(rng, b, n)
@@ -179,7 +219,8 @@ def check_nms(dev):
 
     timings = {}
     for name, args, kw, sort, iters in (("proposals", prop_args, prop_kw, False, 3),
-                                        ("per_class", cls_args, cls_kw, True, 5)):
+                                        ("per_class", cls_args, cls_kw, True, 5),
+                                        ("FPN proposals", fpn_args, fpn_kw, False, 3)):
         bx, thresh, vd, cap = mask_args(args, kw, sort)
         k_ms = cuda_ms(lambda: nms_mask_batched(bx, thresh, vd, max_keep=cap))
         t_ms = cuda_ms(lambda: nms_mask_reference(bx, thresh, vd), iters=iters, warmup=1)
@@ -455,7 +496,104 @@ def check_select(dev):
     log(f"K5 ((8, {n}) production priorities at k 128 and 256; rows of ties, NaN and +-inf at "
         f"k 1..S): indices and value bits equal to the twin; kernel {k_ms:.4f} ms, "
         f"plain twin (stable sort) {t_ms:.4f} ms for the two launches")
-    return {"ms": k_ms, "plain_ms": t_ms, "max_abs_err": 0.0}
+    # the FPN serving rows: P2 and P3 of 800x1216 (3 anchors a cell), k 1000,
+    # probabilities on a grid (runs of exact ties, as over padding)
+    fpn = {}
+    for name, (h, w) in (("P2", FPN_LEVELS[0]), ("P3", FPN_LEVELS[1])):
+        p = np.round(rng.uniform(0, 1, (b, 3 * h * w)) * 4096) / 4096
+        fpn[name] = torch.from_numpy(p.astype(np.float32)).to(dev)
+        same(f"FPN {name} {tuple(p.shape)}", fpn[name], 1000)
+    fk_ms = sum(cuda_ms(lambda v=v: topk_threshold(v, 1000)) for v in fpn.values())
+    ft_ms = sum(cuda_ms(lambda v=v: topk_threshold_reference(v, 1000)) for v in fpn.values())
+    log(f"K5 FPN serving rows (8, 182400) and (8, 45600), k 1000, with ties: indices and value "
+        f"bits equal to the twin; kernel {fk_ms:.4f} ms, plain twin (stable sort) "
+        f"{ft_ms:.4f} ms for the two launches")
+    return {"ms": k_ms + fk_ms, "plain_ms": t_ms + ft_ms, "max_abs_err": 0.0}
+
+
+# ---------------------------------------------------------------------------
+# The FPN serving path's kernels: K6, and K1 for one problem (K1b)
+# ---------------------------------------------------------------------------
+
+FPN_LEVELS = ((200, 304), (100, 152), (50, 76), (25, 38))   # P2-P5 of 800x1216
+FPN_STRIDES = (4, 8, 16, 32)
+FPN_CANDIDATES = 4 * 1000 + 13 * 19 * 3   # top 1000 of P2-P5 and all of P6: 4741
+
+
+def check_roi_align_ml(dev):
+    from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (roi_align_forward,
+                                                           roi_align_multilevel_forward,
+                                                           roi_align_multilevel_reference)
+
+    rng = np.random.RandomState(10)
+    b, r, c = 8, 300, 256
+    feats32 = [torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(dev)
+               for h, w in FPN_LEVELS]
+    rois = random_boxes(rng, b, r, size=1216.0)
+    rois[:, :20] = rng.uniform(-400, 1616, (b, 20, 4))             # partly / wholly outside
+    rois[:, 20:30, 2:] = rois[:, 20:30, :2]                        # degenerate: zero size
+    rois[:, 30:40] = 0.0                                           # padding rois
+    rois[:, 40:50, 2:] = rois[:, 40:50, :2] - 5.0                  # inverted corners
+    rois_t = torch.from_numpy(rois).to(dev)
+    every = torch.from_numpy(rng.randint(0, 4, (b, r)).astype(np.int32)).to(dev)
+    one_empty = torch.where(every == 2, 1, every).to(torch.int32)
+    worst = 0.0
+    for case, levels in (("every level populated", every), ("level 2 empty", one_empty)):
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = [f.to(dtype) for f in feats32]
+            k = roi_align_multilevel_forward(feats, rois_t, levels, FPN_STRIDES)
+            t = roi_align_multilevel_reference(feats, rois_t, levels, FPN_STRIDES)
+            torch.cuda.synchronize()
+            err = (k.float() - t.float()).abs().max().item()
+            scale = t.float().abs().max().item()
+            if dtype == torch.float32:
+                tol, rule = 1e-5 * scale, "1e-5 of max|twin|"
+            else:
+                tol, rule = bf16_ulp(scale), "one bf16 ulp of max|twin|"
+                worst = max(worst, err)
+            if not (k.shape == (b, r, 7, 7, c) and err <= tol):
+                raise AssertionError(f"K6 {case} {dtype}: max abs err {err} > {tol} ({rule})")
+            log(f"K6 {case} {str(dtype)[6:]} (P2-P5 of 800x1216 x 256, 8 x 300 rois): max abs "
+                f"err {err:.3e} <= {tol:.3e} ({rule})")
+    # every roi on P4: K6 and K2 share the sample geometry and interpolation
+    on_p4 = torch.full_like(every, 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = [f.to(dtype) for f in feats32]
+        k6 = roi_align_multilevel_forward(feats, rois_t, on_p4, FPN_STRIDES)
+        k2 = roi_align_forward(feats[2], rois_t, 7, 1.0 / FPN_STRIDES[2], 2)
+        torch.cuda.synchronize()
+        if not torch.equal(k6, k2):
+            raise AssertionError(f"K6 on one level {dtype}: not bit-equal to K2 "
+                                 f"({(k6 != k2).sum().item()} values differ)")
+    log("K6 with every roi on P4: bit-equal to K2 on P4, f32 and bf16")
+    feats = [f.to(torch.bfloat16) for f in feats32]
+    k_ms = cuda_ms(lambda: roi_align_multilevel_forward(feats, rois_t, every, FPN_STRIDES))
+    t_ms = cuda_ms(lambda: roi_align_multilevel_reference(feats, rois_t, every, FPN_STRIDES),
+                   iters=5)
+    log(f"K6 time bf16 (every level populated): kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms")
+    return {"ms": k_ms, "plain_ms": t_ms, "max_abs_err": worst}
+
+
+def check_nms_single(dev):
+    from frcnn_tpu_torch.ops.nms import nms_fixed
+
+    rng = np.random.RandomState(11)
+    n = 6000
+    boxes = torch.from_numpy(random_boxes(rng, 1, n)[0]).to(dev)
+    scores = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.uniform(0, 1, n) > 0.1).to(dev)
+    ki, kv = nms_fixed(boxes, scores, 0.7, 300, valid=valid)
+    ti, tv = nms_fixed(boxes, scores, 0.7, 300, valid=valid, use_kernels=False)
+    torch.cuda.synchronize()
+    if not (torch.equal(ki, ti) and torch.equal(kv, tv)):
+        raise AssertionError("K1b (nms_fixed, one problem of 6000): idx/valid differ from the twin")
+    k_ms = cuda_ms(lambda: nms_fixed(boxes, scores, 0.7, 300, valid=valid))
+    t_ms = cuda_ms(lambda: nms_fixed(boxes, scores, 0.7, 300, valid=valid, use_kernels=False),
+                   iters=3, warmup=1)
+    log(f"K1b (nms_fixed: K1 at B = 1, 6000 boxes, t=0.7, cap 300): idx/valid equal to the "
+        f"twin, {kv.sum().item()} kept; nms_fixed with the kernel {k_ms:.4f} ms, with the "
+        f"plain twin {t_ms:.4f} ms")
+    return {"ms": k_ms, "plain_ms": t_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -488,10 +626,10 @@ def smoke_config(extra=()):
         "DEVICE.BUCKETS", "((800, 1216),)", "TEST.SCORE_THRESH", "0.0", *extra])
 
 
-def build_seeded(cfg, dtype, seed=0):
+def build_seeded(cfg, dtype, seed=0, net="res50"):
     from frcnn_tpu_torch.models.network import build_model, init_random_
 
-    model = build_model("res50", 21, cfg, dtype=dtype)
+    model = build_model(net, 21, cfg, dtype=dtype)
     init_random_(model, torch.Generator().manual_seed(seed))
     return model.eval()
 
@@ -586,6 +724,132 @@ def end_to_end(dev):
     match_dets(want, got, "f32 detect, card vs CPU")
     log(f"end to end (f32, TF32 off, 320x480): card detect (K1 x2, K2 x1) matches the CPU "
         f"copy (twins): {len(want)} detections, score atol 1e-3, box atol 5e-2")
+
+
+# per FPN detect batch at 800x1216: the 6 stride-1 blocks of layer1-2, K5 on
+# the P2 and P3 rows, the proposal NMS and the per-class NMS, one K6 launch
+FPN_LAUNCHES = {"fused_block": 6, "select": 2, "nms": 2, "roi_align_ml": 1}
+
+
+def check_rpn_logits(model, pyramid):
+    """The served RPN's logit product at P2 in bf16 (``fg_logit_diff`` as
+    ``_rpn_all_levels`` calls it: a bf16 mm with an f32 result) against the
+    f32 product of the same bf16 operands; then the P2 block of fg_prob
+    against the sigmoid of that plain product, laid out A-major."""
+    from frcnn_tpu_torch.models import fpn
+
+    calls = []
+    plain = fpn.fg_logit_diff
+
+    def recording(tokens, dw, db):
+        out = plain(tokens, dw, db)
+        calls.append((tokens, dw, db, out))
+        return out
+
+    fpn.fg_logit_diff = recording
+    try:
+        with torch.inference_mode():
+            fg_prob, _ = model._rpn_all_levels(pyramid)
+    finally:
+        fpn.fg_logit_diff = plain
+    tokens, dw, db, got = calls[0]                              # P2
+    b, hw, c = tokens.shape
+    a_n = dw.shape[1]
+    if tokens.dtype != torch.bfloat16 or got.dtype != torch.float32 or hw != 200 * 304:
+        raise AssertionError(f"RPN logits at P2: tokens {tokens.dtype} {tuple(tokens.shape)}, "
+                             f"result {got.dtype}")
+    with torch.inference_mode():
+        want = tokens.float() @ dw.to(torch.bfloat16).float() + db
+        prob_want = torch.sigmoid(want).transpose(1, 2).reshape(b, a_n * hw)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    perr = (fg_prob[:, :a_n * hw] - prob_want).abs().max().item()
+    tol = 1e-5 * scale
+    if not (err <= tol and perr <= tol):
+        raise AssertionError(f"RPN logits at P2 (bf16 mm, f32 result): max abs err {err}, "
+                             f"fg_prob err {perr} > {tol} (1e-5 of max|plain logit|)")
+    log(f"FPN RPN at P2 ({b} x {hw} x {c} bf16 tokens, {a_n} anchors): logits of the bf16 mm "
+        f"with an f32 result within {err:.3e}, A-major fg_prob within {perr:.3e} of the f32 "
+        f"product <= {tol:.3e} (1e-5 of max|logit| {scale:.3f})")
+
+
+def fpn_path(dev, card):
+    from frcnn_tpu_torch.engine.serve import Detector
+    from frcnn_tpu_torch.ops.cuda import build
+
+    cfg = smoke_config()
+    model = build_seeded(cfg, torch.bfloat16, net="res50_fpn").to(dev)
+    detector = Detector(model, uint8_input=True)
+    bh, bw = cfg.DEVICE.BUCKETS[0]
+    rng = np.random.RandomState(3)
+    requests = [synthetic_images(rng, [(bh, bw), (bh * 3 // 4, bw * 3 // 4)] * 4)
+                for _ in range(3)]
+
+    # finite pyramid activations at full size (outside the counted window)
+    blob = np.stack([item[1] for item in detector._prep_groups(requests[0])[(bh, bw)]])
+    with torch.inference_mode():
+        pyramid = model._pyramid(torch.from_numpy(blob).to(dev))
+    for level, p in enumerate(pyramid, start=2):
+        p = p.float()
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"FPN P{level} is not finite at 800x1216")
+    log("FPN pyramid at 800x1216: " + ", ".join(
+        f"P{lv} {tuple(p.shape[2:])} std {p.float().std().item():.3f}"
+        for lv, p in enumerate(pyramid, start=2)))
+    check_rpn_logits(model, pyramid)
+    del pyramid
+
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    results = [detector(images) for images in requests]
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCH_COUNTS)
+    log(f"FPN path: 3 requests x 8 images served; kernel launches {counts}")
+    n_det = 0
+    for req in results:
+        for dets in req:
+            if dets.ndim != 2 or dets.shape[1] != 6 or not np.isfinite(dets).all():
+                raise AssertionError(f"FPN: bad detections: shape {dets.shape}")
+            n_det += len(dets)
+    if n_det == 0:
+        raise AssertionError("FPN: no detections at SCORE_THRESH 0.0")
+    want = {name: 3 * n for name, n in FPN_LAUNCHES.items()}
+    if counts != want:
+        raise AssertionError(f"FPN launch counts {counts} != {want} ({FPN_LAUNCHES} per batch)")
+    log(f"FPN path: {n_det} finite detections of shape (k, 6) over 24 images; per batch "
+        + ", ".join(f"{name} {n}" for name, n in FPN_LAUNCHES.items()) + " launches")
+
+    data = torch.from_numpy(blob).to(dev)
+    im_info = torch.tensor([[float(bh), float(bw), 1.0]] * 8, device=dev)
+    ms = cuda_ms(lambda: detector.detect_blobs(data, im_info), iters=10, warmup=2)
+    log(f"FPN serving path steady state (res50_fpn, batch 8, {bh}x{bw}, bf16 trunk): {ms:.3f} ms "
+        f"per batch (median of 10, CUDA events), {8000.0 / ms:.2f} images/s on {card}")
+    return counts, detector, data, im_info
+
+
+def fpn_end_to_end(dev):
+    from frcnn_tpu_torch.engine.serve import Detector
+    from frcnn_tpu_torch.ops.cuda import build
+
+    cfg = smoke_config(["TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480",
+                        "DEVICE.BUCKETS", "((320, 480),)", "TEST.SCORE_THRESH", "0.05"])
+    cpu_model = build_seeded(cfg, torch.float32, seed=1, net="res50_fpn")
+    card_model = build_seeded(cfg, torch.float32, seed=1, net="res50_fpn").to(dev)
+    im = synthetic_images(np.random.RandomState(5), [(320, 480)])
+    before = dict(build.LAUNCH_COUNTS)
+    got = Detector(card_model)(im)[0]
+    after = dict(build.LAUNCH_COUNTS)
+    want = Detector(cpu_model)(im)[0]
+    ran = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+    # P2 of 320x480 (28800 anchors) passes the K5 gate, P3 (7200) does not
+    if ran != {"nms": 2, "roi_align_ml": 1, "select": 1}:
+        raise AssertionError(f"f32 FPN card detect did not run K1 x2, K6 x1, K5 x1: {ran}")
+    if len(want) == 0:
+        raise AssertionError("f32 FPN detect: no detections to compare")
+    match_dets(want, got, "f32 FPN detect, card vs CPU")
+    log(f"FPN end to end (f32, TF32 off, 320x480): card detect (K1 x2, K5 x1, K6 x1) matches "
+        f"the CPU copy (twins): {len(want)} detections, score atol 1e-3, box atol 5e-2")
 
 
 # ---------------------------------------------------------------------------
@@ -745,23 +1009,27 @@ TRAIN_STAGES = (
     ("optimizer", "step", "SGD update"),
 )
 
+# the same for FPN detect: the owner is the fpn module (its globals) or the model
+FPN_STAGES = (
+    ("fpn", "preprocess_images", "preprocess"),
+    ("backbone", "stages", "trunk (stem, layer1-4; K3 x6)"),
+    ("neck", "forward", "neck (laterals, top-down, output convs)"),
+    ("model", "_rpn_all_levels", "RPN head over P2-P6"),
+    ("fpn", "select_pre_nms", "pre-NMS top-k per level (K5 x2, sorts, delta select)"),
+    ("fpn", "nms_fixed_batched", "proposal NMS (K1, 8x4741, cap 300)"),
+    ("model", "_propose", "proposals total (top-k, decode, sort, K1)"),
+    ("model", "_pool", "level assignment + RoIAlign (K6)"),
+    ("model", "_classify", "box head (2 fc) + cls/bbox"),
+    ("fpn", "postprocess_detections", "postprocess (decode, K1 per class, top-k)"),
+    ("model", "detect", "detect total"),
+)
 
-def profile_train_step(solver, card):
-    """Stage breakdown of a steady-state train step.  A CUDA event is
-    recorded on the current stream just before and just after each call of
-    TRAIN_STAGES (the calls are wrapped for this phase only); a stage's time
-    is the median over 10 steps, after 2 warm-up steps, of the time between
-    its two events.  "backward" is the time from the end of train_forward to
-    the start of the SGD update (zero_grad, backward, clip).  Then
-    torch.profiler over 3 steps: the union of the device's kernel intervals
-    against the host wall time gives the idle share, and the kernels are
-    summed by name.  Everything goes to chiprun_out/profile_train.json."""
-    from torch.profiler import ProfilerActivity, profile
 
-    from frcnn_tpu_torch.models import network
-
-    owners = {"network": network, "backbone": solver.model.backbone, "model": solver.model,
-              "optimizer": solver.optimizer}
+def stage_times(owners, stages, step, n_steps=12, warmup=2):
+    """CUDA events recorded on the current stream just before and just after
+    each call of ``stages`` (the calls are wrapped for this measurement only)
+    while ``step()`` runs; returns one {stage: ms, "step total": ms} per step
+    after the warm-up."""
     events = []
 
     def timed(fn, stage):
@@ -775,40 +1043,43 @@ def profile_train_step(solver, card):
             return out
         return wrapper
 
-    blobs = {k: torch.as_tensor(v).to(solver.device)
-             for k, v in solver.data_layer.forward().items()}
-    originals = [(owners[o], attr, getattr(owners[o], attr)) for o, attr, _ in TRAIN_STAGES]
-    for (obj, attr, fn), (_, _, stage) in zip(originals, TRAIN_STAGES):
+    originals = [(owners[o], attr, getattr(owners[o], attr)) for o, attr, _ in stages]
+    for (obj, attr, fn), (_, _, stage) in zip(originals, stages):
         setattr(obj, attr, timed(fn, stage))
     per_step = []
     try:
-        for i in range(12):
+        for i in range(n_steps):
             events.clear()
-            step = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            step[0].record()
-            solver.train_step(blobs)
-            step[1].record()
+            step_ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            step_ev[0].record()
+            step()
+            step_ev[1].record()
             torch.cuda.synchronize()
-            if i < 2:
+            if i < warmup:
                 continue
             ms = {stage: start.elapsed_time(end) for stage, start, end in events}
-            ends = {stage: (start, end) for stage, start, end in events}
-            ms["backward"] = ends["forward total"][1].elapsed_time(ends["SGD update"][0])
-            ms["step total"] = step[0].elapsed_time(step[1])
-            per_step.append(ms)
+            ms["step total"] = step_ev[0].elapsed_time(step_ev[1])
+            per_step.append((ms, {stage: (start, end) for stage, start, end in events}))
     finally:
         for obj, attr, fn in originals:
-            if obj is network:
+            if isinstance(obj, types.ModuleType):
                 setattr(obj, attr, fn)
             else:
                 delattr(obj, attr)           # back to the class's method
-    stages = {name: statistics.median(ms[name] for ms in per_step) for name in per_step[0]}
+    return per_step
+
+
+def device_profile(step, n_steps=3):
+    """torch.profiler over ``n_steps`` calls of ``step()``: the union of the
+    device's kernel intervals against the host wall time gives the idle
+    share; kernels summed by name, per step."""
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            solver.train_step(blobs)
+        for _ in range(n_steps):
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -824,20 +1095,57 @@ def profile_train_step(solver, card):
         total, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (total + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    return ({"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+             "idle_share": 1.0 - busy_us / 1e3 / wall_ms},
+            [(name[:100], total / n_steps, n / n_steps) for name, (total, n) in top])
+
+
+def write_profile(name, label, card, stages, prof, top):
     result = {"card": card, "stages_ms_median_of_10": stages,
-              "profiler_3_steps": {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-                                   "idle_share": 1.0 - busy_us / 1e3 / wall_ms},
-              "top_kernels_ms_per_step": [(name[:100], total / 3, n / 3)
-                                          for name, (total, n) in top]}
+              f"profiler_3_{label}s": prof, f"top_kernels_ms_per_{label}": top}
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile_train.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, name), "w") as f:
         json.dump(result, f, indent=1)
-    log("train step stages (ms, median of 10, CUDA events): "
-        + ", ".join(f"{name} {ms:.3f}" for name, ms in stages.items()))
-    log(f"train step under torch.profiler, 3 steps: wall {wall_ms:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms, idle share {result['profiler_3_steps']['idle_share']:.4f}")
-    for name, total, n in result["top_kernels_ms_per_step"][:10]:
-        log(f"  {total:8.4f} ms/step  {n:6.1f} launches/step  {name}")
+    log(f"{label} stages (ms, median of 10, CUDA events): "
+        + ", ".join(f"{stage} {ms:.3f}" for stage, ms in stages.items()))
+    log(f"{label} under torch.profiler, 3 {label}s: wall {prof['wall_ms']:.3f} ms, device busy "
+        f"{prof['device_busy_ms']:.3f} ms, idle share {prof['idle_share']:.4f}")
+    for kname, total, n in top[:10]:
+        log(f"  {total:8.4f} ms/{label}  {n:6.1f} launches/{label}  {kname}")
+
+
+def profile_train_step(solver, card):
+    """Stage breakdown of a steady-state train step (``stage_times`` over
+    TRAIN_STAGES, medians of 10 steps after 2 warm-up steps; "backward" runs
+    from the end of train_forward to the start of the SGD update: zero_grad,
+    backward, clip), then ``device_profile`` over 3 steps; all into
+    chiprun_out/profile_train.json."""
+    from frcnn_tpu_torch.models import network
+
+    owners = {"network": network, "backbone": solver.model.backbone, "model": solver.model,
+              "optimizer": solver.optimizer}
+    blobs = {k: torch.as_tensor(v).to(solver.device)
+             for k, v in solver.data_layer.forward().items()}
+    per_step = stage_times(owners, TRAIN_STAGES, lambda: solver.train_step(blobs))
+    for ms, ends in per_step:
+        ms["backward"] = ends["forward total"][1].elapsed_time(ends["SGD update"][0])
+    stages = {name: statistics.median(ms[name] for ms, _ in per_step) for name in per_step[0][0]}
+    prof, top = device_profile(lambda: solver.train_step(blobs))
+    write_profile("profile_train.json", "step", card, stages, prof, top)
+
+
+def profile_fpn_detect(detector, data, im_info, card):
+    """Stage breakdown of a steady-state FPN detect batch (``stage_times``
+    over FPN_STAGES), then ``device_profile`` over 3 batches; all into
+    chiprun_out/profile_fpn.json."""
+    from frcnn_tpu_torch.models import fpn
+
+    model = detector.model
+    owners = {"fpn": fpn, "backbone": model.backbone, "neck": model.neck, "model": model}
+    per_step = stage_times(owners, FPN_STAGES, lambda: detector.detect_blobs(data, im_info))
+    stages = {name: statistics.median(ms[name] for ms, _ in per_step) for name in per_step[0][0]}
+    prof, top = device_profile(lambda: detector.detect_blobs(data, im_info))
+    write_profile("profile_fpn.json", "batch", card, stages, prof, top)
 
 
 def parse_args(argv):
@@ -845,13 +1153,15 @@ def parse_args(argv):
     parser.add_argument("--only", choices=("kernels",),
                         help="stop after the kernel phases (a partial run: no ok line)")
     parser.add_argument("--profile", action="store_true",
-                        help="after the train path, time each stage of a train step and "
-                             "profile the device (chiprun_out/profile_train.json)")
+                        help="time each stage of a train step and of an FPN detect batch and "
+                             "profile the device (chiprun_out/profile_{train,fpn}.json)")
     return parser.parse_args(argv)
 
 
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("nms", "frcnn_tpu_torch/csrc/nms_kernel.cu", "frcnn_tpu/ops/pallas/nms_kernel.py:318"),
+    ("roi_align_ml", "frcnn_tpu_torch/csrc/roi_align_kernel.cu",
+     "frcnn_tpu/ops/pallas/roi_align_kernel.py:555"),
     ("roi_align", "frcnn_tpu_torch/csrc/roi_align_kernel.cu",
      "frcnn_tpu/ops/pallas/roi_align_kernel.py:702"),
     ("roi_align_bwd", "frcnn_tpu_torch/csrc/roi_align_kernel.cu",
@@ -899,7 +1209,9 @@ def main(argv=None) -> int:
         "nms": {"ms": k1["ms"] + k1_train["ms"], "plain_ms": k1["plain_ms"] + k1_train["plain_ms"],
                 "max_abs_err": max(k1["max_abs_err"], k1_train["max_abs_err"])},
         "roi_align": k2, "fused_block": k3, "roi_align_bwd": check_roi_align_bwd(dev),
-        "overlap": check_overlap(dev), "select": check_select(dev)}
+        "overlap": check_overlap(dev), "select": check_select(dev),
+        "roi_align_ml": check_roi_align_ml(dev)}
+    k1b = check_nms_single(dev)
     if args.only == "kernels":
         # a partial run: no main path ran, so no launch count and no ok line
         print(json.dumps({"kernel_checks": [{"name": name, **results[name]}
@@ -909,18 +1221,31 @@ def main(argv=None) -> int:
 
     serve_counts = main_path(dev, card)
     end_to_end(dev)
+    fpn_counts, fpn_detector, fpn_data, fpn_info = fpn_path(dev, card)
+    fpn_end_to_end(dev)
     train_counts, solver = train_path(dev, card)
     train_card_vs_cpu(dev)
     if args.profile:
         profile_train_step(solver, card)
+        profile_fpn_detect(fpn_detector, fpn_data, fpn_info, card)
 
+    # the TPU kernels served by a kernel that stands for another one
+    also = {"nms": ("frcnn_tpu/ops/pallas/nms_kernel.py:128", k1b),
+            "roi_align_ml": ("frcnn_tpu/ops/pallas/roi_align_kernel.py:609", None)}
     kernels = []
     for name, src, rep in KERNELS:
-        launches = serve_counts.get(name, 0) + train_counts.get(name, 0)
+        launches = sum(c.get(name, 0) for c in (serve_counts, fpn_counts, train_counts))
         if launches == 0:
             raise AssertionError(f"kernel {name} was not launched on a main path")
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": launches, **results[name]})
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                 "launches": launches, **results[name]}
+        if name in also:
+            rep2, timing = also[name]
+            entry["also_replaces"] = rep2
+            if timing:
+                entry["single_problem_ms"] = timing["ms"]
+                entry["single_problem_plain_ms"] = timing["plain_ms"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

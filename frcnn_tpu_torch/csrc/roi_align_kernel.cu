@@ -1,24 +1,38 @@
-// K2: batched RoIAlign forward, and K2b: its backward, for Hopper (sm_90a).
+// K2: batched RoIAlign forward, K2b: its backward, and K6: the multilevel
+// (FPN) RoIAlign forward, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels frcnn_tpu/ops/pallas/roi_align_kernel.py
-// (_fwd_kernel via roi_align_pallas, and _bwd_kernel via _bwd_rule).
-// Semantics of
+// (_fwd_kernel via roi_align_pallas, _bwd_kernel via _bwd_rule, and
+// _fwd_kernel_lv / _fwd_kernel_lv_yf via roi_align_level_fwd together with
+// _fwd_kernel_ml via roi_align_levels_fwd_merged).  Semantics of
 // frcnn_tpu/ops/roi_align.py::roi_align: torchvision aligned=False, a fixed
 // sampling ratio sr, roi_w = max(x2 - x1, 1) with no +1, sample k of an axis
 // at lo + ((k + 0.5) / sr) * bin, a sample outside [-1, size] is empty (zero),
 // the coordinate is clamped to [0, size - 1], high = min(low + 1, size - 1),
 // and a bin is the mean of its sr * sr bilinear samples.
 //
-// Design: the gather form.  The TPU kernel phrased bilinear sampling as
+// Design: the gather form.  The TPU kernels phrased bilinear sampling as
 // interpolation matmuls to feed its matrix unit; on Hopper each output value
-// is 4 * sr^2 loads and as many FMAs, so the kernel gathers.  One block per
+// is 4 * sr^2 loads and as many FMAs, so the kernels gather.  One block per
 // (image, roi, bin); the sample geometry is computed once per block into
-// shared memory and the threads run over channels, so with channels-last
-// features every corner load of a warp is one contiguous run of C values.
-// Accumulation is f32; the result is stored in the feature dtype.
-// What bounds it on the H100: memory traffic - the output (B*R*p*p*C values,
+// shared memory (bin_geometry) and the threads run over channels, two
+// adjacent channels a thread where C is even (bf16x2 / float2 loads), so with
+// channels-last features every corner load of a warp is one contiguous run.
+// The interpolation (bilerp) is written with explicit round-to-nearest
+// intrinsics, so K2 and K6 share its bits: on one level they agree exactly.
+// Accumulation is f32; the result is rounded once to the feature dtype.
+// What bounds K2 on the H100: memory traffic - the output (B*R*p*p*C values,
 // 241 MB in bf16 at 8 x 300 rois x 49 bins x 1024) is written once, and the
 // corner reads of one image's 7.8 MB feature map come mostly from L2.
+//
+// K6, the FPN forward: the same block layout over all pyramid levels in ONE
+// launch.  Each block reads its roi's level and takes that level's base
+// pointer, (H, W) and scale from a small struct passed by value, so the
+// levels are never concatenated into one table and rois stay in their own
+// order (the TPU path sorted rois by level and carried the inverse
+// permutation; K6 needs neither).  A roi whose level is outside [0, L) gets
+// zeros.  What bounds it: the output write (60 MB in bf16 at 8 x 300 rois x
+// 49 bins x 256) and the corner reads, which mostly hit L2.
 //
 // K2b, the backward (dF only; rois get no gradient, as in the TPU kernel):
 // the same block layout, each thread scattering its channel's share of a
@@ -32,17 +46,61 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kMaxSr = 8;
+constexpr int kMaxLevels = 8;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// Per-axis sample geometry: low/high index and their weights (both zero for
-// an empty sample).
+// V adjacent channels from a V-aligned address (V = 1 or 2).
+template <int V>
+__device__ __forceinline__ void load_v(const float* p, float* v) {
+  if constexpr (V == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_v(const __nv_bfloat16* p, float* v) {
+  if constexpr (V == 2) {
+    const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float* v) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_v(__nv_bfloat16* p, const float* v) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// The sr x sr sample geometry of one bin, per axis: low/high index and their
+// weights (both zero for an empty sample).
+struct BinGeometry {
+  int y_lo[kMaxSr], y_hi[kMaxSr], x_lo[kMaxSr], x_hi[kMaxSr];
+  float wy_lo[kMaxSr], wy_hi[kMaxSr], wx_lo[kMaxSr], wx_hi[kMaxSr];
+};
+
 __device__ __forceinline__ void sample_axis(float lo, float bin, int k, int sr,
                                             int size, int* i_lo, int* i_hi,
                                             float* w_lo, float* w_hi) {
@@ -61,7 +119,70 @@ __device__ __forceinline__ void sample_axis(float lo, float bin, int k, int sr,
   *w_hi = frac;
 }
 
-template <typename T>
+// Thread t < 2 * sr of a block fills sample t of bin (py, px) of the roi
+// (x1, y1, x2, y2 in image coordinates) on an h x w map: x samples for
+// t < sr, y samples for the rest.
+__device__ __forceinline__ void bin_geometry(const float* roi, float scale, int p,
+                                             int sr, int py, int px, int h, int w,
+                                             int t, BinGeometry* g) {
+  const bool is_y = t >= sr;
+  const int s = is_y ? t - sr : t;
+  const float lo = __fmul_rn(roi[is_y ? 1 : 0], scale);
+  const float hi = __fmul_rn(roi[is_y ? 3 : 2], scale);
+  const float bin_sz = __fdiv_rn(fmaxf(__fsub_rn(hi, lo), 1.0f), (float)p);
+  const int k = (is_y ? py : px) * sr + s;
+  if (is_y) {
+    sample_axis(lo, bin_sz, k, sr, h, &g->y_lo[s], &g->y_hi[s], &g->wy_lo[s], &g->wy_hi[s]);
+  } else {
+    sample_axis(lo, bin_sz, k, sr, w, &g->x_lo[s], &g->x_hi[s], &g->wx_lo[s], &g->wx_hi[s]);
+  }
+}
+
+__device__ __forceinline__ float bilerp(float v00, float v01, float v10, float v11,
+                                        float wy_lo, float wy_hi, float wx_lo,
+                                        float wx_hi) {
+  const float top = __fmaf_rn(wx_hi, v01, __fmul_rn(wx_lo, v00));
+  const float bot = __fmaf_rn(wx_hi, v11, __fmul_rn(wx_lo, v10));
+  return __fmaf_rn(wy_hi, bot, __fmul_rn(wy_lo, top));
+}
+
+// The bin's value for channels [ch, ch + V) of the channels-last (h, w, c)
+// map f: the mean of its sr * sr bilinear samples, in f32.
+template <int V, typename T>
+__device__ __forceinline__ void pool_bin(const T* f, int w, int c, int ch, int sr,
+                                         const BinGeometry& g, float* acc) {
+  for (int j = 0; j < V; ++j) acc[j] = 0.0f;
+  for (int iy = 0; iy < sr; ++iy) {
+    const T* row_lo = f + (size_t)g.y_lo[iy] * w * c + ch;
+    const T* row_hi = f + (size_t)g.y_hi[iy] * w * c + ch;
+    for (int ix = 0; ix < sr; ++ix) {
+      const size_t xl = (size_t)g.x_lo[ix] * c, xh = (size_t)g.x_hi[ix] * c;
+      float v00[V], v01[V], v10[V], v11[V];
+      load_v<V>(row_lo + xl, v00);
+      load_v<V>(row_lo + xh, v01);
+      load_v<V>(row_hi + xl, v10);
+      load_v<V>(row_hi + xh, v11);
+      for (int j = 0; j < V; ++j) {
+        acc[j] = __fadd_rn(acc[j], bilerp(v00[j], v01[j], v10[j], v11[j], g.wy_lo[iy],
+                                          g.wy_hi[iy], g.wx_lo[ix], g.wx_hi[ix]));
+      }
+    }
+  }
+  const float inv_count = __fdiv_rn(1.0f, (float)(sr * sr));
+  for (int j = 0; j < V; ++j) acc[j] = __fmul_rn(acc[j], inv_count);
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void pool_channels(const T* f, int w, int c, int sr,
+                                              const BinGeometry& g, T* o) {
+  for (int ch = (int)threadIdx.x * V; ch < c; ch += (int)blockDim.x * V) {
+    float acc[V];
+    pool_bin<V>(f, w, c, ch, sr, g, acc);
+    store_v<V>(o + ch, acc);
+  }
+}
+
+template <typename T, int V>
 __global__ void roi_align_fwd_kernel(const T* __restrict__ feat,
                                      const float* __restrict__ rois, int h,
                                      int w, int c, int r, int p, int sr,
@@ -69,45 +190,48 @@ __global__ void roi_align_fwd_kernel(const T* __restrict__ feat,
   const int bin = blockIdx.x;
   const int ri = blockIdx.y;
   const int bi = blockIdx.z;
-  const int py = bin / p;
-  const int px = bin - py * p;
-
-  __shared__ int y_lo[kMaxSr], y_hi[kMaxSr], x_lo[kMaxSr], x_hi[kMaxSr];
-  __shared__ float wy_lo[kMaxSr], wy_hi[kMaxSr], wx_lo[kMaxSr], wx_hi[kMaxSr];
-  const int t = threadIdx.x;
-  if (t < 2 * sr) {
-    const float* roi = rois + ((size_t)bi * r + ri) * 4;
-    const bool is_y = t >= sr;
-    const int s = is_y ? t - sr : t;
-    const float lo = __fmul_rn(roi[is_y ? 1 : 0], scale);
-    const float hi = __fmul_rn(roi[is_y ? 3 : 2], scale);
-    const float bin_sz = __fdiv_rn(fmaxf(__fsub_rn(hi, lo), 1.0f), (float)p);
-    const int k = (is_y ? py : px) * sr + s;
-    if (is_y) {
-      sample_axis(lo, bin_sz, k, sr, h, &y_lo[s], &y_hi[s], &wy_lo[s], &wy_hi[s]);
-    } else {
-      sample_axis(lo, bin_sz, k, sr, w, &x_lo[s], &x_hi[s], &wx_lo[s], &wx_hi[s]);
-    }
+  const size_t roi = (size_t)bi * r + ri;
+  __shared__ BinGeometry g;
+  if ((int)threadIdx.x < 2 * sr) {
+    bin_geometry(rois + roi * 4, scale, p, sr, bin / p, bin % p, h, w, threadIdx.x, &g);
   }
   __syncthreads();
+  pool_channels<V>(feat + (size_t)bi * h * w * c, w, c, sr, g,
+                   out + (roi * p * p + bin) * c);
+}
 
-  const T* f = feat + (size_t)bi * h * w * c;
-  T* o = out + (((size_t)bi * r + ri) * p * p + bin) * c;
-  const float inv_count = 1.0f / (float)(sr * sr);
-  for (int ch = t; ch < c; ch += blockDim.x) {
-    float acc = 0.0f;
-    for (int iy = 0; iy < sr; ++iy) {
-      const T* row_lo = f + (size_t)y_lo[iy] * w * c + ch;
-      const T* row_hi = f + (size_t)y_hi[iy] * w * c + ch;
-      for (int ix = 0; ix < sr; ++ix) {
-        const size_t xl = (size_t)x_lo[ix] * c, xh = (size_t)x_hi[ix] * c;
-        const float top = wx_lo[ix] * to_float(row_lo[xl]) + wx_hi[ix] * to_float(row_lo[xh]);
-        const float bot = wx_lo[ix] * to_float(row_hi[xl]) + wx_hi[ix] * to_float(row_hi[xh]);
-        acc += wy_lo[iy] * top + wy_hi[iy] * bot;
-      }
-    }
-    store(o + ch, acc * inv_count);
+// The pyramid levels of K6: per level a (B, H, W, C) map, its size and its
+// spatial scale (1 / stride).
+struct Levels {
+  const void* feat[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  float scale[kMaxLevels];
+  int n;
+};
+
+template <typename T, int V>
+__global__ void roi_align_ml_fwd_kernel(Levels lv, const float* __restrict__ rois,
+                                        const int* __restrict__ levels, int c, int r,
+                                        int p, int sr, T* __restrict__ out) {
+  const int bin = blockIdx.x;
+  const int ri = blockIdx.y;
+  const int bi = blockIdx.z;
+  const size_t roi = (size_t)bi * r + ri;
+  T* o = out + (roi * p * p + bin) * c;
+  const int l = levels[roi];
+  if (l < 0 || l >= lv.n) {  // the whole block leaves: no barrier is skipped
+    for (int ch = (int)threadIdx.x; ch < c; ch += (int)blockDim.x) store(o + ch, 0.0f);
+    return;
   }
+  const int h = lv.h[l], w = lv.w[l];
+  __shared__ BinGeometry g;
+  if ((int)threadIdx.x < 2 * sr) {
+    bin_geometry(rois + roi * 4, lv.scale[l], p, sr, bin / p, bin % p, h, w, threadIdx.x, &g);
+  }
+  __syncthreads();
+  pool_channels<V>(static_cast<const T*>(lv.feat[l]) + (size_t)bi * h * w * c, w, c, sr, g,
+                   o);
 }
 
 template <typename T>
@@ -118,46 +242,32 @@ __global__ void roi_align_bwd_kernel(const T* __restrict__ dout,
   const int bin = blockIdx.x;
   const int ri = blockIdx.y;
   const int bi = blockIdx.z;
-  const int py = bin / p;
-  const int px = bin - py * p;
-
-  __shared__ int y_lo[kMaxSr], y_hi[kMaxSr], x_lo[kMaxSr], x_hi[kMaxSr];
-  __shared__ float wy_lo[kMaxSr], wy_hi[kMaxSr], wx_lo[kMaxSr], wx_hi[kMaxSr];
+  const size_t roi = (size_t)bi * r + ri;
+  __shared__ BinGeometry g;
   const int t = threadIdx.x;
   if (t < 2 * sr) {
-    const float* roi = rois + ((size_t)bi * r + ri) * 4;
-    const bool is_y = t >= sr;
-    const int s = is_y ? t - sr : t;
-    const float lo = __fmul_rn(roi[is_y ? 1 : 0], scale);
-    const float hi = __fmul_rn(roi[is_y ? 3 : 2], scale);
-    const float bin_sz = __fdiv_rn(fmaxf(__fsub_rn(hi, lo), 1.0f), (float)p);
-    const int k = (is_y ? py : px) * sr + s;
-    if (is_y) {
-      sample_axis(lo, bin_sz, k, sr, h, &y_lo[s], &y_hi[s], &wy_lo[s], &wy_hi[s]);
-    } else {
-      sample_axis(lo, bin_sz, k, sr, w, &x_lo[s], &x_hi[s], &wx_lo[s], &wx_hi[s]);
-    }
+    bin_geometry(rois + roi * 4, scale, p, sr, bin / p, bin % p, h, w, t, &g);
   }
   __syncthreads();
 
-  const T* g = dout + (((size_t)bi * r + ri) * p * p + bin) * c;
+  const T* gd = dout + (roi * p * p + bin) * c;
   float* df = dfeat + (size_t)bi * h * w * c;
   const float inv_count = 1.0f / (float)(sr * sr);
   for (int ch = t; ch < c; ch += blockDim.x) {
-    const float gv = to_float(g[ch]) * inv_count;
+    const float gv = to_float(gd[ch]) * inv_count;
     if (gv == 0.0f) continue;
     for (int iy = 0; iy < sr; ++iy) {
-      if (wy_lo[iy] == 0.0f && wy_hi[iy] == 0.0f) continue;  // empty sample
-      float* row_lo = df + (size_t)y_lo[iy] * w * c + ch;
-      float* row_hi = df + (size_t)y_hi[iy] * w * c + ch;
-      const float gy_lo = gv * wy_lo[iy], gy_hi = gv * wy_hi[iy];
+      if (g.wy_lo[iy] == 0.0f && g.wy_hi[iy] == 0.0f) continue;  // empty sample
+      float* row_lo = df + (size_t)g.y_lo[iy] * w * c + ch;
+      float* row_hi = df + (size_t)g.y_hi[iy] * w * c + ch;
+      const float gy_lo = gv * g.wy_lo[iy], gy_hi = gv * g.wy_hi[iy];
       for (int ix = 0; ix < sr; ++ix) {
-        if (wx_lo[ix] == 0.0f && wx_hi[ix] == 0.0f) continue;
-        const size_t xl = (size_t)x_lo[ix] * c, xh = (size_t)x_hi[ix] * c;
-        atomicAdd(row_lo + xl, gy_lo * wx_lo[ix]);
-        atomicAdd(row_lo + xh, gy_lo * wx_hi[ix]);
-        atomicAdd(row_hi + xl, gy_hi * wx_lo[ix]);
-        atomicAdd(row_hi + xh, gy_hi * wx_hi[ix]);
+        if (g.wx_lo[ix] == 0.0f && g.wx_hi[ix] == 0.0f) continue;
+        const size_t xl = (size_t)g.x_lo[ix] * c, xh = (size_t)g.x_hi[ix] * c;
+        atomicAdd(row_lo + xl, gy_lo * g.wx_lo[ix]);
+        atomicAdd(row_lo + xh, gy_lo * g.wx_hi[ix]);
+        atomicAdd(row_hi + xl, gy_hi * g.wx_lo[ix]);
+        atomicAdd(row_hi + xh, gy_hi * g.wx_hi[ix]);
       }
     }
   }
@@ -168,6 +278,23 @@ __global__ void f32_to_bf16_kernel(const float* __restrict__ src, size_t n,
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     dst[i] = __float2bfloat16_rn(src[i]);
+  }
+}
+
+// Calls launch(T*, std::integral_constant<int, V>, threads) for the feature
+// dtype T and V, the channels a thread (2 where C is even: bf16x2 / float2
+// loads); threads: one per V channels, whole warps, at most 256.
+template <typename Launch>
+void dispatch_fwd(int is_bf16, int c, Launch&& launch) {
+  const auto go = [&](auto* tag, auto v) {
+    launch(tag, v, min(256, ((c + v.value - 1) / v.value + 31) / 32 * 32));
+  };
+  if (is_bf16) {
+    if (c % 2 == 0) go((__nv_bfloat16*)nullptr, std::integral_constant<int, 2>());
+    else go((__nv_bfloat16*)nullptr, std::integral_constant<int, 1>());
+  } else {
+    if (c % 2 == 0) go((float*)nullptr, std::integral_constant<int, 2>());
+    else go((float*)nullptr, std::integral_constant<int, 1>());
   }
 }
 
@@ -183,17 +310,44 @@ extern "C" int frcnn_roi_align_fwd(const void* feat, int is_bf16,
   if (sr < 1 || sr > kMaxSr || p < 1 || h < 1 || w < 1 || r > 65535 || b > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = min(256, (c + 31) / 32 * 32);
-  dim3 grid(p * p, r, b);
-  if (is_bf16) {
-    roi_align_fwd_kernel<__nv_bfloat16><<<grid, threads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(feat), rois, h, w, c, r, p, sr, scale,
-        static_cast<__nv_bfloat16*>(out));
-  } else {
-    roi_align_fwd_kernel<float><<<grid, threads, 0, stream>>>(
-        static_cast<const float*>(feat), rois, h, w, c, r, p, sr, scale,
-        static_cast<float*>(out));
+  const dim3 grid(p * p, r, b);
+  dispatch_fwd(is_bf16, c, [&](auto* tag, auto v, int threads) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    roi_align_fwd_kernel<T, decltype(v)::value><<<grid, threads, 0, stream>>>(
+        static_cast<const T*>(feat), rois, h, w, c, r, p, sr, scale, static_cast<T*>(out));
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// feats: n_levels pointers to (B, H_l, W_l, C) maps, all f32 or all bf16;
+// dims: (H_l, W_l) pairs; scales: 1 / stride_l (the three are host arrays);
+// rois (B, R, 4) f32 image coordinates; levels (B, R) int32 in [0, n_levels);
+// out (B, R, p, p, C) in the feature dtype, in roi order.
+extern "C" int frcnn_roi_align_ml_fwd(const void* const* feats, const int* dims,
+                                      const float* scales, int n_levels, int is_bf16,
+                                      const float* rois, const int* levels, int b,
+                                      int c, int r, int p, int sr, void* out,
+                                      cudaStream_t stream) {
+  if (b <= 0 || r <= 0 || c <= 0) return 0;
+  if (n_levels < 1 || n_levels > kMaxLevels || sr < 1 || sr > kMaxSr || p < 1 ||
+      r > 65535 || b > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  Levels lv;
+  lv.n = n_levels;
+  for (int l = 0; l < n_levels; ++l) {
+    lv.feat[l] = feats[l];
+    lv.h[l] = dims[2 * l];
+    lv.w[l] = dims[2 * l + 1];
+    lv.scale[l] = scales[l];
+    if (lv.h[l] < 1 || lv.w[l] < 1) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(p * p, r, b);
+  dispatch_fwd(is_bf16, c, [&](auto* tag, auto v, int threads) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    roi_align_ml_fwd_kernel<T, decltype(v)::value><<<grid, threads, 0, stream>>>(
+        lv, rois, levels, c, r, p, sr, static_cast<T*>(out));
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

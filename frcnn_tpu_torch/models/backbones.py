@@ -1,4 +1,6 @@
-"""ResNet-v1 C4 backbone (``frcnn_tpu/models/backbones.py``, ResNet only).
+"""ResNet-v1 backbone (``frcnn_tpu/models/backbones.py``, ResNet only): the
+C4 trunk and tail, and the C2-C5 stages of the FPN model
+(``frcnn_tpu/models/fpn.py::_ResNetStages``).
 
 Parameter names and layouts are torchvision's (``conv1``, ``bn1``,
 ``layer1.0.conv1.weight``, ``layer1.0.downsample.0.weight``, ...), so a
@@ -59,7 +61,9 @@ class FrozenBatchNorm(nn.Module):
 
 
 def _conv(x, conv: nn.Conv2d, stride: int = 1, padding: int = 0):
-    return F.conv2d(x, conv.weight.to(x.dtype), stride=stride, padding=padding)
+    """``conv`` applied in the dtype of ``x`` (weights cast per call)."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, stride=stride, padding=padding)
 
 
 class Bottleneck(nn.Module):
@@ -127,7 +131,8 @@ def _layer(cin: int, channels: int, blocks: int, stride: int, fused: bool):
 
 class ResNetV1(nn.Module):
     """conv1 → layer3 is the C4 trunk (stride 16, 1024 channels); the tail
-    is layer4 (stride 2 inside the 7x7 crop) + global average pool."""
+    is layer4 (stride 2 inside the 7x7 crop) + global average pool.  The FPN
+    model runs all four layers on the full map (``stages``)."""
 
     feat_channels = 1024
     tail_dim = 2048
@@ -145,11 +150,21 @@ class ResNetV1(nn.Module):
             setattr(self, f"layer{li}", _layer(cin, ch, n, stride, use_fused))
             cin = ch * 4
 
+    def _stem(self, x):
+        x = F.relu(self.bn1(_conv(x, self.conv1, 2, 3)))
+        return F.max_pool2d(x, 3, 2, 1)
+
     def extract_features(self, x):
         """x (B, 3, H, W) in the compute dtype → (B, 1024, H/16, W/16)."""
-        x = F.relu(self.bn1(_conv(x, self.conv1, 2, 3)))
-        x = F.max_pool2d(x, 3, 2, 1)
-        return self.layer3(self.layer2(self.layer1(x)))
+        return self.layer3(self.layer2(self.layer1(self._stem(x))))
+
+    def stages(self, x):
+        """x (B, 3, H, W) in the compute dtype → [C2, C3, C4, C5] (strides
+        4, 8, 16, 32; 256, 512, 1024, 2048 channels)."""
+        outs = [self.layer1(self._stem(x))]
+        for layer in (self.layer2, self.layer3, self.layer4):
+            outs.append(layer(outs[-1]))
+        return outs
 
     def head_to_tail(self, pooled):
         """pooled (N, 1024, p, p) → (N, 2048)."""

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from frcnn_tpu_torch.config import Config
-from frcnn_tpu_torch.models.backbones import build_backbone, preprocess_images
+from frcnn_tpu_torch.models.backbones import _conv, build_backbone, preprocess_images
 from frcnn_tpu_torch.models.losses import detection_losses_compact
 from frcnn_tpu_torch.models.proposals import proposal_layer_batch
 from frcnn_tpu_torch.models.targets import (anchor_target_compact, proposal_target_layer,
@@ -116,8 +116,15 @@ class FasterRCNN(nn.Module):
     def use_kernels(self) -> bool:
         return self.config.DEVICE.USE_KERNELS
 
-    def _conv(self, x, conv: nn.Conv2d, padding: int = 0):
-        return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=padding)
+    def _init_heads_(self, normal_):
+        """``init_random_``'s RPN and head weights: N(0, 0.01) / N(0, 0.001)
+        as the lineage, except the RPN's class weights at 0.05 so the RPN
+        scores spread over (0, 1); biases zero."""
+        for head, std in ((self.rpn_net, 0.01), (self.rpn_cls_score, 0.05),
+                          (self.rpn_bbox_pred, 0.01), (self.cls_score, 0.01),
+                          (self.bbox_pred, 0.001)):
+            normal_(head.weight, std)
+            head.bias.zero_()
 
     def _rpn(self, feat, sel=None):
         """feat (B, C, H, W) → (fg_prob (B, K), deltas (B, K, 4)) in anchor
@@ -127,9 +134,9 @@ class FasterRCNN(nn.Module):
         (B, S, 2), read from the bg-block/fg-block channel layout."""
         b, _, h, w = feat.shape
         a = self.config.num_anchors
-        x = F.relu(self._conv(feat, self.rpn_net, padding=1))
-        cls = self._conv(x, self.rpn_cls_score).float()
-        box = self._conv(x, self.rpn_bbox_pred).float()
+        x = F.relu(_conv(feat, self.rpn_net, padding=1))
+        cls = _conv(x, self.rpn_cls_score).float()
+        box = _conv(x, self.rpn_bbox_pred).float()
         prob = torch.sigmoid(cls[:, a:] - cls[:, :a]).permute(0, 2, 3, 1).reshape(b, h * w * a)
         deltas = box.permute(0, 2, 3, 1).reshape(b, h * w * a, 4)
         if sel is None:
@@ -232,18 +239,22 @@ class FasterRCNN(nn.Module):
 
 
 def build_model(net: str, num_classes: int, cfg: Config, dtype=torch.float32):
-    """Model factory: net in res50 | res101 | res152 (C4)."""
+    """Model factory: net in res50 | res101 | res152 (C4) or
+    res50_fpn | res101_fpn | res152_fpn (FPN)."""
+    if "_fpn" in net:
+        from frcnn_tpu_torch.models.fpn import build_fpn_model
+
+        return build_fpn_model(net, num_classes, cfg, dtype=dtype)
     return FasterRCNN(build_backbone(net, cfg), num_classes, cfg, dtype=dtype)
 
 
 @torch.no_grad()
-def init_random_(model: FasterRCNN, generator: torch.Generator):
+def init_random_(model: nn.Module, generator: torch.Generator):
     """Seeded random weights that keep activations O(1) through a frozen-BN
     ResNet (trunk output std 1-3, where the JAX init grows ~1000x): convs
     N(0, 2/fan_in), the last BN of each residual branch scaled to 0.5, the
-    raw O(100) pixels scaled down by the stem's BN; RPN and head weights
-    N(0, 0.01) / N(0, 0.001) as the lineage, except rpn_cls_score at 0.05 so
-    the RPN scores spread over (0, 1); biases zero.  All draws come from
+    raw O(100) pixels scaled down by the stem's BN; then the model's own
+    ``_init_heads_`` sets the layers past the trunk.  All draws come from
     ``generator`` on the CPU."""
 
     def normal_(t, std):
@@ -256,8 +267,4 @@ def init_random_(model: FasterRCNN, generator: torch.Generator):
         if name.endswith("bn3") or name.endswith("downsample.1"):
             module.weight.fill_(0.5)
     model.bn1.weight.fill_(1.0 / 64.0)  # raw pixels are O(100)
-    for head, std in ((model.rpn_net, 0.01), (model.rpn_cls_score, 0.05),
-                      (model.rpn_bbox_pred, 0.01), (model.cls_score, 0.01),
-                      (model.bbox_pred, 0.001)):
-        normal_(head.weight, std)
-        head.bias.zero_()
+    model._init_heads_(normal_)

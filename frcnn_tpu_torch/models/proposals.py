@@ -11,10 +11,10 @@ from frcnn_tpu_torch.ops.nms import NEG_INF, nms_fixed_batched
 
 
 def _anchor_validity(anchors, im_info):
-    """anchors (K, 4), im_info (B, 3) → (B, K): anchor centre inside the
-    actual (unpadded) image."""
-    cx = (anchors[:, 0] + anchors[:, 2]) * 0.5
-    cy = (anchors[:, 1] + anchors[:, 3]) * 0.5
+    """anchors (K, 4) shared by the batch or (B, K, 4) per image, im_info
+    (B, 3) → (B, K): anchor centre inside the actual (unpadded) image."""
+    cx = (anchors[..., 0] + anchors[..., 2]) * 0.5
+    cy = (anchors[..., 1] + anchors[..., 3]) * 0.5
     return ((cx >= 0) & (cx < im_info[:, 1:2]) & (cy >= 0) & (cy < im_info[:, 0:1]))
 
 
@@ -44,3 +44,15 @@ def proposal_layer_batch(scores, deltas, anchors, im_info, *, pre_nms_top_n: int
                              0.0)
     rois = torch.where(keep_valid[..., None], rois, 0.0)
     return rois, roi_scores, keep_valid
+
+
+def proposal_layer(scores, deltas, anchors, im_info, *, pre_nms_top_n: int,
+                   post_nms_top_n: int, nms_thresh: float, use_kernels: bool = True):
+    """One image (``frcnn_tpu/models/proposals.py::proposal_layer``): scores
+    (K,), deltas (K, 4), anchors (K, 4), im_info (3,) → (rois (P, 4),
+    scores (P,), valid (P,)).  The batched layer at B = 1: its NMS is K1 at
+    B = 1, where the TPU package ran its single-problem kernel."""
+    rois, roi_scores, valid = proposal_layer_batch(
+        scores[None], deltas[None], anchors, im_info[None], pre_nms_top_n=pre_nms_top_n,
+        post_nms_top_n=post_nms_top_n, nms_thresh=nms_thresh, use_kernels=use_kernels)
+    return rois[0], roi_scores[0], valid[0]

@@ -1,29 +1,42 @@
-"""K2: batched RoIAlign forward, K2b: its backward — CUDA kernel wrappers,
-their plain twins, and ``RoIAlignFunction`` that joins them for autograd.
+"""K2: batched RoIAlign forward, K2b: its backward, K6: the multilevel (FPN)
+RoIAlign forward — CUDA kernel wrappers, their plain twins, and
+``RoIAlignFunction`` that joins K2 and K2b for autograd.
 
 Replaces the TPU kernels ``frcnn_tpu/ops/pallas/roi_align_kernel.py``
-(``roi_align_pallas`` / ``_fwd_kernel``, and its custom VJP ``_bwd_rule`` /
-``_bwd_kernel``).  The TPU kernel phrased bilinear
-sampling as interpolation matmuls for its matrix unit; the kernel
-(``frcnn_tpu_torch/csrc/roi_align_kernel.cu``) gathers instead: one block
-per (image, roi, bin), threads over channels of the channels-last features.
-Bound on the H100: memory traffic (the B*R*p*p*C output is written once;
-corner reads mostly hit L2).
+(``roi_align_pallas`` / ``_fwd_kernel``, its custom VJP ``_bwd_rule`` /
+``_bwd_kernel``, and the per-level FPN forwards ``roi_align_level_fwd`` /
+``_fwd_kernel_lv`` and ``roi_align_levels_fwd_merged`` / ``_fwd_kernel_ml``).
+The TPU kernels phrased bilinear sampling as interpolation matmuls for its
+matrix unit; the kernels (``frcnn_tpu_torch/csrc/roi_align_kernel.cu``)
+gather instead: one block per (image, roi, bin), threads over channels of
+the channels-last features.  Bound on the H100: memory traffic (the
+B*R*p*p*C output is written once; corner reads mostly hit L2).
 
 K2b (same source) scatters each bin's gradient to its sample corners with
 f32 atomics, then rounds once to the feature dtype, as the TPU kernel's f32
 scratch accumulator; rois get no gradient.  The atomics make its sum order
 vary from run to run: the result is not bit-deterministic.
 
+K6 (same source) pools every roi from its own pyramid level in one launch
+over all levels, in roi order; the levels' base pointers, sizes and scales
+are launch arguments, so the maps are never concatenated.  It shares K2's
+sample geometry and interpolation code, so on one level the two agree bit
+for bit.  Its backward (the TPU kernel ``roi_align_level_bwd``) is not
+ported yet: ``roi_align_multilevel_forward`` raises on level maps that
+require grad rather than return a result without a gradient.
+
 ``roi_align_reference`` is the plain twin of K2: the same gather in PyTorch
 ops, f32 accumulation (f64 for f64 features), result in the feature dtype.
 ``roi_align_backward_reference`` is the plain twin of K2b: ``index_add_``
 of the same sample weights into an f32 buffer (f64 for f64), then a cast.
 It is not autograd of the forward twin, which in bf16 would accumulate in
-bf16.
+bf16.  ``roi_align_multilevel_reference`` is the plain twin of K6: K2's twin
+on every level, each roi's row taken from its own level.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -115,6 +128,62 @@ def roi_align_forward(feat, rois, output_size: int = 7,
                  int(feat.dtype == torch.bfloat16), rois.data_ptr(), b, h, w, c,
                  r, p, int(sampling_ratio), float(spatial_scale), out.data_ptr())
     build.LAUNCH_COUNTS["roi_align"] += 1
+    return out
+
+
+def roi_align_multilevel_reference(feats, rois, levels, strides, output_size: int = 7,
+                                   sampling_ratio: int = 2):
+    """Level-assigned RoIAlign over a pyramid: feats, L maps (B, H_l, W_l, C)
+    of one dtype; rois (B, R, 4) image coordinates; levels (B, R) int in
+    [0, L); strides, L ints → (B, R, p, p, C) in the feature dtype, each
+    roi pooled from its level at scale 1 / stride (zeros for a level
+    outside [0, L))."""
+    out = None
+    for li, (feat, stride) in enumerate(zip(feats, strides)):
+        pooled = roi_align_reference(feat, rois, output_size, 1.0 / stride, sampling_ratio)
+        on_level = (levels == li)[..., None, None, None]
+        out = torch.where(on_level, pooled, 0.0 if out is None else out)
+    return out
+
+
+def roi_align_multilevel_forward(feats, rois, levels, strides, output_size: int = 7,
+                                 sampling_ratio: int = 2):
+    """The multilevel RoIAlign of ``roi_align_multilevel_reference``, over a
+    batch.  CPU tensors run the plain twin; CUDA tensors launch K6 (one
+    launch for every level and image, rois in their own order).  Raises if
+    a level map requires grad: K6 has no backward yet."""
+    if any(f.requires_grad for f in feats) and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "roi_align_multilevel_forward: the level maps require grad, but the "
+            "multilevel RoIAlign backward is not ported (no gradient would flow)")
+    if not feats[0].is_cuda:
+        return roi_align_multilevel_reference(feats, rois, levels, strides, output_size,
+                                              sampling_ratio)
+    b, _, _, c = feats[0].shape
+    dtype = feats[0].dtype
+    r = rois.shape[1]
+    n = len(feats)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"roi_align_multilevel: unsupported dtype {dtype}")
+    if len(strides) != n:
+        raise ValueError(f"roi_align_multilevel: {n} maps but {len(strides)} strides")
+    feats = [f.contiguous() for f in feats]
+    for li, f in enumerate(feats):
+        build.check_cuda(f"roi_align_multilevel level {li}", f, dtype,
+                         (b, f.shape[1], f.shape[2], c))
+    rois = rois.float().contiguous()
+    levels = levels.to(torch.int32).contiguous()
+    build.check_cuda("roi_align_multilevel rois", rois, torch.float32, (b, r, 4))
+    build.check_cuda("roi_align_multilevel levels", levels, torch.int32, (b, r))
+    p = output_size
+    out = torch.empty((b, r, p, p, c), dtype=dtype, device=rois.device)
+    ptrs = (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats])
+    dims = (ctypes.c_int * (2 * n))(*[s for f in feats for s in f.shape[1:3]])
+    scales = (ctypes.c_float * n)(*[1.0 / s for s in strides])
+    build.launch("frcnn_roi_align_ml_fwd", ptrs, dims, scales, n,
+                 int(dtype == torch.bfloat16), rois.data_ptr(), levels.data_ptr(), b, c, r,
+                 p, int(sampling_ratio), out.data_ptr())
+    build.LAUNCH_COUNTS["roi_align_ml"] += 1
     return out
 
 

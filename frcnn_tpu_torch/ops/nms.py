@@ -3,7 +3,9 @@
 Greedy semantics of the lineage: boxes in descending score order; box j is
 suppressed iff an earlier *kept* box i has IoU(i, j) > thresh.  The keep
 mask comes from K1 (``ops/cuda/nms_kernel.py``) on CUDA tensors, or from
-its plain twin ``nms_mask``.  Sorts are stable, so ties keep the lowest
+its plain twin ``nms_mask``.  One problem (``nms_fixed``) is K1 at B = 1:
+the TPU package's single-problem kernel (``nms_mask_pallas``) computes the
+same keep mask.  Sorts are stable, so ties keep the lowest
 index first, as ``jnp.argsort`` and ``lax.top_k`` do.
 """
 
@@ -53,6 +55,16 @@ def nms_fixed_batched(boxes, scores, thresh, max_out: int, valid=None,
         gathered, fallback = torch.take_along_dim(order, take, dim=1), order[:, :1]
     out_idx = torch.where(out_valid, gathered, fallback).to(torch.int32)
     return out_idx, out_valid
+
+
+def nms_fixed(boxes, scores, thresh, max_out: int, valid=None, use_kernels: bool = True):
+    """One problem: boxes (N, 4), scores (N,), valid (N,) → (indices
+    (max_out,) int32, keep_valid (max_out,)); padding indices point at the
+    best box."""
+    idx, keep = nms_fixed_batched(boxes[None], scores[None], thresh, max_out,
+                                  valid=None if valid is None else valid[None],
+                                  use_kernels=use_kernels)
+    return idx[0], keep[0]
 
 
 def batched_class_nms(boxes, scores, thresh, max_out: int, valid=None,

@@ -6,11 +6,18 @@ image coordinates → (B, R, p, p, C).  With ``use_kernels``
 K2b backward (``ops/cuda/roi_align_kernel.py``) on CUDA tensors, one launch
 each for the batch, their twins on CPU tensors.  ``roi_align`` is the plain
 twin, differentiated by autograd when the kernels are off.
+
+FPN: ``extract_multilevel_features`` pools each roi from its assigned
+pyramid level, through K6 (``roi_align_multilevel_forward``, one launch for
+all levels and images, forward only) on CUDA tensors, or the plain twin
+``roi_align_multilevel``.
 """
 
 from __future__ import annotations
 
-from frcnn_tpu_torch.ops.cuda.roi_align_kernel import RoIAlignFunction
+from frcnn_tpu_torch.ops.cuda.roi_align_kernel import RoIAlignFunction, roi_align_multilevel_forward
+from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (
+    roi_align_multilevel_reference as roi_align_multilevel)
 from frcnn_tpu_torch.ops.cuda.roi_align_kernel import roi_align_reference as roi_align  # noqa: F401
 
 
@@ -25,3 +32,13 @@ def extract_roi_features(feat, rois, mode: str = "align", output_size: int = 7,
     if use_kernels:
         return RoIAlignFunction.apply(feat, rois, output_size, spatial_scale, sampling_ratio)
     return roi_align(feat, rois, output_size, spatial_scale, sampling_ratio)
+
+
+def extract_multilevel_features(feats, rois, levels, strides, output_size: int = 7,
+                                sampling_ratio: int = 2, use_kernels: bool = True):
+    """feats: L channels-last maps (B, H_l, W_l, C); rois (B, R, 4) image
+    coordinates; levels (B, R) in [0, L); strides: L ints → (B, R, p, p, C),
+    in roi order.  rois get no gradient."""
+    rois = rois.detach()
+    pool = roi_align_multilevel_forward if use_kernels else roi_align_multilevel
+    return pool(feats, rois, levels, strides, output_size, sampling_ratio)

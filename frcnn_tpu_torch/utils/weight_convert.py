@@ -12,6 +12,12 @@ arrays) back to those names:
   * ``rpn_cls_score``: the JAX module orders the 2A channels per anchor
     (c = a*2 + j); the lineage orders a bg block then an fg block
     (c = j*A + a).  The channel permutation is undone.
+
+``convert_fpn_from_jax`` maps a ``FasterRCNNFPN`` tree the same way.  The
+FPN model has no lineage checkpoint, so its RPN keeps the JAX layout
+(``rpn_cls_w`` (C, 2A), ``rpn_box_w`` (C, 4A)) unpermuted, and the box
+head's ``fc1`` DenseGeneral kernel (p, p, C, 1024) becomes a (1024, p*p*C)
+weight over the (py, px, c) flattening.
 """
 
 from __future__ import annotations
@@ -37,12 +43,13 @@ def _bn(sd, prefix, p):
     sd[f"{prefix}.running_var"] = _t(p["var"])
 
 
-def convert_resnet_from_jax(backbone, depth: int):
-    """``params["backbone"]`` of a ResNetV1 → torchvision resnet names."""
-    sd = {"conv1.weight": _conv(backbone["trunk"]["conv1"]["kernel"])}
-    _bn(sd, "bn1", backbone["trunk"]["bn1"])
+def _resnet(stem, layer_params, depth: int):
+    """torchvision resnet names from the stem's params (``conv1``, ``bn1``)
+    and ``layer_params(li)``, the tree that holds ``layer{li}_block{i}``."""
+    sd = {"conv1.weight": _conv(stem["conv1"]["kernel"])}
+    _bn(sd, "bn1", stem["bn1"])
     for li, n in enumerate(_BLOCKS[depth], start=1):
-        src = backbone["trunk"] if li <= 3 else backbone["tail"]
+        src = layer_params(li)
         for bi in range(n):
             block = src[f"layer{li}_block{bi}"]
             p = f"layer{li}.{bi}"
@@ -53,6 +60,24 @@ def convert_resnet_from_jax(backbone, depth: int):
                 sd[f"{p}.downsample.0.weight"] = _conv(block["downsample_conv"]["kernel"])
                 _bn(sd, f"{p}.downsample.1", block["downsample_bn"])
     return sd
+
+
+def convert_resnet_from_jax(backbone, depth: int):
+    """``params["backbone"]`` of a ResNetV1 → torchvision resnet names."""
+    return _resnet(backbone["trunk"],
+                   lambda li: backbone["trunk"] if li <= 3 else backbone["tail"], depth)
+
+
+def _conv_bias(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _conv(p["kernel"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _dense(sd, prefix, p):
+    """A Dense / DenseGeneral kernel (..., out) → a (out, prod(...)) weight."""
+    kernel = np.asarray(p["kernel"])
+    sd[f"{prefix}.weight"] = _t(kernel.reshape(-1, kernel.shape[-1]).T)
+    sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
 def convert_from_jax(params, net: str, num_anchors: int = 9):
@@ -66,13 +91,29 @@ def convert_from_jax(params, net: str, num_anchors: int = 9):
     perm = np.array([j * a + i for i in range(a) for j in range(2)])
     inv = np.argsort(perm)
     cls = params["rpn_cls_score"]
-    sd["rpn_net.weight"] = _conv(params["rpn_net"]["kernel"])
-    sd["rpn_net.bias"] = _t(params["rpn_net"]["bias"])
+    _conv_bias(sd, "rpn_net", params["rpn_net"])
     sd["rpn_cls_score.weight"] = _conv(np.asarray(cls["kernel"])[..., inv])
     sd["rpn_cls_score.bias"] = _t(np.asarray(cls["bias"])[inv])
-    sd["rpn_bbox_pred.weight"] = _conv(params["rpn_bbox_pred"]["kernel"])
-    sd["rpn_bbox_pred.bias"] = _t(params["rpn_bbox_pred"]["bias"])
+    _conv_bias(sd, "rpn_bbox_pred", params["rpn_bbox_pred"])
     for name in ("cls_score", "bbox_pred"):
-        sd[f"{name}.weight"] = _t(np.asarray(params[name]["kernel"]).T)
-        sd[f"{name}.bias"] = _t(params[name]["bias"])
+        _dense(sd, name, params[name])
+    return sd
+
+
+def convert_fpn_from_jax(params, net: str):
+    """JAX FasterRCNNFPN params tree (numpy leaves) → the port's
+    FasterRCNNFPN state_dict (torch tensors)."""
+    if net not in ("res50_fpn", "res101_fpn", "res152_fpn"):
+        raise ValueError(f"no FPN converter for backbone {net}")
+    stages = params["stages"]
+    sd = _resnet(stages, lambda li: stages, int(net[3:-len("_fpn")]))
+    for name, p in params["neck"].items():            # lateral{2..5}, output{2..5}
+        _conv_bias(sd, f"neck.{name}", p)
+    _conv_bias(sd, "rpn_net", params["rpn_net"])
+    for name in ("rpn_cls_w", "rpn_cls_b", "rpn_box_w", "rpn_box_b"):
+        sd[name] = _t(params[name])
+    for name in ("fc1", "fc2"):
+        _dense(sd, f"box_head.{name}", params["box_head"][name])
+    for name in ("cls_score", "bbox_pred"):
+        _dense(sd, name, params[name])
     return sd

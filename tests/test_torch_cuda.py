@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain twins on a card (marker ``cuda``),
-and gradients through the autograd Functions of K2 and K3.
+gradients through the autograd Functions of K2 and K3, and K6 (the
+multilevel RoIAlign) bit-equal to K2 on one level.
 
 Run on a machine with an NVIDIA H100 (which has no jax, so without the
 suite's conftest):  pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from frcnn_tpu_torch.models.backbones import Bottleneck
+from frcnn_tpu_torch.models.fpn import fg_logit_diff
 from frcnn_tpu_torch.ops.cuda import build
 from frcnn_tpu_torch.ops.cuda.fused_block import bottleneck_reference, fused_bottleneck
 from frcnn_tpu_torch.ops.cuda.nms_kernel import nms_mask_batched, nms_mask_reference
@@ -18,7 +20,10 @@ from frcnn_tpu_torch.ops.cuda.overlap_kernel import (anchor_overlap_stats,
                                                      anchor_overlap_stats_reference)
 from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (roi_align_backward,
                                                        roi_align_backward_reference,
-                                                       roi_align_forward, roi_align_reference)
+                                                       roi_align_forward,
+                                                       roi_align_multilevel_forward,
+                                                       roi_align_multilevel_reference,
+                                                       roi_align_reference)
 from frcnn_tpu_torch.ops.cuda.select_kernel import topk_threshold, topk_threshold_reference
 from frcnn_tpu_torch.ops.roi_align import extract_roi_features
 pytestmark = pytest.mark.cuda
@@ -63,6 +68,53 @@ def test_roi_align_kernel_matches_twin(dev, rng):
     rois[:, :4] = rng.uniform(-100, 600, (2, 4, 4))
     rois = torch.from_numpy(rois).to(dev)
     got, want = roi_align_forward(feat, rois), roi_align_reference(feat, rois)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def _pyramid(rng, dev, c, dtype):
+    feats = [torch.from_numpy(rng.randn(2, h, w, c).astype(np.float32)).to(dev, dtype)
+             for h, w in ((40, 60), (20, 30), (10, 15), (5, 8))]
+    rois = np.stack([random_boxes(rng, 50, width=239, height=159) for _ in range(2)])
+    rois[:, :4] = rng.uniform(-100, 300, (2, 4, 4))
+    return feats, torch.from_numpy(rois).to(dev)
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 96), (torch.bfloat16, 96),
+                                     (torch.float32, 33), (torch.bfloat16, 33)])
+def test_roi_align_multilevel_kernel_matches_twin(dev, rng, dtype, c):
+    """Even C takes two channels a thread, odd C one; a level outside [0, 4)
+    pools zeros; level 2 is empty."""
+    feats, rois = _pyramid(rng, dev, c, dtype)
+    levels = torch.from_numpy(rng.choice([0, 1, 3, 4, -1], (2, 50), p=[.3, .3, .3, .05, .05])
+                              .astype(np.int32)).to(dev)
+    build.reset_launch_counts()
+    got = roi_align_multilevel_forward(feats, rois, levels, [4, 8, 16, 32])
+    want = roi_align_multilevel_reference(feats, rois, levels, [4, 8, 16, 32])
+    assert build.LAUNCH_COUNTS["roi_align_ml"] == 1 and got.dtype == dtype
+    scale = want.float().abs().max().item()
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    off = (levels < 0) | (levels > 3)
+    assert off.any() and not got[off].any()
+
+
+@pytest.mark.parametrize("c", [96, 33])
+def test_roi_align_multilevel_on_one_level_equals_k2(dev, rng, c):
+    feats, rois = _pyramid(rng, dev, c, torch.bfloat16)
+    levels = torch.full((2, 50), 1, dtype=torch.int32, device=dev)
+    got = roi_align_multilevel_forward(feats, rois, levels, [4, 8, 16, 32])
+    assert torch.equal(got, roi_align_forward(feats[1], rois, 7, 1.0 / 8, 2))
+
+
+def test_rpn_logit_product_bf16_matches_f32(dev, rng):
+    """The FPN RPN's bf16 mm with an f32 result against the f32 product of
+    the same bf16 operands."""
+    tokens = torch.from_numpy(rng.randn(2, 1000, 256).astype(np.float32)).to(dev, torch.bfloat16)
+    dw = torch.from_numpy(rng.randn(256, 3).astype(np.float32) * 0.05).to(dev)
+    db = torch.from_numpy(rng.randn(3).astype(np.float32)).to(dev)
+    got = fg_logit_diff(tokens, dw, db)
+    want = tokens.float() @ dw.to(torch.bfloat16).float() + db
+    assert got.dtype == torch.float32 and got.shape == want.shape == (2, 1000, 3)
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
@@ -189,3 +241,11 @@ def test_wrappers_raise_instead_of_falling_back(dev):
                              torch.ones(1, 10, dtype=torch.bool, device=dev))
     with pytest.raises(ValueError):                 # f64 scores: the kernel takes f32
         topk_threshold(torch.zeros(1, 10, dtype=torch.float64, device=dev), 3)
+    feats = [torch.randn(1, 8, 8, 16, device=dev), torch.randn(1, 4, 4, 16, device=dev)]
+    rois, levels = torch.zeros(1, 1, 4, device=dev), torch.zeros(1, 1, dtype=torch.int32,
+                                                                 device=dev)
+    with pytest.raises(ValueError):                 # f16 maps: the kernel takes f32 or bf16
+        roi_align_multilevel_forward([f.half() for f in feats], rois, levels, [4, 8])
+    with pytest.raises(NotImplementedError):       # no backward: no result without a grad_fn
+        roi_align_multilevel_forward([feats[0].requires_grad_(True), feats[1]], rois, levels,
+                                     [4, 8])
