@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only kernels   # stop after the kernel phases (1-11)
-    python3 chip_smoke.py --profile        # and stage breakdowns of the train step
-                                           # and of FPN detect (18, 19)
+    python3 chip_smoke.py --profile        # and stage breakdowns of the two train
+                                           # steps and of FPN detect (20-22)
 
 Phases, each of which raises on failure (the script then exits non-zero):
   0. the card: name and power limit from nvidia-smi, torch/CUDA versions;
@@ -18,14 +18,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      38x64x1024);
   4. K3 (fused bottleneck) against its twin at the layer1/layer2 shapes of
      the serving path (800x1216) and of the train path (608x1024);
-  5. K1 at the train shape (8 x 12000, t=0.7, cap 2000);
+  5. K1 at the train shapes (C4: 8 x 12000, FPN: 8 x 8480; t=0.7, cap 2000);
   6. K2b (RoIAlign backward) against its twin, f32 and bf16, at the train
-     shape (8 x 128 rois, 38x64x1024);
+     shape (8 x 128 rois, 38x64x1024); K6b (multilevel RoIAlign backward)
+     against its twin, f32 and bf16, at the FPN train shape (dOut 8 x 128 x
+     7x7x256 over P2-P5 of 608x1024), every level populated and with one
+     level empty, and with every roi on one level against K2b on that level;
   7. K4 (anchor-overlap stats) bit-equal to its twin at the train shape
      (21888 anchors, 8 x 64 padded gt);
   8. K5 (threshold top-k) indices equal to its twin at (8, 21888), k 128
-     and 256, on rows of ties, NaN and +-inf, and k = S, and at the FPN
-     serving rows (8, 182400) and (8, 45600), k 1000;
+     and 256, on rows of ties, NaN and +-inf, and k = S, at the FPN
+     serving rows (8, 182400) and (8, 45600), k 1000, and at the FPN train
+     rows (8, 155520), k 128 and 256, and (8, 116736), k 2000;
   9. K6 (multilevel RoIAlign forward) against its twin, f32 and bf16, at
      the FPN serving shape (P2-P5 of 800x1216, 256 channels, 8 x 300
      rois), every level populated and with one level empty; and K6 with
@@ -53,14 +57,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
      trainable ones changed; then the steady-state step time;
  17. one f32 train step on the card and on a CPU copy with the same weights
      and draws: losses and parameter updates matched;
- 18. (with ``--profile``) CUDA events around each stage of a steady-state
+ 18. the FPN train path: res50_fpn, the shape, roidb and solver of 16; on
+     step 1 every trainable tensor has a non-zero gradient; launch counts
+     per step (K3 6, K4 1, K5 3, K1 1, K6 1, K6b 1), finite losses, frozen
+     parameters bit-unchanged; then the steady-state step time and the peak
+     device memory;
+ 19. one f32 FPN train step on the card and on a CPU copy, as 17;
+ 20. (with ``--profile``) CUDA events around each stage of a steady-state
      train step and torch.profiler over 3 steps: stage times, the device's
      idle share and the top kernels, also in chiprun_out/profile_train.json;
- 19. (with ``--profile``) the same for a steady-state FPN detect batch,
-     into chiprun_out/profile_fpn.json.
+ 21. (with ``--profile``) the same for a steady-state FPN detect batch,
+     into chiprun_out/profile_fpn.json;
+ 22. (with ``--profile``) the same for a steady-state FPN train step, into
+     chiprun_out/profile_fpn_train.json.
 Then one JSON line of per-kernel results, the card line, and, last, the
-JSON ok line.  TF32 is off for convolutions and matmuls throughout, so f32
-comparisons are f32.
+JSON ok line.  Each kernel's line carries its launches on the four paths,
+its error against the twin, its time, the twin's, the time of the one
+library call that computes the same function where there is one, and its
+bound: the least time the card could take for the timed launches, from the
+bytes they must move (inputs read once, of a RoIAlign's maps only the
+pixels under a roi; outputs written once) and the operations they need,
+over the H100's published rates.  TF32 is off for
+convolutions and matmuls throughout, so f32 comparisons are f32.
 """
 
 from __future__ import annotations
@@ -109,9 +127,74 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+F32_FLOPS = 67e12
+IOU_FLOPS = 16            # one box pair: 4 min/max, 2 extents, product, union, quotient, compare
+RESULTS_KEYS = ("ms", "plain_ms", "library_ms", "max_abs_err", "bound_ms", "bound_by")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class Bound:
+    """The least time the card could take for the launches added to it: per
+    launch the larger of bytes / HBM rate and operations / peak rate."""
+
+    def __init__(self):
+        self.ms = self.bytes_ms = self.ops_ms = 0.0
+
+    def add(self, n_bytes: float, ops: float = 0.0, peak: float = F32_FLOPS, count: int = 1):
+        b_ms, o_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+        self.ms += count * max(b_ms, o_ms)
+        self.bytes_ms += count * b_ms
+        self.ops_ms += count * o_ms
+        return max(b_ms, o_ms)
+
+    def result(self) -> dict:
+        return {"bound_ms": self.ms,
+                "bound_by": "bytes" if self.bytes_ms >= self.ops_ms else "operations"}
+
+
+def merge_results(*parts) -> dict:
+    """One kernel's results over several checks: times and bounds add, the
+    error is the worst, the bound's kind is that of the larger share."""
+    out = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0, "library_ms": None}
+    by = {"bytes": 0.0, "operations": 0.0}
+    for part in parts:
+        for key in ("ms", "plain_ms", "bound_ms"):
+            out[key] += part[key]
+        out["max_abs_err"] = max(out["max_abs_err"], part["max_abs_err"])
+        by[part["bound_by"]] += part["bound_ms"]
+        if part.get("library_ms") is not None:
+            out["library_ms"] = (out["library_ms"] or 0.0) + part["library_ms"]
+    out["bound_by"] = max(by, key=by.get)
+    return out
+
+
+def nms_pairs(keep, valid, cap=None):
+    """Box pairs a greedy NMS of this data must compare: each kept box (the
+    first ``cap`` of them) against every valid box after it."""
+    n = keep.shape[1]
+    pos = torch.arange(n, device=keep.device)
+    counted = keep if cap is None else keep & (torch.cumsum(keep, 1) <= cap)
+    after = torch.clamp(valid.sum(1, keepdim=True) - pos - 1, min=0)
+    return int(torch.where(counted, after, 0).sum().item())
+
+
 def bf16_ulp(scale: float) -> float:
     """One bf16 ulp (8 significant bits) at magnitude ``scale``."""
     return 2.0 ** (np.floor(np.log2(max(scale, 1e-30))) - 7)
+
+
+def roi_tolerance(dtype, scale: float):
+    """The RoIAlign kernels' tolerance against their twins, and its rule:
+    f32 1e-5 of max|twin|, bf16 one bf16 ulp of max|twin|."""
+    if dtype == torch.float32:
+        return 1e-5 * scale, "1e-5 of max|twin|"
+    return bf16_ulp(scale), "one bf16 ulp of max|twin|"
 
 
 def random_boxes(rng, b, n, size=800.0, clusters=40):
@@ -218,6 +301,7 @@ def check_nms(dev):
         return bx.contiguous(), thresh, vd.contiguous(), cap
 
     timings = {}
+    bound = Bound()
     for name, args, kw, sort, iters in (("proposals", prop_args, prop_kw, False, 3),
                                         ("per_class", cls_args, cls_kw, True, 5),
                                         ("FPN proposals", fpn_args, fpn_kw, False, 3)):
@@ -225,16 +309,21 @@ def check_nms(dev):
         k_ms = cuda_ms(lambda: nms_mask_batched(bx, thresh, vd, max_keep=cap))
         t_ms = cuda_ms(lambda: nms_mask_reference(bx, thresh, vd), iters=iters, warmup=1)
         timings[name] = (k_ms, t_ms)
-        log(f"K1 time {name}: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms")
+        keep = nms_mask_batched(bx, thresh, vd, max_keep=cap)
+        b_ms = bound.add(nbytes(bx, vd, keep), nms_pairs(keep, vd, cap) * IOU_FLOPS)
+        log(f"K1 time {name}: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms, bound {b_ms:.4f} ms")
     results["ms"] = sum(v[0] for v in timings.values())
     results["plain_ms"] = sum(v[1] for v in timings.values())
     results["max_abs_err"] = float(max(errs))
-    return results
+    return {**results, **bound.result()}
 
 
 # ---------------------------------------------------------------------------
 # K2
 # ---------------------------------------------------------------------------
+
+
+ROI_FLOPS = 32   # per pooled value at sampling ratio 2: 4 samples x 4 corners x (mul, add)
 
 
 def check_roi_align(dev):
@@ -243,6 +332,7 @@ def check_roi_align(dev):
     rng = np.random.RandomState(1)
     k_total = t_total = 0.0
     worst = 0.0
+    bound = Bound()
     # (name, B, H, W, C, rois per image, image size): the serving and train shapes
     for name, b, h, w, c, r, size in (("serving", 8, 50, 76, 1024, 300, 1216.0),
                                       ("train", 8, 38, 64, 1024, 128, 1024.0)):
@@ -260,10 +350,7 @@ def check_roi_align(dev):
             torch.cuda.synchronize()
             err = (k.float() - t.float()).abs().max().item()
             scale = t.float().abs().max().item()
-            if dtype == torch.float32:
-                tol, rule = 1e-5 * scale, "1e-5 relative to max|twin|"
-            else:
-                tol, rule = bf16_ulp(scale), "one bf16 ulp of max|twin|"
+            tol, rule = roi_tolerance(dtype, scale)
             if not err <= tol:
                 raise AssertionError(f"K2 {name} {dtype}: max abs err {err} > {tol} ({rule})")
             log(f"K2 {name} {str(dtype)[6:]} ({b} x {h}x{w}x{c}, {r} rois): max abs err "
@@ -273,8 +360,41 @@ def check_roi_align(dev):
         t_ms = cuda_ms(lambda: roi_align_reference(feat, rois_t), iters=5)
         k_total += k_ms
         t_total += t_ms
-        log(f"K2 time {name} bf16: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms")
-    return {"ms": k_total, "plain_ms": t_total, "max_abs_err": worst}
+        read = roi_read_bytes(rois_t, torch.zeros_like(rois_t[..., 0]), [(h, w)], [1.0 / 16.0],
+                              c, feat.element_size())
+        b_ms = bound.add(read + nbytes(rois_t, k), k.numel() * ROI_FLOPS)
+        log(f"K2 time {name} bf16: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({read / 1e6:.1f} of the map's {nbytes(feat) / 1e6:.1f} MB lie "
+            f"under a roi)")
+    return {"ms": k_total, "plain_ms": t_total, "max_abs_err": worst, **bound.result()}
+
+
+def roi_read_bytes(rois, levels, hws, scales, c, element_size, p=7, sr=2):
+    """Bytes of the level maps that a RoIAlign of these rois must read: a
+    pixel counts once per image and level when some sample of some roi on that
+    level gives it a non-zero bilinear weight; each holds ``c`` values.  rois
+    (B, R, 4), levels (B, R) int; a level outside the list reads nothing."""
+    def axis_hits(lo, hi, size):
+        """(B, R, size): 1.0 where an index along this axis has weight."""
+        bin_sz = torch.clamp(hi - lo, min=1.0) / p
+        s = (torch.arange(p * sr, dtype=torch.float32, device=lo.device) + 0.5) / sr
+        coords = lo[..., None] + s * bin_sz[..., None]
+        inside = (coords >= -1.0) & (coords <= size)
+        at = torch.clamp(coords, 0.0, size - 1.0)
+        low = torch.floor(at)
+        high = torch.clamp(low + 1, max=size - 1)
+        hits = torch.zeros((*lo.shape, size), device=lo.device)
+        hits.scatter_reduce_(2, low.long(), inside.float(), "amax")               # 1 - frac > 0
+        hits.scatter_reduce_(2, high.long(), (inside & (at > low)).float(), "amax")
+        return hits
+
+    pixels = 0
+    for lv, ((h, w), scale) in enumerate(zip(hws, scales)):
+        scaled = rois.float() * scale
+        rows = axis_hits(scaled[..., 1], scaled[..., 3], h) * (levels == lv)[..., None]
+        cols = axis_hits(scaled[..., 0], scaled[..., 2], w)
+        pixels += int((torch.einsum("brh,brw->bhw", rows, cols) > 0).sum().item())
+    return pixels * c * element_size
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +422,7 @@ def check_fused_block(dev):
 
     k_total = t_total = 0.0
     worst = 0.0
+    bound = Bound()
     for name, h, w, cin, mid, proj, count in K3_SHAPES:
         cout = 4 * mid
         x = torch.relu(rnd(8, h, w, cin))
@@ -325,14 +446,20 @@ def check_fused_block(dev):
         t_ms = cuda_ms(lambda: bottleneck_reference(x, w1, b1, w2_hwio, b2, w3, b3, wds, bds))
         k_total += count * k_ms
         t_total += count * t_ms
+        flops = 2.0 * 8 * h * w * (cin * mid + 9 * mid * mid + mid * cout
+                                   + (cin * cout if proj else 0))
+        b_ms = bound.add(nbytes(*(a for a in args if a is not None), k), flops,
+                         BF16_TENSOR_FLOPS, count)
         if count:
             worst = max(worst, err)
         log(f"K3 {name} x (8, {h}, {w}, {cin}) mid {mid}: max abs err {err:.3e} <= {tol:.3e} "
             f"(4 bf16 ulps of max|twin| {scale:.3f}), mean abs err {mean_err:.3e}; "
-            f"kernel {k_ms:.4f} ms, plain twin (cuDNN bf16) {t_ms:.4f} ms")
+            f"kernel {k_ms:.4f} ms, plain twin (cuDNN bf16) {t_ms:.4f} ms, bound {b_ms:.4f} ms")
     log(f"K3 time over the 12 main-path launches (6 per serving batch, 6 per train step): "
-        f"kernel {k_total:.4f} ms, plain twin {t_total:.4f} ms")
-    return {"ms": k_total, "plain_ms": t_total, "max_abs_err": worst}
+        f"kernel {k_total:.4f} ms, plain twin {t_total:.4f} ms; the twin is the library's "
+        f"(cuDNN's) bf16 convolutions")
+    return {"ms": k_total, "plain_ms": t_total, "library_ms": t_total, "max_abs_err": worst,
+            **bound.result()}
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +468,9 @@ def check_fused_block(dev):
 
 TRAIN_B, TRAIN_H, TRAIN_W = 8, 608, 1024        # batch and bucket of the train path
 TRAIN_FEAT = (TRAIN_H // 16, TRAIN_W // 16)      # 38 x 64 C4 features
+FPN_TRAIN_LEVELS = ((152, 256), (76, 128), (38, 64), (19, 32))   # P2-P5 of 608x1024
+FPN_TRAIN_ANCHORS = 3 * (sum(h * w for h, w in FPN_TRAIN_LEVELS) + 10 * 16)   # + P6: 155520
+FPN_TRAIN_CANDIDATES = 4 * 2000 + 10 * 16 * 3   # top 2000 of P2-P5 and all of P6: 8480
 
 
 def check_nms_train(dev):
@@ -348,24 +478,36 @@ def check_nms_train(dev):
     from frcnn_tpu_torch.ops.nms import nms_fixed_batched
 
     rng = np.random.RandomState(6)
-    b, n, cap = TRAIN_B, 12000, 2000
-    boxes = torch.from_numpy(random_boxes(rng, b, n, size=1000.0, clusters=120)).to(dev)
-    scores = torch.from_numpy(-np.sort(-rng.uniform(0, 1, (b, n)), axis=1)
-                              .astype(np.float32)).to(dev)
-    valid = torch.from_numpy(np.arange(n)[None, :] < rng.randint(9000, n + 1, (b, 1))).to(dev)
-    ki, kv = nms_fixed_batched(boxes, scores, 0.7, cap, valid=valid, presorted=True)
-    ti, tv = nms_fixed_batched(boxes, scores, 0.7, cap, valid=valid, presorted=True,
-                               use_kernels=False)
-    torch.cuda.synchronize()
-    if not (torch.equal(ki, ti) and torch.equal(kv, tv)):
-        raise AssertionError("K1 train shape: nms_fixed_batched idx/valid differ from the twin")
-    k_ms = cuda_ms(lambda: nms_mask_batched(boxes, 0.7, valid, max_keep=cap))
-    t_ms = cuda_ms(lambda: nms_mask_reference(boxes, 0.7, valid), iters=3, warmup=1)
-    log(f"K1 train shape (8, 12000, t=0.7, cap 2000): idx/valid equal to the twin, kept per "
-        f"problem {kv.sum(1).float().mean().item():.1f}; kernel {k_ms:.4f} ms, "
-        f"plain twin {t_ms:.4f} ms")
-    return {"ms": k_ms, "plain_ms": t_ms,
-            "max_abs_err": float((ki.long() - ti.long()).abs().max().item())}
+    cap = 2000
+    parts = []
+    # the C4 train proposals (top 12000 of 21888) and the FPN train candidates
+    # (top 2000 of P2-P5 and all 480 of P6)
+    for name, n, n_valid_min in (("C4 train", 12000, 9000),
+                                 ("FPN train", FPN_TRAIN_CANDIDATES, 6000)):
+        b = TRAIN_B
+        boxes = torch.from_numpy(random_boxes(rng, b, n, size=1000.0, clusters=120)).to(dev)
+        scores = torch.from_numpy(-np.sort(-rng.uniform(0, 1, (b, n)), axis=1)
+                                  .astype(np.float32)).to(dev)
+        valid = torch.from_numpy(np.arange(n)[None, :]
+                                 < rng.randint(n_valid_min, n + 1, (b, 1))).to(dev)
+        ki, kv = nms_fixed_batched(boxes, scores, 0.7, cap, valid=valid, presorted=True)
+        ti, tv = nms_fixed_batched(boxes, scores, 0.7, cap, valid=valid, presorted=True,
+                                   use_kernels=False)
+        torch.cuda.synchronize()
+        if not (torch.equal(ki, ti) and torch.equal(kv, tv)):
+            raise AssertionError(f"K1 {name} shape: nms_fixed_batched idx/valid differ from "
+                                 "the twin")
+        k_ms = cuda_ms(lambda: nms_mask_batched(boxes, 0.7, valid, max_keep=cap))
+        t_ms = cuda_ms(lambda: nms_mask_reference(boxes, 0.7, valid), iters=3, warmup=1)
+        keep = nms_mask_batched(boxes, 0.7, valid, max_keep=cap)
+        bound = Bound()
+        bound.add(nbytes(boxes, valid, keep), nms_pairs(keep, valid, cap) * IOU_FLOPS)
+        log(f"K1 {name} shape (8, {n}, t=0.7, cap 2000): idx/valid equal to the twin, kept per "
+            f"problem {kv.sum(1).float().mean().item():.1f}; kernel {k_ms:.4f} ms, "
+            f"plain twin {t_ms:.4f} ms, bound {bound.ms:.4f} ms")
+        parts.append({"ms": k_ms, "plain_ms": t_ms, **bound.result(),
+                      "max_abs_err": float((ki.long() - ti.long()).abs().max().item())})
+    return merge_results(*parts)
 
 
 def check_roi_align_bwd(dev):
@@ -391,10 +533,7 @@ def check_roi_align_bwd(dev):
             raise AssertionError(f"K2b {dtype}: got {k.dtype} {tuple(k.shape)}")
         err = (k.float() - t.float()).abs().max().item()
         scale = t.float().abs().max().item()
-        if dtype == torch.float32:
-            tol, rule = 1e-5 * scale, "1e-5 of max|twin|"
-        else:
-            tol, rule = bf16_ulp(scale), "one bf16 ulp of max|twin|"
+        tol, rule = roi_tolerance(dtype, scale)
         if not err <= tol:
             raise AssertionError(f"K2b {dtype}: max abs err {err} > {tol} ({rule})")
         log(f"K2b {str(dtype)[6:]} (dOut 8 x 128 x 7x7x1024 -> dF 8 x 38x64x1024): max abs "
@@ -402,17 +541,94 @@ def check_roi_align_bwd(dev):
         out[dtype] = err
     k_ms = cuda_ms(lambda: roi_align_backward(g, rois_t, (h, w)))
     t_ms = cuda_ms(lambda: roi_align_backward_reference(g, rois_t, (h, w)), iters=5)
-    log(f"K2b time bf16: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms")
-    return {"ms": k_ms, "plain_ms": t_ms, "max_abs_err": out[torch.bfloat16]}
+    bound = Bound()
+    bound.add(nbytes(g, rois_t, k), g.numel() * ROI_FLOPS)
+    log(f"K2b time bf16: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms, bound {bound.ms:.4f} ms")
+    return {"ms": k_ms, "plain_ms": t_ms, "max_abs_err": out[torch.bfloat16], **bound.result()}
 
 
-def overlap_inputs(rng, dev):
+def check_roi_align_ml_bwd(dev):
+    from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (
+        roi_align_backward, roi_align_multilevel_backward,
+        roi_align_multilevel_backward_reference)
+
+    rng = np.random.RandomState(12)
+    b, r, c = TRAIN_B, 128, 256
+    hws = FPN_TRAIN_LEVELS
+    rois = random_boxes(rng, b, r, size=1000.0)
+    rois[:, :10] = rng.uniform(-400, 1400, (b, 10, 4))             # partly / wholly outside
+    rois[:, 10:15, 2:] = rois[:, 10:15, :2]                        # zero size
+    rois[:, 15:20] = 0.0                                           # padding rois
+    rois_t = torch.from_numpy(rois).to(dev)
+    g32 = torch.from_numpy(rng.randn(b, r, 7, 7, c).astype(np.float32)).to(dev)
+    every = torch.from_numpy(rng.randint(0, 4, (b, r)).astype(np.int32)).to(dev)
+    one_empty = torch.where(every == 2, 1, every).to(torch.int32)
+
+    worst = 0.0
+    for case, levels in (("every level populated", every), ("level 2 empty", one_empty)):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = g32.to(dtype)
+            k = roi_align_multilevel_backward(g, rois_t, levels, hws, FPN_STRIDES)
+            t = roi_align_multilevel_backward_reference(g, rois_t, levels, hws, FPN_STRIDES)
+            torch.cuda.synchronize()
+            scale = max(x.float().abs().max().item() for x in t)
+            tol, rule = roi_tolerance(dtype, scale)
+            err = 0.0
+            for kl, tl, hw in zip(k, t, hws):
+                if kl.dtype != dtype or kl.shape != (b, *hw, c):
+                    raise AssertionError(f"K6b {case} {dtype}: got {kl.dtype} {tuple(kl.shape)}")
+                err = max(err, (kl.float() - tl.float()).abs().max().item())
+            if not err <= tol:
+                raise AssertionError(f"K6b {case} {dtype}: max abs err {err} > {tol} ({rule})")
+            if case == "level 2 empty" and k[2].any():
+                raise AssertionError(f"K6b {case} {dtype}: the empty level's gradient is not zero")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            log(f"K6b {case} {str(dtype)[6:]} (dOut 8 x 128 x 7x7x256 -> dF P2-P5 of 608x1024): "
+                f"max abs err {err:.3e} <= {tol:.3e} ({rule}, max|twin| {scale:.3f})")
+            del k, t
+    # every roi on P4: K6b and K2b share the geometry and the scatter; the
+    # atomics' order differs, so the two agree within K2b's own tolerance
+    on_p4 = torch.full_like(every, 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        g = g32.to(dtype)
+        k6b = roi_align_multilevel_backward(g, rois_t, on_p4, hws, FPN_STRIDES)
+        k2b = roi_align_backward(g, rois_t, hws[2], 7, 1.0 / FPN_STRIDES[2], 2)
+        torch.cuda.synchronize()
+        tol, rule = roi_tolerance(dtype, k2b.float().abs().max().item())
+        err = (k6b[2].float() - k2b.float()).abs().max().item()
+        if not err <= tol or any(k6b[i].any() for i in (0, 1, 3)):
+            raise AssertionError(f"K6b on one level {dtype}: max abs err {err} > {tol} against "
+                                 "K2b, or another level is not zero")
+        log(f"K6b with every roi on P4, {str(dtype)[6:]}: within {err:.3e} <= {tol:.3e} ({rule}) "
+            f"of K2b on P4; P2, P3, P5 all zero")
+        del k6b, k2b
+    g = g32.to(torch.bfloat16)
+    k_ms = cuda_ms(lambda: roi_align_multilevel_backward(g, rois_t, every, hws, FPN_STRIDES))
+    t_ms = cuda_ms(lambda: roi_align_multilevel_backward_reference(g, rois_t, every, hws,
+                                                                   FPN_STRIDES), iters=5)
+    bound = Bound()
+    out_bytes = sum(b * h * w * c for h, w in hws) * g.element_size()
+    bound.add(nbytes(g, rois_t, every) + out_bytes, g.numel() * ROI_FLOPS)
+    log(f"K6b time bf16 (every level populated): kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms, "
+        f"bound {bound.ms:.4f} ms ({out_bytes / 1e6:.1f} MB of dF written once)")
+    return {"ms": k_ms, "plain_ms": t_ms, "max_abs_err": worst, **bound.result()}
+
+
+def fpn_train_anchors():
+    """The FPN model's anchor table at 608x1024: P2-P6, one size a level."""
+    from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
+
+    levels = FPN_TRAIN_LEVELS + ((10, 16),)
+    return np.concatenate([generate_anchors_pre(h, w, 2 ** lv, scales=(8.0,))[0]
+                           for lv, (h, w) in enumerate(levels, start=2)])
+
+
+def overlap_inputs(rng, dev, anchors):
     """Train-shape anchors and padded gt: 3-64 valid gt per image, exact
     anchor copies, duplicated gt (argmax ties), a gt overlapping nothing,
     and images smaller than the bucket (anchors outside)."""
-    from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
-
-    anchors, k = generate_anchors_pre(*TRAIN_FEAT, 16)
+    k = len(anchors)
     b, g = TRAIN_B, 64
     xy = rng.uniform(0, 900, (b, g, 2))
     wh = rng.uniform(16, 400, (b, g, 2))
@@ -436,22 +652,31 @@ def check_overlap(dev):
     from frcnn_tpu_torch.ops.cuda.overlap_kernel import (anchor_overlap_stats,
                                                          anchor_overlap_stats_reference)
 
-    args = overlap_inputs(np.random.RandomState(8), dev)
-    got = anchor_overlap_stats(*args)
-    want = anchor_overlap_stats_reference(*args)
-    torch.cuda.synchronize()
-    for name, k, t in zip(("max_overlaps", "argmax", "is_gt_argmax"), got, want):
-        if k.dtype != t.dtype or not torch.equal(k, t):
-            raise AssertionError(f"K4 {name}: not bit-equal to the twin "
-                                 f"({(k != t).sum().item()} differ)")
-    err = (got[0] - want[0]).abs().max().item()
-    k_ms = cuda_ms(lambda: anchor_overlap_stats(*args))
-    t_ms = cuda_ms(lambda: anchor_overlap_stats_reference(*args))
-    log(f"K4 (21888 anchors, 8 x 64 padded gt): max_overlaps, argmax, is_gt_argmax bit-equal "
-        f"to the twin ({got[2].sum().item()} gt-argmax anchors, "
-        f"{(got[0] == 1.0).sum().item()} at IoU 1); kernel {k_ms:.4f} ms, "
-        f"plain twin {t_ms:.4f} ms")
-    return {"ms": k_ms, "plain_ms": t_ms, "max_abs_err": err}
+    from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
+
+    rng = np.random.RandomState(8)
+    parts = []
+    for name, anchors in (("C4 train", generate_anchors_pre(*TRAIN_FEAT, 16)[0]),
+                          ("FPN train", fpn_train_anchors())):
+        args = overlap_inputs(rng, dev, anchors)
+        got = anchor_overlap_stats(*args)
+        want = anchor_overlap_stats_reference(*args)
+        torch.cuda.synchronize()
+        for out, k, t in zip(("max_overlaps", "argmax", "is_gt_argmax"), got, want):
+            if k.dtype != t.dtype or not torch.equal(k, t):
+                raise AssertionError(f"K4 {name} {out}: not bit-equal to the twin "
+                                     f"({(k != t).sum().item()} differ)")
+        k_ms = cuda_ms(lambda: anchor_overlap_stats(*args))
+        t_ms = cuda_ms(lambda: anchor_overlap_stats_reference(*args))
+        bound = Bound()
+        bound.add(nbytes(*args, *got), len(anchors) * int(args[2].sum().item()) * IOU_FLOPS)
+        log(f"K4 {name} ({len(anchors)} anchors, 8 x 64 padded gt): max_overlaps, argmax, "
+            f"is_gt_argmax bit-equal to the twin ({got[2].sum().item()} gt-argmax anchors, "
+            f"{(got[0] == 1.0).sum().item()} at IoU 1); kernel {k_ms:.4f} ms, "
+            f"plain twin {t_ms:.4f} ms, bound {bound.ms:.4f} ms")
+        parts.append({"ms": k_ms, "plain_ms": t_ms, **bound.result(),
+                      "max_abs_err": (got[0] - want[0]).abs().max().item()})
+    return merge_results(*parts)
 
 
 def check_select(dev):
@@ -508,7 +733,45 @@ def check_select(dev):
     log(f"K5 FPN serving rows (8, 182400) and (8, 45600), k 1000, with ties: indices and value "
         f"bits equal to the twin; kernel {fk_ms:.4f} ms, plain twin (stable sort) "
         f"{ft_ms:.4f} ms for the two launches")
-    return {"ms": k_ms + fk_ms, "plain_ms": t_ms + ft_ms, "max_abs_err": 0.0}
+    # the FPN train step's rows: the anchor subsampling priorities over all
+    # 155520 level anchors (k 128 and 256) and P2's probabilities (k 2000)
+    n = FPN_TRAIN_ANCHORS
+    ramp = np.arange(n, dtype=np.float32) * np.float32(2.0 ** -17)
+    u = rng.uniform(0, 1, (b, n)).astype(np.float32)
+    rows = []
+    for frac, k in ((0.001, 128), (0.6, 256)):
+        mask = rng.uniform(0, 1, (b, n)) < frac
+        pri = np.where(mask, np.float32(1.0) + u, np.float32(-1.0) - ramp).astype(np.float32)
+        rows.append((torch.from_numpy(pri).to(dev), k))
+    p2 = np.round(rng.uniform(0, 1, (b, 3 * 152 * 256)) * 4096) / 4096
+    rows.append((torch.from_numpy(p2.astype(np.float32)).to(dev), 2000))
+    for v, k in rows:
+        same(f"FPN train row {tuple(v.shape)}", v, k)
+    tk_ms = sum(cuda_ms(lambda v=v, k=k: topk_threshold(v, k)) for v, k in rows)
+    tt_ms = sum(cuda_ms(lambda v=v, k=k: topk_threshold_reference(v, k)) for v, k in rows)
+    log(f"K5 FPN train rows (8, {n}) k 128 and 256, (8, 116736) k 2000: indices and value bits "
+        f"equal to the twin; kernel {tk_ms:.4f} ms, plain twin (stable sort) {tt_ms:.4f} ms for "
+        f"the three launches")
+    # every timed launch once more: its bound (the row read once, k values
+    # and indices written) and the library's calls for the same top-k
+    groups = (("C4 train rows", [(prios["fg"], 128), (prios["bg"], 256)], k_ms),
+              ("FPN serving rows", [(v, 1000) for v in fpn.values()], fk_ms),
+              ("FPN train rows", rows, tk_ms))
+    bound = Bound()
+    topk_ms = sort_ms = 0.0
+    for name, timed, kernel_ms in groups:
+        g_topk = sum(cuda_ms(lambda v=v, k=k: torch.topk(v, k, dim=1)) for v, k in timed)
+        g_sort = sum(cuda_ms(lambda v=v: torch.sort(v, dim=1, descending=True)) for v, _ in timed)
+        g_bound = sum(bound.add(nbytes(v) + v.shape[0] * k * 8, v.numel()) for v, k in timed)
+        log(f"K5 {name}, {len(timed)} launches: kernel {kernel_ms:.4f} ms, torch.topk "
+            f"{g_topk:.4f} ms, torch.sort {g_sort:.4f} ms, bound {g_bound:.4f} ms")
+        topk_ms += g_topk
+        sort_ms += g_sort
+    total = k_ms + fk_ms + tk_ms
+    log(f"K5 over its 7 timed launches: kernel {total:.4f} ms, torch.topk {topk_ms:.4f} ms, "
+        f"torch.sort {sort_ms:.4f} ms, bound {bound.ms:.4f} ms")
+    return {"ms": total, "plain_ms": t_ms + ft_ms + tt_ms, "library_ms": topk_ms,
+            "library_sort_ms": sort_ms, "max_abs_err": 0.0, **bound.result()}
 
 
 # ---------------------------------------------------------------------------
@@ -526,52 +789,63 @@ def check_roi_align_ml(dev):
                                                            roi_align_multilevel_reference)
 
     rng = np.random.RandomState(10)
-    b, r, c = 8, 300, 256
-    feats32 = [torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(dev)
-               for h, w in FPN_LEVELS]
-    rois = random_boxes(rng, b, r, size=1216.0)
-    rois[:, :20] = rng.uniform(-400, 1616, (b, 20, 4))             # partly / wholly outside
-    rois[:, 20:30, 2:] = rois[:, 20:30, :2]                        # degenerate: zero size
-    rois[:, 30:40] = 0.0                                           # padding rois
-    rois[:, 40:50, 2:] = rois[:, 40:50, :2] - 5.0                  # inverted corners
-    rois_t = torch.from_numpy(rois).to(dev)
-    every = torch.from_numpy(rng.randint(0, 4, (b, r)).astype(np.int32)).to(dev)
-    one_empty = torch.where(every == 2, 1, every).to(torch.int32)
-    worst = 0.0
-    for case, levels in (("every level populated", every), ("level 2 empty", one_empty)):
+    b, c = 8, 256
+    worst = k_total = t_total = 0.0
+    bound = Bound()
+    # (name, level sizes, rois per image, image width): FPN serving and FPN train
+    for name, hws, r, size in (("serving, P2-P5 of 800x1216", FPN_LEVELS, 300, 1216.0),
+                               ("train, P2-P5 of 608x1024", FPN_TRAIN_LEVELS, 128, 1024.0)):
+        feats32 = [torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(dev)
+                   for h, w in hws]
+        rois = random_boxes(rng, b, r, size=size)
+        rois[:, :20] = rng.uniform(-400, size + 400, (b, 20, 4))       # partly / wholly outside
+        rois[:, 20:30, 2:] = rois[:, 20:30, :2]                        # degenerate: zero size
+        rois[:, 30:40] = 0.0                                           # padding rois
+        rois[:, 40:50, 2:] = rois[:, 40:50, :2] - 5.0                  # inverted corners
+        rois_t = torch.from_numpy(rois).to(dev)
+        every = torch.from_numpy(rng.randint(0, 4, (b, r)).astype(np.int32)).to(dev)
+        one_empty = torch.where(every == 2, 1, every).to(torch.int32)
+        for case, levels in (("every level populated", every), ("level 2 empty", one_empty)):
+            for dtype in (torch.float32, torch.bfloat16):
+                feats = [f.to(dtype) for f in feats32]
+                k = roi_align_multilevel_forward(feats, rois_t, levels, FPN_STRIDES)
+                t = roi_align_multilevel_reference(feats, rois_t, levels, FPN_STRIDES)
+                torch.cuda.synchronize()
+                err = (k.float() - t.float()).abs().max().item()
+                scale = t.float().abs().max().item()
+                tol, rule = roi_tolerance(dtype, scale)
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+                if not (k.shape == (b, r, 7, 7, c) and err <= tol):
+                    raise AssertionError(f"K6 {name}, {case} {dtype}: max abs err {err} > {tol} "
+                                         f"({rule})")
+                log(f"K6 {name}, {case} {str(dtype)[6:]} (256 channels, 8 x {r} rois): max abs "
+                    f"err {err:.3e} <= {tol:.3e} ({rule})")
+        # every roi on P4: K6 and K2 share the sample geometry and interpolation
+        on_p4 = torch.full_like(every, 2)
         for dtype in (torch.float32, torch.bfloat16):
             feats = [f.to(dtype) for f in feats32]
-            k = roi_align_multilevel_forward(feats, rois_t, levels, FPN_STRIDES)
-            t = roi_align_multilevel_reference(feats, rois_t, levels, FPN_STRIDES)
+            k6 = roi_align_multilevel_forward(feats, rois_t, on_p4, FPN_STRIDES)
+            k2 = roi_align_forward(feats[2], rois_t, 7, 1.0 / FPN_STRIDES[2], 2)
             torch.cuda.synchronize()
-            err = (k.float() - t.float()).abs().max().item()
-            scale = t.float().abs().max().item()
-            if dtype == torch.float32:
-                tol, rule = 1e-5 * scale, "1e-5 of max|twin|"
-            else:
-                tol, rule = bf16_ulp(scale), "one bf16 ulp of max|twin|"
-                worst = max(worst, err)
-            if not (k.shape == (b, r, 7, 7, c) and err <= tol):
-                raise AssertionError(f"K6 {case} {dtype}: max abs err {err} > {tol} ({rule})")
-            log(f"K6 {case} {str(dtype)[6:]} (P2-P5 of 800x1216 x 256, 8 x 300 rois): max abs "
-                f"err {err:.3e} <= {tol:.3e} ({rule})")
-    # every roi on P4: K6 and K2 share the sample geometry and interpolation
-    on_p4 = torch.full_like(every, 2)
-    for dtype in (torch.float32, torch.bfloat16):
-        feats = [f.to(dtype) for f in feats32]
-        k6 = roi_align_multilevel_forward(feats, rois_t, on_p4, FPN_STRIDES)
-        k2 = roi_align_forward(feats[2], rois_t, 7, 1.0 / FPN_STRIDES[2], 2)
-        torch.cuda.synchronize()
-        if not torch.equal(k6, k2):
-            raise AssertionError(f"K6 on one level {dtype}: not bit-equal to K2 "
-                                 f"({(k6 != k2).sum().item()} values differ)")
-    log("K6 with every roi on P4: bit-equal to K2 on P4, f32 and bf16")
-    feats = [f.to(torch.bfloat16) for f in feats32]
-    k_ms = cuda_ms(lambda: roi_align_multilevel_forward(feats, rois_t, every, FPN_STRIDES))
-    t_ms = cuda_ms(lambda: roi_align_multilevel_reference(feats, rois_t, every, FPN_STRIDES),
-                   iters=5)
-    log(f"K6 time bf16 (every level populated): kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms")
-    return {"ms": k_ms, "plain_ms": t_ms, "max_abs_err": worst}
+            if not torch.equal(k6, k2):
+                raise AssertionError(f"K6 {name} on one level {dtype}: not bit-equal to K2 "
+                                     f"({(k6 != k2).sum().item()} values differ)")
+        log(f"K6 {name} with every roi on P4: bit-equal to K2 on P4, f32 and bf16")
+        feats = [f.to(torch.bfloat16) for f in feats32]
+        k_ms = cuda_ms(lambda: roi_align_multilevel_forward(feats, rois_t, every, FPN_STRIDES))
+        t_ms = cuda_ms(lambda: roi_align_multilevel_reference(feats, rois_t, every, FPN_STRIDES),
+                       iters=5)
+        read = roi_read_bytes(rois_t, every, hws, [1.0 / st for st in FPN_STRIDES], c,
+                              feats[0].element_size())
+        b_ms = bound.add(read + nbytes(rois_t, every, k6), k6.numel() * ROI_FLOPS)
+        k_total += k_ms
+        t_total += t_ms
+        log(f"K6 time {name} bf16 (every level populated): kernel {k_ms:.4f} ms, plain twin "
+            f"{t_ms:.4f} ms, bound {b_ms:.4f} ms ({read / 1e6:.1f} of the maps' "
+            f"{nbytes(*feats) / 1e6:.1f} MB lie under a roi)")
+        del feats32, feats
+    return {"ms": k_total, "plain_ms": t_total, "max_abs_err": worst, **bound.result()}
 
 
 def check_nms_single(dev):
@@ -639,8 +913,10 @@ def main_path(dev, card):
     from frcnn_tpu_torch.ops.cuda import build
 
     cfg = smoke_config()
-    model = build_seeded(cfg, torch.bfloat16).to(dev)
-    detector = Detector(model, uint8_input=True)
+    model = build_seeded(cfg, torch.bfloat16)
+    detector = Detector(model, uint8_input=True)          # no device given: the card
+    if detector.device != dev or next(model.parameters()).device != dev:
+        raise AssertionError(f"Detector did not move the model to {dev}: {detector.device}")
     bh, bw = cfg.DEVICE.BUCKETS[0]
     rng = np.random.RandomState(3)
     # 800x1216 and 600x912 images both land in the one bucket
@@ -712,12 +988,12 @@ def end_to_end(dev):
     cfg = smoke_config(["TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480",
                         "DEVICE.BUCKETS", "((320, 480),)", "TEST.SCORE_THRESH", "0.05"])
     cpu_model = build_seeded(cfg, torch.float32, seed=1)
-    card_model = build_seeded(cfg, torch.float32, seed=1).to(dev)
+    card_model = build_seeded(cfg, torch.float32, seed=1)
     im = synthetic_images(np.random.RandomState(5), [(320, 480)])
     before = dict(build.LAUNCH_COUNTS)
     got = Detector(card_model)(im)[0]
     after = dict(build.LAUNCH_COUNTS)
-    want = Detector(cpu_model)(im)[0]
+    want = Detector(cpu_model, device="cpu")(im)[0]
     ran = {k: after.get(k, 0) - before.get(k, 0) for k in ("nms", "roi_align")}
     if ran != {"nms": 2, "roi_align": 1}:
         raise AssertionError(f"f32 card detect did not run K1 twice and K2 once: {ran}")
@@ -749,7 +1025,7 @@ def check_rpn_logits(model, pyramid):
     fpn.fg_logit_diff = recording
     try:
         with torch.inference_mode():
-            fg_prob, _ = model._rpn_all_levels(pyramid)
+            fg_prob, _, _ = model._rpn_all_levels(pyramid)
     finally:
         fpn.fg_logit_diff = plain
     tokens, dw, db, got = calls[0]                              # P2
@@ -779,7 +1055,7 @@ def fpn_path(dev, card):
     from frcnn_tpu_torch.ops.cuda import build
 
     cfg = smoke_config()
-    model = build_seeded(cfg, torch.bfloat16, net="res50_fpn").to(dev)
+    model = build_seeded(cfg, torch.bfloat16, net="res50_fpn")
     detector = Detector(model, uint8_input=True)
     bh, bw = cfg.DEVICE.BUCKETS[0]
     rng = np.random.RandomState(3)
@@ -835,12 +1111,12 @@ def fpn_end_to_end(dev):
     cfg = smoke_config(["TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480",
                         "DEVICE.BUCKETS", "((320, 480),)", "TEST.SCORE_THRESH", "0.05"])
     cpu_model = build_seeded(cfg, torch.float32, seed=1, net="res50_fpn")
-    card_model = build_seeded(cfg, torch.float32, seed=1, net="res50_fpn").to(dev)
+    card_model = build_seeded(cfg, torch.float32, seed=1, net="res50_fpn")
     im = synthetic_images(np.random.RandomState(5), [(320, 480)])
     before = dict(build.LAUNCH_COUNTS)
     got = Detector(card_model)(im)[0]
     after = dict(build.LAUNCH_COUNTS)
-    want = Detector(cpu_model)(im)[0]
+    want = Detector(cpu_model, device="cpu")(im)[0]
     ran = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
     # P2 of 320x480 (28800 anchors) passes the K5 gate, P3 (7200) does not
     if ran != {"nms": 2, "roi_align_ml": 1, "select": 1}:
@@ -856,11 +1132,16 @@ def fpn_end_to_end(dev):
 # The train path
 # ---------------------------------------------------------------------------
 
-# per train step: proposals NMS, RoIAlign fwd + bwd, the 6 stride-1 blocks
+# per C4 train step: proposals NMS, RoIAlign fwd + bwd, the 6 stride-1 blocks
 # of layer1-2 (forward; their backward is autograd of the twin), anchor
 # overlaps, fg + bg subsampling
 TRAIN_LAUNCHES = {"nms": 1, "roi_align": 1, "roi_align_bwd": 1, "fused_block": 6,
                   "overlap": 1, "select": 2}
+# per FPN train step: the same blocks, anchor overlaps over all level anchors,
+# fg + bg subsampling and P2's pre-NMS top-k (P3's 29184 < 24 x 2000 misses
+# the K5 gate), the cross-level NMS, multilevel RoIAlign fwd + bwd
+FPN_TRAIN_LAUNCHES = {"fused_block": 6, "overlap": 1, "select": 3, "nms": 1,
+                      "roi_align_ml": 1, "roi_align_ml_bwd": 1}
 
 
 def synthetic_roidb(rng, shapes, max_boxes=20):
@@ -890,12 +1171,13 @@ def train_config(extra=()):
         "TRAIN.DISPLAY", "1", *extra])
 
 
-def train_path(dev, card):
+def train_path(dev, card, net="res50", per_step=TRAIN_LAUNCHES):
     from frcnn_tpu_torch.engine.train import SolverWrapper, filter_roidb
     from frcnn_tpu_torch.ops.cuda import build
 
+    label = "FPN train" if "_fpn" in net else "train"
     cfg = train_config()
-    model = build_seeded(cfg, torch.bfloat16).to(dev)
+    model = build_seeded(cfg, torch.bfloat16, net=net)
     rng = np.random.RandomState(4)
     # landscape images whose 600-pixel rescale fits the 608x1024 bucket
     shapes = []
@@ -904,91 +1186,124 @@ def train_path(dev, card):
         shapes.append((h, int(h * rng.uniform(1.3, 1.66))))
     roidb, reader = synthetic_roidb(rng, shapes)
     roidb = filter_roidb(roidb, cfg)
-    solver = SolverWrapper(model, roidb, cfg, reader=reader)
+    solver = SolverWrapper(model, roidb, cfg, reader=reader)      # no device given: the card
+    if solver.device != dev or next(model.parameters()).device != dev:
+        raise AssertionError(f"SolverWrapper did not move the model to {dev}: {solver.device}")
     before = {name: p.detach().clone() for name, p in model.named_parameters()}
 
     steps = 5
     torch.cuda.synchronize()
     build.reset_launch_counts()
-    history = solver.train_model(steps)
+    history = solver.train_model(1)
+    n_fg, n_prop = int(solver.aux["n_fg"]), int(solver.aux["n_proposals"])
+    if n_fg <= 0 or n_prop <= 0:
+        raise AssertionError(f"{label} step 1: n_fg {n_fg}, proposals {n_prop}")
+    # step 1's gradients: none missing, none all zero (a wrapper without an
+    # autograd Function would cut the graph silently)
+    trained = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    dead = [n for n, p in trained
+            if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.any()]
+    if dead:
+        raise AssertionError(f"{label} step 1: no (or a non-finite) gradient for {dead}")
+    history += solver.train_model(steps)
     torch.cuda.synchronize()
     counts = dict(build.LAUNCH_COUNTS)
-    log(f"train path: {steps} steps of batch {TRAIN_B} at {TRAIN_H}x{TRAIN_W} over a "
-        f"{len(roidb)}-entry synthetic roidb; kernel launches {counts}")
+    log(f"{label} path: {steps} steps of batch {TRAIN_B} at {TRAIN_H}x{TRAIN_W} over a "
+        f"{len(roidb)}-entry synthetic roidb ({n_fg} fg rois, {n_prop} proposals in step "
+        f"1); kernel launches {counts}")
     for i, losses in enumerate(history):
         if not all(np.isfinite(v) for v in losses.values()):
-            raise AssertionError(f"train step {i + 1}: non-finite losses {losses}")
-    want = {name: n * steps for name, n in TRAIN_LAUNCHES.items()}
-    if counts != want:
-        raise AssertionError(f"train launch counts {counts} != {want} ({TRAIN_LAUNCHES} per step)")
+            raise AssertionError(f"{label} step {i + 1}: non-finite losses {losses}")
+    want = {name: n * steps for name, n in per_step.items()}
+    if len(history) != steps or counts != want:
+        raise AssertionError(f"{label} launch counts {counts} != {want} ({per_step} per step)")
     frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
-    trained = [n for n, p in model.named_parameters() if p.requires_grad]
     params = dict(model.named_parameters())
     moved = [n for n in frozen if not torch.equal(params[n], before[n])]
-    still = [n for n in trained if torch.equal(params[n], before[n])]
+    still = [n for n, _ in trained if torch.equal(params[n], before[n])]
     if moved or still:
         raise AssertionError(f"frozen params changed: {moved}; trainable params unchanged: {still}")
-    log(f"train path: losses finite, first {history[0]}, last {history[-1]}; "
+    groups = sorted({n.split(".")[0] for n, _ in trained})
+    log(f"{label} path: losses finite, first {history[0]}, last {history[-1]}; step 1 gave all "
+        f"{len(trained)} trainable tensors ({', '.join(groups)}) a non-zero gradient; "
         f"{len(frozen)} frozen tensors bit-unchanged, {len(trained)} trainable tensors changed")
 
     blobs = {k: torch.as_tensor(v).to(dev) for k, v in solver.data_layer.forward().items()}
+    torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: solver.train_step(blobs), iters=10, warmup=2)
-    log(f"train step steady state (batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, bf16 trunk): "
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{label} step steady state ({net}, batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, bf16 trunk): "
         f"{ms:.3f} ms per step (median of 10, CUDA events), "
-        f"{TRAIN_B * 1000.0 / ms:.2f} images/s on {card}")
+        f"{TRAIN_B * 1000.0 / ms:.2f} images/s, peak device memory {peak:.3f} GiB on {card}")
     return counts, solver
 
 
-def train_card_vs_cpu(dev):
+# (net, config cuts, anchors at 320x480, proposals, launches on the card,
+# tensors whose updates are compared) of the f32 card-vs-CPU train step
+CARD_VS_CPU = {
+    "res50": (["TRAIN.RPN_PRE_NMS_TOP_N", "400", "TRAIN.RPN_POST_NMS_TOP_N", "64"],
+              (320 // 16) * (480 // 16) * 9, 64,
+              {"nms": 1, "roi_align": 1, "roi_align_bwd": 1},
+              ("rpn_net.weight", "cls_score.weight", "layer2.1.conv2.weight")),
+    # 38370 anchors over P2-P6: K4 and K5 pass their gates, as does P2's top-k
+    "res50_fpn": (["FPN.PRE_NMS_PER_LEVEL_TRAIN", "200", "TRAIN.RPN_POST_NMS_TOP_N", "64"],
+                  3 * (80 * 120 + 40 * 60 + 20 * 30 + 10 * 15 + 5 * 8), 64,
+                  {"overlap": 1, "select": 3, "nms": 1, "roi_align_ml": 1, "roi_align_ml_bwd": 1},
+                  ("rpn_net.weight", "rpn_cls_w", "cls_score.weight", "box_head.fc1.weight",
+                   "neck.output2.weight", "neck.lateral5.weight", "layer2.1.conv2.weight")),
+}
+
+
+def train_card_vs_cpu(dev, net="res50"):
     """One f32 train step on the card (kernels) and on a CPU copy (twins)
     from the same weights, minibatch and draws.  The proposal and RoI
-    counts are cut (pre-NMS 400, post-NMS 64) so that the proposal order,
-    which decides which roi each random priority lands on, is not flipped
-    by near-tied RPN scores that differ in the last bits between cuDNN and
-    the CPU convolutions."""
+    counts are cut (C4: pre-NMS 400; FPN: 200 a level; post-NMS 64) so that
+    the proposal order, which decides which roi each random priority lands
+    on, is not flipped by near-tied RPN scores that differ in the last bits
+    between cuDNN and the CPU convolutions."""
     from frcnn_tpu_torch.data.loader import get_minibatch
     from frcnn_tpu_torch.engine.train import SolverWrapper
     from frcnn_tpu_torch.ops.cuda import build
 
+    cuts, k, post, card_launches, compared = CARD_VS_CPU[net]
     cfg = train_config(["TRAIN.IMS_PER_BATCH", "2", "DEVICE.BUCKETS", "((320, 480),)",
-                        "TRAIN.SCALES", "(320,)", "TRAIN.MAX_SIZE", "480",
-                        "TRAIN.RPN_PRE_NMS_TOP_N", "400", "TRAIN.RPN_POST_NMS_TOP_N", "64"])
+                        "TRAIN.SCALES", "(320,)", "TRAIN.MAX_SIZE", "480", *cuts])
     rng = np.random.RandomState(5)
     roidb, reader = synthetic_roidb(rng, [(320, 480), (320, 480)])
     blobs = get_minibatch(roidb, cfg, np.random.RandomState(0), reader=reader)
-    k = (320 // 16) * (480 // 16) * 9
-    n = 64 + cfg.DEVICE.MAX_GT
+    n = post + cfg.DEVICE.MAX_GT
     draws = {name: torch.from_numpy(rng.uniform(0, 1, (2, size)).astype(np.float32))
              for name, size in (("anchor_fg", k), ("anchor_bg", k), ("roi_fg", n),
                                 ("roi_bg", n))}
     results = []
-    for device in (dev, torch.device("cpu")):
-        model = build_seeded(cfg, torch.float32, seed=2).to(device)
+    for device in (None, "cpu"):                         # None: the card
+        model = build_seeded(cfg, torch.float32, seed=2, net=net)
+        solver = SolverWrapper(model, roidb, cfg, reader=reader, device=device)
         before = {name: p.detach().clone() for name, p in model.named_parameters()}
-        solver = SolverWrapper(model, roidb, cfg, reader=reader)
         start = dict(build.LAUNCH_COUNTS)
-        losses = solver.train_step(blobs, {k_: v.to(device) for k_, v in draws.items()})
+        losses = solver.train_step(blobs, {k_: v.to(solver.device) for k_, v in draws.items()})
         ran = {k_: v - start.get(k_, 0) for k_, v in build.LAUNCH_COUNTS.items()
                if v != start.get(k_, 0)}
         delta = {name: (p.detach() - before[name]).cpu() for name, p in model.named_parameters()}
-        results.append(({k_: float(v) for k_, v in losses.items()}, delta, ran))
-    (card_l, card_d, card_ran), (cpu_l, cpu_d, cpu_ran) = results
-    if card_ran != {"nms": 1, "roi_align": 1, "roi_align_bwd": 1} or cpu_ran:
-        raise AssertionError(f"f32 train step launches: card {card_ran}, CPU {cpu_ran}")
+        results.append(({k_: float(v) for k_, v in losses.items()}, delta, ran, solver.device))
+    (card_l, card_d, card_ran, card_dev), (cpu_l, cpu_d, cpu_ran, _) = results
+    if card_dev != dev or card_ran != card_launches or cpu_ran:
+        raise AssertionError(f"f32 {net} train step on {card_dev}: card launches {card_ran} "
+                             f"(want {card_launches}), CPU launches {cpu_ran}")
     for name, want in cpu_l.items():
         rel = abs(card_l[name] - want) / max(abs(want), 1e-6)
         if not rel <= 1e-4:
-            raise AssertionError(f"f32 train step {name}: card {card_l[name]} vs CPU {want} "
+            raise AssertionError(f"f32 {net} train step {name}: card {card_l[name]} vs CPU {want} "
                                  f"(rel {rel:.2e} > 1e-4)")
     worst = {}
-    for name in ("rpn_net.weight", "cls_score.weight", "layer2.1.conv2.weight"):
+    for name in compared:
         scale = cpu_d[name].abs().max().item()
         err = (card_d[name] - cpu_d[name]).abs().max().item()
         if not (scale > 0 and err <= 1e-3 * scale):
-            raise AssertionError(f"f32 train step update of {name}: err {err} vs max|delta| "
-                                 f"{scale} (tolerance 1e-3 relative)")
+            raise AssertionError(f"f32 {net} train step update of {name}: err {err} vs "
+                                 f"max|delta| {scale} (tolerance 1e-3 relative)")
         worst[name] = err / scale
-    log(f"f32 train step, card (K1, K2, K2b) vs CPU copy (twins), 320x480, batch 2: losses "
+    log(f"f32 {net} train step, card ({card_ran}) vs CPU copy (twins), 320x480, batch 2: losses "
         f"{cpu_l} within 1e-4 relative; updates within 1e-3 of max|delta| "
         f"({ {k_: f'{v:.2e}' for k_, v in worst.items()} })")
 
@@ -1025,6 +1340,26 @@ FPN_STAGES = (
 )
 
 
+# the same for the FPN train step
+FPN_TRAIN_STAGES = (
+    ("fpn", "preprocess_images", "preprocess"),
+    ("backbone", "stages", "trunk forward (stem, layer1-4; K3 x6)"),
+    ("neck", "forward", "neck forward"),
+    ("model", "_rpn_all_levels", "RPN head over P2-P6 (with the class cells)"),
+    ("fpn", "select_pre_nms", "pre-NMS top-k per level (K5 on P2, sorts, delta select)"),
+    ("fpn", "nms_fixed_batched", "proposal NMS (K1, 8x8480, cap 2000)"),
+    ("model", "_propose", "proposals total (top-k, decode, sort, K1)"),
+    ("fpn", "anchor_target_compact", "anchor targets over 155520 anchors (K4, K5 x2)"),
+    ("fpn", "proposal_target_layer", "proposal targets"),
+    ("model", "_pool", "level assignment + RoIAlign forward (K6)"),
+    ("model", "_classify", "box head (2 fc) + cls/bbox forward"),
+    ("fpn", "gather_anchor_rows", "RPN loss rows (2 gathers)"),
+    ("fpn", "detection_losses_compact", "losses"),
+    ("model", "train_forward", "forward total"),
+    ("optimizer", "step", "SGD update"),
+)
+
+
 def stage_times(owners, stages, step, n_steps=12, warmup=2):
     """CUDA events recorded on the current stream just before and just after
     each call of ``stages`` (the calls are wrapped for this measurement only)
@@ -1057,7 +1392,9 @@ def stage_times(owners, stages, step, n_steps=12, warmup=2):
             torch.cuda.synchronize()
             if i < warmup:
                 continue
-            ms = {stage: start.elapsed_time(end) for stage, start, end in events}
+            ms = {}
+            for stage, start, end in events:          # a stage called twice adds up
+                ms[stage] = ms.get(stage, 0.0) + start.elapsed_time(end)
             ms["step total"] = step_ev[0].elapsed_time(step_ev[1])
             per_step.append((ms, {stage: (start, end) for stage, start, end in events}))
     finally:
@@ -1072,7 +1409,7 @@ def stage_times(owners, stages, step, n_steps=12, warmup=2):
 def device_profile(step, n_steps=3):
     """torch.profiler over ``n_steps`` calls of ``step()``: the union of the
     device's kernel intervals against the host wall time gives the idle
-    share; kernels summed by name, per step."""
+    share; every kernel summed by name, per step, the largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1094,15 +1431,16 @@ def device_profile(step, n_steps=3):
     for e in kernels:
         total, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (total + e.time_range.elapsed_us() / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return ({"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
              "idle_share": 1.0 - busy_us / 1e3 / wall_ms},
-            [(name[:100], total / n_steps, n / n_steps) for name, (total, n) in top])
+            [(name[:100], total / n_steps, n / n_steps) for name, (total, n) in ranked])
 
 
-def write_profile(name, label, card, stages, prof, top):
+def write_profile(name, label, card, stages, prof, top, extra=None):
     result = {"card": card, "stages_ms_median_of_10": stages,
-              f"profiler_3_{label}s": prof, f"top_kernels_ms_per_{label}": top}
+              f"profiler_3_{label}s": prof, f"top_kernels_ms_per_{label}": top[:25],
+              **(extra or {})}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, name), "w") as f:
         json.dump(result, f, indent=1)
@@ -1114,24 +1452,63 @@ def write_profile(name, label, card, stages, prof, top):
         log(f"  {total:8.4f} ms/{label}  {n:6.1f} launches/{label}  {kname}")
 
 
-def profile_train_step(solver, card):
+def profile_train_step(solver, card, stage_list=TRAIN_STAGES, name="profile_train.json"):
     """Stage breakdown of a steady-state train step (``stage_times`` over
-    TRAIN_STAGES, medians of 10 steps after 2 warm-up steps; "backward" runs
-    from the end of train_forward to the start of the SGD update: zero_grad,
-    backward, clip), then ``device_profile`` over 3 steps; all into
-    chiprun_out/profile_train.json."""
-    from frcnn_tpu_torch.models import network
+    ``stage_list``, medians of 10 steps after 2 warm-up steps; "backward"
+    runs from the end of train_forward to the start of the SGD update:
+    zero_grad, backward, clip), then ``device_profile`` over 3 steps and the
+    peak device memory of those steps; all into chiprun_out/``name``."""
+    from frcnn_tpu_torch.models import fpn, network
 
-    owners = {"network": network, "backbone": solver.model.backbone, "model": solver.model,
-              "optimizer": solver.optimizer}
+    model = solver.model
+    owners = {"network": network, "fpn": fpn, "backbone": model.backbone, "model": model,
+              "neck": getattr(model, "neck", None), "optimizer": solver.optimizer}
     blobs = {k: torch.as_tensor(v).to(solver.device)
              for k, v in solver.data_layer.forward().items()}
-    per_step = stage_times(owners, TRAIN_STAGES, lambda: solver.train_step(blobs))
+    per_step = stage_times(owners, stage_list, lambda: solver.train_step(blobs))
     for ms, ends in per_step:
         ms["backward"] = ends["forward total"][1].elapsed_time(ends["SGD update"][0])
-    stages = {name: statistics.median(ms[name] for ms, _ in per_step) for name in per_step[0][0]}
+    stages = {stage: statistics.median(ms[stage] for ms, _ in per_step)
+              for stage in per_step[0][0]}
+    torch.cuda.reset_peak_memory_stats()
     prof, top = device_profile(lambda: solver.train_step(blobs))
-    write_profile("profile_train.json", "step", card, stages, prof, top)
+    prof["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    extra = None
+    if hasattr(model, "neck"):
+        pool = profile_pool_backward(model)
+        extra = {"pool_forward_backward_kernels_ms_per_call": pool}
+        log("FPN RoI pool forward + backward alone, every device kernel (ms per call, launches): "
+            + "; ".join(f"{kname.split('(')[0][-60:]} {ms:.4f} x{n:.0f}" for kname, ms, n in pool))
+    write_profile(name, "step", card, stages, prof, top, extra)
+
+
+def profile_pool_backward(model):
+    """Every device kernel of the FPN RoI pool's forward and backward alone
+    (``_pool`` on seeded channels-last level maps that require grad, 128 rois
+    an image, a seeded gradient): K6, K6b with its memset and rounding, and
+    whatever autograd adds around them (a copy of a level's gradient would
+    show here) → [(kernel, ms per call, launches per call)]."""
+    dev = next(model.parameters()).device
+    g = torch.Generator().manual_seed(13)
+    levels = FPN_TRAIN_LEVELS + ((10, 16),)
+    pyramid = [torch.randn((TRAIN_B, 256, h, w), generator=g).to(dev, torch.bfloat16)
+               .contiguous(memory_format=torch.channels_last).requires_grad_(True)
+               for h, w in levels]
+    rois = torch.from_numpy(random_boxes(np.random.RandomState(13), TRAIN_B, 128,
+                                         size=1000.0)).to(dev)
+    dout = torch.randn((TRAIN_B, 128, 7, 7, 256), generator=g).to(dev, torch.bfloat16)
+
+    def call():
+        for p in pyramid:
+            p.grad = None
+        model._pool(pyramid, rois).backward(dout)
+
+    call()
+    if pyramid[4].grad is not None or any(p.grad is None or p.grad.shape != p.shape
+                                          for p in pyramid[:4]):
+        raise AssertionError("FPN pool backward: P2-P5 must get a gradient of their shape, P6 none")
+    _, kernels = device_profile(call)
+    return kernels
 
 
 def profile_fpn_detect(detector, data, im_info, card):
@@ -1153,8 +1530,9 @@ def parse_args(argv):
     parser.add_argument("--only", choices=("kernels",),
                         help="stop after the kernel phases (a partial run: no ok line)")
     parser.add_argument("--profile", action="store_true",
-                        help="time each stage of a train step and of an FPN detect batch and "
-                             "profile the device (chiprun_out/profile_{train,fpn}.json)")
+                        help="time each stage of the C4 and FPN train steps and of an FPN "
+                             "detect batch and profile the device "
+                             "(chiprun_out/profile_{train,fpn,fpn_train}.json)")
     return parser.parse_args(argv)
 
 
@@ -1166,6 +1544,8 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "frcnn_tpu/ops/pallas/roi_align_kernel.py:702"),
     ("roi_align_bwd", "frcnn_tpu_torch/csrc/roi_align_kernel.cu",
      "frcnn_tpu/ops/pallas/roi_align_kernel.py:752"),
+    ("roi_align_ml_bwd", "frcnn_tpu_torch/csrc/roi_align_kernel.cu",
+     "frcnn_tpu/ops/pallas/roi_align_kernel.py:634"),
     ("fused_block", "frcnn_tpu_torch/csrc/fused_block.cu",
      "frcnn_tpu/ops/pallas/fused_block.py:133"),
     ("overlap", "frcnn_tpu_torch/csrc/overlap_kernel.cu",
@@ -1204,13 +1584,14 @@ def main(argv=None) -> int:
     k1 = check_nms(dev)
     k2 = check_roi_align(dev)
     k3 = check_fused_block(dev)
-    k1_train = check_nms_train(dev)
     results = {
-        "nms": {"ms": k1["ms"] + k1_train["ms"], "plain_ms": k1["plain_ms"] + k1_train["plain_ms"],
-                "max_abs_err": max(k1["max_abs_err"], k1_train["max_abs_err"])},
+        "nms": merge_results(k1, check_nms_train(dev)),
         "roi_align": k2, "fused_block": k3, "roi_align_bwd": check_roi_align_bwd(dev),
+        "roi_align_ml_bwd": check_roi_align_ml_bwd(dev),
         "overlap": check_overlap(dev), "select": check_select(dev),
         "roi_align_ml": check_roi_align_ml(dev)}
+    for res in results.values():
+        res.setdefault("library_ms", None)       # no one library call computes it
     k1b = check_nms_single(dev)
     if args.only == "kernels":
         # a partial run: no main path ran, so no launch count and no ok line
@@ -1225,20 +1606,29 @@ def main(argv=None) -> int:
     fpn_end_to_end(dev)
     train_counts, solver = train_path(dev, card)
     train_card_vs_cpu(dev)
+    fpn_train_counts, fpn_solver = train_path(dev, card, "res50_fpn", FPN_TRAIN_LAUNCHES)
+    train_card_vs_cpu(dev, "res50_fpn")
     if args.profile:
         profile_train_step(solver, card)
         profile_fpn_detect(fpn_detector, fpn_data, fpn_info, card)
+        profile_train_step(fpn_solver, card, FPN_TRAIN_STAGES, "profile_fpn_train.json")
 
     # the TPU kernels served by a kernel that stands for another one
     also = {"nms": ("frcnn_tpu/ops/pallas/nms_kernel.py:128", k1b),
             "roi_align_ml": ("frcnn_tpu/ops/pallas/roi_align_kernel.py:609", None)}
+    paths = {"c4_serve": serve_counts, "fpn_serve": fpn_counts, "c4_train": train_counts,
+             "fpn_train": fpn_train_counts}
     kernels = []
     for name, src, rep in KERNELS:
-        launches = sum(c.get(name, 0) for c in (serve_counts, fpn_counts, train_counts))
+        by_path = {path: c.get(name, 0) for path, c in paths.items()}
+        launches = sum(by_path.values())
         if launches == 0:
             raise AssertionError(f"kernel {name} was not launched on a main path")
+        missing = [key for key in RESULTS_KEYS if key not in results[name]]
+        if missing:
+            raise AssertionError(f"kernel {name}: no {missing} in its results")
         entry = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                 "launches": launches, **results[name]}
+                 "launches": launches, "launches_by_path": by_path, **results[name]}
         if name in also:
             rep2, timing = also[name]
             entry["also_replaces"] = rep2

@@ -1,10 +1,11 @@
-// K2: batched RoIAlign forward, K2b: its backward, and K6: the multilevel
-// (FPN) RoIAlign forward, for Hopper (sm_90a).
+// K2: batched RoIAlign forward, K2b: its backward, K6: the multilevel (FPN)
+// RoIAlign forward, and K6b: the multilevel backward, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels frcnn_tpu/ops/pallas/roi_align_kernel.py
-// (_fwd_kernel via roi_align_pallas, _bwd_kernel via _bwd_rule, and
+// (_fwd_kernel via roi_align_pallas, _bwd_kernel via _bwd_rule,
 // _fwd_kernel_lv / _fwd_kernel_lv_yf via roi_align_level_fwd together with
-// _fwd_kernel_ml via roi_align_levels_fwd_merged).  Semantics of
+// _fwd_kernel_ml via roi_align_levels_fwd_merged, and _bwd_kernel_lv /
+// _bwd_kernel_lv_yf via roi_align_level_bwd).  Semantics of
 // frcnn_tpu/ops/roi_align.py::roi_align: torchvision aligned=False, a fixed
 // sampling ratio sr, roi_w = max(x2 - x1, 1) with no +1, sample k of an axis
 // at lo + ((k + 0.5) / sr) * bin, a sample outside [-1, size] is empty (zero),
@@ -41,7 +42,25 @@
 // the TPU kernel's f32 scratch accumulator does.  The order of the atomic
 // adds varies from run to run, so the result is not bit-deterministic.
 // What bounds it on the H100: the atomics - 16 reductions per channel per
-// bin (822 million at 8 x 128 rois x 49 bins x 1024), served by L2.
+// bin (822 million at 8 x 128 rois x 49 bins x 1024), served by L2; where C
+// is even a thread takes two adjacent channels and adds them with one
+// float2 atomic (two scalar atomics a thread took 1.79 ms against 0.91 at
+// that shape, and 1.08 against 0.74 for K6b, on an H100 at 700 W).
+//
+// K6b, the FPN backward (dF of every level; rois and levels get none): K2b's
+// scatter over all pyramid levels in ONE launch.  Each block reads its roi's
+// level and scatters into that level's slice of one f32 accumulator (the
+// levels laid end to end, cleared by one memset); a roi whose level is
+// outside [0, L) contributes nothing, as K6 pools zeros there.  One pass then
+// rounds the whole accumulator to the feature dtype.  The TPU kernel sorted
+// rois by level, launched once per level and ran dense interpolation matmuls
+// into a VMEM accumulator; none of that is needed here.  It shares
+// bin_geometry and scatter_channels with K2b, so on one level the two add
+// the same values (their order differs: not bit-deterministic either).
+// What bounds it on the H100: memory traffic, and not the scatter's - the
+// accumulator of P2-P5 at 8 x 608x1024 x 256 is 424 MB of f32 that is
+// cleared, read back and rounded to 212 MB of bf16, against 26 MB of
+// gradient read; the least the card must move is the 212 MB written once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,8 +72,6 @@ namespace {
 constexpr int kMaxSr = 8;
 constexpr int kMaxLevels = 8;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
@@ -234,7 +251,56 @@ __global__ void roi_align_ml_fwd_kernel(Levels lv, const float* __restrict__ roi
                    o);
 }
 
-template <typename T>
+// Adds v[j] * wgt to V adjacent f32 values at a V-aligned address: one float2
+// atomic for V = 2 (sm_90), one scalar atomic for V = 1.
+template <int V>
+__device__ __forceinline__ void atomic_add_v(float* p, const float* v, float wgt) {
+  if constexpr (V == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0] * wgt, v[1] * wgt));
+  } else {
+    atomicAdd(p, v[0] * wgt);
+  }
+}
+
+// One bin's gradient gd (c channels) scattered to its 4 * sr^2 sample corners
+// of the channels-last f32 (h, w, c) accumulator df: the adjoint of
+// pool_channels.  Empty samples (both weights zero) and zero gradients add
+// nothing.
+template <int V, typename T>
+__device__ __forceinline__ void scatter_channels(const T* gd, float* df, int w, int c,
+                                                 int sr, const BinGeometry& g) {
+  const float inv_count = 1.0f / (float)(sr * sr);
+  for (int ch = (int)threadIdx.x * V; ch < c; ch += (int)blockDim.x * V) {
+    float gv[V];
+    load_v<V>(gd + ch, gv);
+    bool any = false;
+    for (int j = 0; j < V; ++j) {
+      gv[j] *= inv_count;
+      any = any || gv[j] != 0.0f;
+    }
+    if (!any) continue;
+    for (int iy = 0; iy < sr; ++iy) {
+      if (g.wy_lo[iy] == 0.0f && g.wy_hi[iy] == 0.0f) continue;  // empty sample
+      float* row_lo = df + (size_t)g.y_lo[iy] * w * c + ch;
+      float* row_hi = df + (size_t)g.y_hi[iy] * w * c + ch;
+      float gy_lo[V], gy_hi[V];
+      for (int j = 0; j < V; ++j) {
+        gy_lo[j] = gv[j] * g.wy_lo[iy];
+        gy_hi[j] = gv[j] * g.wy_hi[iy];
+      }
+      for (int ix = 0; ix < sr; ++ix) {
+        if (g.wx_lo[ix] == 0.0f && g.wx_hi[ix] == 0.0f) continue;
+        const size_t xl = (size_t)g.x_lo[ix] * c, xh = (size_t)g.x_hi[ix] * c;
+        atomic_add_v<V>(row_lo + xl, gy_lo, g.wx_lo[ix]);
+        atomic_add_v<V>(row_lo + xh, gy_lo, g.wx_hi[ix]);
+        atomic_add_v<V>(row_hi + xl, gy_hi, g.wx_lo[ix]);
+        atomic_add_v<V>(row_hi + xh, gy_hi, g.wx_hi[ix]);
+      }
+    }
+  }
+}
+
+template <typename T, int V>
 __global__ void roi_align_bwd_kernel(const T* __restrict__ dout,
                                      const float* __restrict__ rois, int h,
                                      int w, int c, int r, int p, int sr,
@@ -244,33 +310,43 @@ __global__ void roi_align_bwd_kernel(const T* __restrict__ dout,
   const int bi = blockIdx.z;
   const size_t roi = (size_t)bi * r + ri;
   __shared__ BinGeometry g;
-  const int t = threadIdx.x;
-  if (t < 2 * sr) {
-    bin_geometry(rois + roi * 4, scale, p, sr, bin / p, bin % p, h, w, t, &g);
+  if ((int)threadIdx.x < 2 * sr) {
+    bin_geometry(rois + roi * 4, scale, p, sr, bin / p, bin % p, h, w, threadIdx.x, &g);
   }
   __syncthreads();
+  scatter_channels<V>(dout + (roi * p * p + bin) * c, dfeat + (size_t)bi * h * w * c, w, c,
+                      sr, g);
+}
 
-  const T* gd = dout + (roi * p * p + bin) * c;
-  float* df = dfeat + (size_t)bi * h * w * c;
-  const float inv_count = 1.0f / (float)(sr * sr);
-  for (int ch = t; ch < c; ch += blockDim.x) {
-    const float gv = to_float(gd[ch]) * inv_count;
-    if (gv == 0.0f) continue;
-    for (int iy = 0; iy < sr; ++iy) {
-      if (g.wy_lo[iy] == 0.0f && g.wy_hi[iy] == 0.0f) continue;  // empty sample
-      float* row_lo = df + (size_t)g.y_lo[iy] * w * c + ch;
-      float* row_hi = df + (size_t)g.y_hi[iy] * w * c + ch;
-      const float gy_lo = gv * g.wy_lo[iy], gy_hi = gv * g.wy_hi[iy];
-      for (int ix = 0; ix < sr; ++ix) {
-        if (g.wx_lo[ix] == 0.0f && g.wx_hi[ix] == 0.0f) continue;
-        const size_t xl = (size_t)g.x_lo[ix] * c, xh = (size_t)g.x_hi[ix] * c;
-        atomicAdd(row_lo + xl, gy_lo * g.wx_lo[ix]);
-        atomicAdd(row_lo + xh, gy_lo * g.wx_hi[ix]);
-        atomicAdd(row_hi + xl, gy_hi * g.wx_lo[ix]);
-        atomicAdd(row_hi + xh, gy_hi * g.wx_hi[ix]);
-      }
-    }
+// The pyramid levels of K6b: per level the f32 accumulator of its
+// (B, H, W, C) gradient, its size and its spatial scale.
+struct LevelGrads {
+  float* acc[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  float scale[kMaxLevels];
+  int n;
+};
+
+template <typename T, int V>
+__global__ void roi_align_ml_bwd_kernel(LevelGrads lv, const T* __restrict__ dout,
+                                        const float* __restrict__ rois,
+                                        const int* __restrict__ levels, int c, int r,
+                                        int p, int sr) {
+  const int bin = blockIdx.x;
+  const int ri = blockIdx.y;
+  const int bi = blockIdx.z;
+  const size_t roi = (size_t)bi * r + ri;
+  const int l = levels[roi];
+  if (l < 0 || l >= lv.n) return;  // the whole block leaves: no barrier is skipped
+  const int h = lv.h[l], w = lv.w[l];
+  __shared__ BinGeometry g;
+  if ((int)threadIdx.x < 2 * sr) {
+    bin_geometry(rois + roi * 4, lv.scale[l], p, sr, bin / p, bin % p, h, w, threadIdx.x, &g);
   }
+  __syncthreads();
+  scatter_channels<V>(dout + (roi * p * p + bin) * c, lv.acc[l] + (size_t)bi * h * w * c, w, c,
+                      sr, g);
 }
 
 __global__ void f32_to_bf16_kernel(const float* __restrict__ src, size_t n,
@@ -282,8 +358,9 @@ __global__ void f32_to_bf16_kernel(const float* __restrict__ src, size_t n,
 }
 
 // Calls launch(T*, std::integral_constant<int, V>, threads) for the feature
-// dtype T and V, the channels a thread (2 where C is even: bf16x2 / float2
-// loads); threads: one per V channels, whole warps, at most 256.
+// (or gradient) dtype T and V, the channels a thread (2 where C is even:
+// bf16x2 / float2 loads, float2 atomics); threads: one per V channels, whole
+// warps, at most 256.
 template <typename Launch>
 void dispatch_fwd(int is_bf16, int c, Launch&& launch) {
   const auto go = [&](auto* tag, auto v) {
@@ -296,6 +373,15 @@ void dispatch_fwd(int is_bf16, int c, Launch&& launch) {
     if (c % 2 == 0) go((float*)nullptr, std::integral_constant<int, 2>());
     else go((float*)nullptr, std::integral_constant<int, 1>());
   }
+}
+
+// Rounds the n f32 values of src to bf16 into dst, on stream.
+cudaError_t round_to_bf16(const float* src, size_t n, void* dst, cudaStream_t stream) {
+  size_t blocks = (n + 255) / 256;
+  if (blocks > ((size_t)1 << 20)) blocks = (size_t)1 << 20;
+  f32_to_bf16_kernel<<<(unsigned)blocks, 256, 0, stream>>>(
+      src, n, static_cast<__nv_bfloat16*>(dst));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -367,29 +453,63 @@ extern "C" int frcnn_roi_align_bwd(const void* dout, int is_bf16,
   cudaError_t err = cudaMemsetAsync(dfeat32, 0, n * sizeof(float), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (r > 0) {
-    const int threads = min(256, (c + 31) / 32 * 32);
-    dim3 grid(p * p, r, b);
-    if (is_bf16) {
-      roi_align_bwd_kernel<__nv_bfloat16><<<grid, threads, 0, stream>>>(
-          static_cast<const __nv_bfloat16*>(dout), rois, h, w, c, r, p, sr,
-          scale, dfeat32);
-    } else {
-      roi_align_bwd_kernel<float><<<grid, threads, 0, stream>>>(
-          static_cast<const float*>(dout), rois, h, w, c, r, p, sr, scale,
-          dfeat32);
-    }
+    const dim3 grid(p * p, r, b);
+    dispatch_fwd(is_bf16, c, [&](auto* tag, auto v, int threads) {
+      using T = std::remove_pointer_t<decltype(tag)>;
+      roi_align_bwd_kernel<T, decltype(v)::value><<<grid, threads, 0, stream>>>(
+          static_cast<const T*>(dout), rois, h, w, c, r, p, sr, scale, dfeat32);
+    });
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (is_bf16) {
-    size_t blocks = (n + 255) / 256;
-    if (blocks > ((size_t)1 << 20)) blocks = (size_t)1 << 20;
-    f32_to_bf16_kernel<<<(unsigned)blocks, 256, 0, stream>>>(
-        dfeat32, n, static_cast<__nv_bfloat16*>(dfeat));
-    err = cudaGetLastError();
+    err = round_to_bf16(dfeat32, n, dfeat, stream);
   } else if (dfeat != dfeat32) {
     err = cudaMemcpyAsync(dfeat, dfeat32, n * sizeof(float),
                           cudaMemcpyDeviceToDevice, stream);
   }
+  return static_cast<int>(err);
+}
+
+// dout (B, R, p, p, C) f32 or bf16; rois (B, R, 4) f32; levels (B, R) int32;
+// dims: (H_l, W_l) pairs and scales: 1 / stride_l (host arrays).  acc32: one
+// f32 buffer that holds the levels' (B, H_l, W_l, C) gradients end to end, in
+// level order; it is cleared here and is the result for f32.  For bf16,
+// dfeats is a bf16 buffer of the same layout that takes the rounded result
+// (for f32 it is not read).
+extern "C" int frcnn_roi_align_ml_bwd(const void* dout, int is_bf16, const float* rois,
+                                      const int* levels, const int* dims,
+                                      const float* scales, int n_levels, int b, int c,
+                                      int r, int p, int sr, float* acc32, void* dfeats,
+                                      cudaStream_t stream) {
+  if (b <= 0 || c <= 0) return 0;
+  if (n_levels < 1 || n_levels > kMaxLevels || sr < 1 || sr > kMaxSr || p < 1 ||
+      r > 65535 || b > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LevelGrads lv;
+  lv.n = n_levels;
+  size_t total = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    lv.h[l] = dims[2 * l];
+    lv.w[l] = dims[2 * l + 1];
+    lv.scale[l] = scales[l];
+    if (lv.h[l] < 1 || lv.w[l] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    lv.acc[l] = acc32 + total;
+    total += (size_t)b * lv.h[l] * lv.w[l] * c;
+  }
+  cudaError_t err = cudaMemsetAsync(acc32, 0, total * sizeof(float), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (r > 0) {
+    const dim3 grid(p * p, r, b);
+    dispatch_fwd(is_bf16, c, [&](auto* tag, auto v, int threads) {
+      using T = std::remove_pointer_t<decltype(tag)>;
+      roi_align_ml_bwd_kernel<T, decltype(v)::value><<<grid, threads, 0, stream>>>(
+          lv, static_cast<const T*>(dout), rois, levels, c, r, p, sr);
+    });
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (is_bf16) err = round_to_bf16(acc32, total, dfeats, stream);
   return static_cast<int>(err);
 }

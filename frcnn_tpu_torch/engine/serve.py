@@ -1,6 +1,7 @@
 """Single-device serving (``frcnn_tpu/engine/serve.py::Detector`` without
 the mesh): host-side resize + pad into buckets, one ``detect`` call per
-bucket group, detections in original image coordinates."""
+bucket group, detections in original image coordinates.  The detector runs
+on the card (``cuda:0``) unless the caller passes ``device``."""
 
 from __future__ import annotations
 
@@ -9,10 +10,13 @@ import torch
 
 from frcnn_tpu_torch.config import Config
 from frcnn_tpu_torch.data.loader import prep_im_for_blob
+from frcnn_tpu_torch.engine import resolve_device
 
 
 class Detector:
-    """Batched detection service on the model's device.
+    """Batched detection service.  The model is moved to ``device``:
+    ``cuda:0`` by default (a ``RuntimeError`` when there is no card),
+    ``"cpu"`` on request.
 
     Usage:
         det = Detector(model)
@@ -20,14 +24,15 @@ class Detector:
     """
 
     def __init__(self, model, cfg: Config | None = None,
-                 max_per_image: int | None = None, uint8_input: bool = False):
-        self.model = model
+                 max_per_image: int | None = None, uint8_input: bool = False,
+                 device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
         self.cfg = cfg or model.config
         self.max_per_image = max_per_image or self.cfg.TEST.MAX_PER_IMAGE
         # uint8_input: resize/pad/ship uint8 — 4x less host→device traffic;
         # the cast and mean subtraction run on the device either way
         self.uint8_input = uint8_input
-        self.device = next(model.parameters()).device
 
     def _prep_groups(self, images):
         """Resize/pad each image and group by bucket: a batch never mixes

@@ -9,7 +9,8 @@ parameters (``requires_grad=False``: conv1, the FIXED_BLOCKS layers) are
 left out.  The schedule is read at the step count before it increments.
 ``GRAD_CLIP`` clips the global norm of the trainable gradients.
 
-Sampling draws come from a ``torch.Generator`` on the model's device,
+The solver runs on the card (``cuda:0``) unless the caller passes
+``device``.  Sampling draws come from a ``torch.Generator`` on that device,
 seeded with ``RNG_SEED + 1``.  Snapshots and resume are not ported yet.
 """
 
@@ -21,6 +22,7 @@ import torch
 
 from frcnn_tpu_torch.data.loader import RoIDataLayer
 from frcnn_tpu_torch.data.roidb import prepare_roidb
+from frcnn_tpu_torch.engine import resolve_device
 
 
 def get_training_roidb(imdb, cfg, image_size=None):
@@ -95,16 +97,21 @@ def _to_device(blobs, device):
 
 class SolverWrapper:
     """Training orchestrator (reference SolverWrapper) for a model on one
-    device.  ``reader`` maps a roidb entry's ``image`` to a BGR array."""
+    device.  The model is moved to ``device`` before the optimizer is made:
+    ``cuda:0`` by default (a ``RuntimeError`` when there is no card),
+    ``"cpu"`` on request.  ``reader`` maps a roidb entry's ``image`` to a
+    BGR array.  ``aux`` holds the last step's auxiliary outputs of
+    ``train_forward`` (detached)."""
 
-    def __init__(self, model, roidb, cfg=None, reader=None):
-        self.model = model
+    def __init__(self, model, roidb, cfg=None, reader=None, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
         self.cfg = cfg or model.config
-        self.device = next(model.parameters()).device
         self.data_layer = RoIDataLayer(roidb, self.cfg, reader=reader)
         self.optimizer, self.schedule = make_optimizer(model, self.cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(self.cfg.RNG_SEED + 1)
         self.step = 0
+        self.aux = {}
 
     def train_step(self, blobs, draws=None):
         """One SGD step on a minibatch (numpy or tensors).  ``draws``: the
@@ -114,7 +121,7 @@ class SolverWrapper:
         feed = _to_device(blobs, self.device)
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.step) * group["lr_scale"]
-        losses, _ = self.model.train_forward(
+        losses, aux = self.model.train_forward(
             feed["data"], feed["im_info"], feed["gt_boxes"], feed["gt_labels"],
             feed["gt_valid"], self.generator if draws is None else draws)
         self.optimizer.zero_grad(set_to_none=True)
@@ -124,6 +131,7 @@ class SolverWrapper:
             clip_by_global_norm_(params, cfg.TRAIN.GRAD_CLIP)
         self.optimizer.step()
         self.step += 1
+        self.aux = {name: v.detach() if torch.is_tensor(v) else v for name, v in aux.items()}
         return {name: v.detach() for name, v in losses.items()}
 
     def train_model(self, max_iters: int):

@@ -1,5 +1,5 @@
-"""Feature Pyramid Network Faster R-CNN (``frcnn_tpu/models/fpn.py``),
-serving path: ``predict`` and ``detect``.
+"""Feature Pyramid Network Faster R-CNN (``frcnn_tpu/models/fpn.py``):
+``predict`` and ``detect`` (serving) and ``train_forward`` (training).
 
 ResNet C2-C5 (``ResNetV1.stages``) → top-down neck (P2-P5, P6 = a stride-2
 subsample of P5) → one RPN head shared over P2-P6 with one anchor size per
@@ -7,7 +7,11 @@ level → per-level pre-NMS top-k (K5 on the long levels) → one cross-level
 NMS (K1) → level assignment → multilevel RoIAlign over P2-P5 (K6, one
 launch, rois in their own order) → 2-fc-1024 box head → ``cls_score`` /
 ``bbox_pred`` in f32 → the C4 model's ``postprocess_detections`` (K1 per
-class).
+class).  Training: the same pyramid and RPN, the train proposal settings,
+anchor targets over every level's anchors (K4, K5), proposal targets,
+multilevel RoIAlign with its gradient (K6 forward, K6b backward), the box
+head, the RPN loss rows gathered from the level cells at the sampled anchors
+only, and the four losses.  P6 feeds the RPN only.
 
 The RPN's 1x1 heads keep the JAX module's explicit (C, 2A) / (C, 4A)
 parameters ``rpn_cls_w`` / ``rpn_box_w``, channel ``a * 2 + j`` (logit j of
@@ -19,8 +23,9 @@ as the JAX module lays it out: the per-level top-k ranks in that order, and
 ties (exact, over padding) go to the lowest A-major index.  The anchor table
 and the selected ids stay A-minor (``cell * A + a``).
 
-Training (``train_forward``, the multilevel RoIAlign backward) and the
-GroupNorm variant (``res*_fpn_gn``) are not ported yet.
+Frozen BN is buffers; ``conv1`` and ``layer1..layer{FIXED_BLOCKS}`` do not
+train (``ResNetV1.freeze_fixed_blocks``).  The GroupNorm variant
+(``res*_fpn_gn``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,8 +39,11 @@ from torch import nn
 
 from frcnn_tpu_torch.config import Config
 from frcnn_tpu_torch.models.backbones import _conv, build_backbone, preprocess_images
-from frcnn_tpu_torch.models.network import postprocess_detections
+from frcnn_tpu_torch.models.losses import detection_losses_compact
+from frcnn_tpu_torch.models.network import anchor_rows, gather_anchor_rows, postprocess_detections
 from frcnn_tpu_torch.models.proposals import _anchor_validity
+from frcnn_tpu_torch.models.targets import (anchor_target_compact, proposal_target_layer,
+                                            uniform_draws)
 from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
 from frcnn_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
 from frcnn_tpu_torch.ops.cuda.select_kernel import topk_threshold, use_threshold_select
@@ -76,8 +84,7 @@ def select_pre_nms(fg_prob, box_cells, sizes, per: int, a_n: int, use_threshold:
         a = torch.div(idx, hw, rounding_mode="floor")
         cell = idx - a * hw
         sel.append(cell * a_n + a + off)
-        rows = torch.take_along_dim(cells, cell[..., None], dim=1).reshape(b, k, a_n, 4)
-        sel_deltas.append(torch.take_along_dim(rows, a[..., None, None], dim=2)[:, :, 0].float())
+        sel_deltas.append(anchor_rows(cells, cell, a, a_n))
         sel_scores.append(sc)
         off += s
     return torch.cat(sel, dim=1), torch.cat(sel_scores, dim=1), torch.cat(sel_deltas, dim=1)
@@ -202,14 +209,16 @@ class FasterRCNNFPN(nn.Module):
         x = preprocess_images(images, self.config, self.dtype).permute(0, 3, 1, 2)
         return self.neck(self.backbone.stages(x))
 
-    def _rpn_all_levels(self, pyramid):
+    def _rpn_all_levels(self, pyramid, train: bool = False):
         """Shared RPN over the pyramid → (fg_prob (B, K) f32, A-major within
         each level, levels concatenated; box_cells, per level (B, H*W, 4A)
-        in the compute dtype)."""
+        in the compute dtype; cls_cells, per level (B, H*W, 2A) class logits
+        in the compute dtype when ``train``, else None: serving never reads
+        them)."""
         a_n = self._A
         dw = (self.rpn_cls_w[:, 1::2] - self.rpn_cls_w[:, 0::2]).float()   # (C, A)
         db = (self.rpn_cls_b[1::2] - self.rpn_cls_b[0::2]).float()         # (A,)
-        probs, cells = [], []
+        probs, cells, cls_cells = [], [], []
         for feat in pyramid:
             b, _, h, w = feat.shape
             x = F.relu(_conv(feat, self.rpn_net, padding=1))
@@ -217,7 +226,10 @@ class FasterRCNNFPN(nn.Module):
             d = fg_logit_diff(tokens, dw, db)                              # (B, HW, A)
             probs.append(torch.sigmoid(d).transpose(1, 2).reshape(b, a_n * h * w))
             cells.append(tokens @ self.rpn_box_w.to(x.dtype) + self.rpn_box_b.to(x.dtype))
-        return torch.cat(probs, dim=1), cells
+            if train:
+                cls_cells.append(tokens @ self.rpn_cls_w.to(x.dtype)
+                                 + self.rpn_cls_b.to(x.dtype))
+        return torch.cat(probs, dim=1), cells, cls_cells if train else None
 
     def _anchors(self, pyramid):
         """Per-level anchors in the RPN's level order: one size per level
@@ -233,23 +245,30 @@ class FasterRCNNFPN(nn.Module):
             self._anchor_cache[key] = torch.from_numpy(np.concatenate(per_level)).to(device)
         return self._anchor_cache[key]
 
-    def _propose(self, pyramid, fg_prob, box_cells, anchors, im_info):
+    def _propose(self, pyramid, fg_prob, box_cells, anchors, im_info, train: bool = False):
         """Per-level top-k, decode, clip, drop anchors centred on padding,
         one stable descending sort of the candidates, then one cross-level
-        NMS (K1, presorted) → (rois (B, P, 4), scores (B, P), valid (B, P))."""
+        NMS (K1, presorted) → (rois (B, P, 4), scores (B, P), valid (B, P)).
+        ``train`` takes the per-level and post-NMS counts and the threshold
+        from the TRAIN settings."""
         cfg = self.config
+        if train:
+            per, post, thresh = (cfg.FPN.PRE_NMS_PER_LEVEL_TRAIN, cfg.TRAIN.RPN_POST_NMS_TOP_N,
+                                 cfg.TRAIN.RPN_NMS_THRESH)
+        else:
+            per, post, thresh = (cfg.FPN.PRE_NMS_PER_LEVEL_TEST, cfg.TEST.RPN_POST_NMS_TOP_N,
+                                 cfg.TEST.RPN_NMS_THRESH)
         sizes = [p.shape[2] * p.shape[3] * self._A for p in pyramid]
         use_threshold = (self.use_kernels and cfg.DEVICE.THRESHOLD_SELECT and fg_prob.is_cuda)
         sel, sel_scores, sel_deltas = select_pre_nms(
-            fg_prob, box_cells, sizes, cfg.FPN.PRE_NMS_PER_LEVEL_TEST, self._A,
-            use_threshold=use_threshold)
+            fg_prob, box_cells, sizes, per, self._A, use_threshold=use_threshold)
         sel_anchors = anchors[sel]                                      # (B, n, 4)
         proposals = clip_boxes(bbox_transform_inv(sel_anchors, sel_deltas), im_info[:, :2])
         scores = torch.where(_anchor_validity(sel_anchors, im_info), sel_scores, NEG_INF)
         top_scores, top_idx = torch.sort(scores, dim=1, descending=True, stable=True)
         top_boxes = torch.take_along_dim(proposals, top_idx[..., None], dim=1)
         keep_idx, keep_valid = nms_fixed_batched(
-            top_boxes, top_scores, cfg.TEST.RPN_NMS_THRESH, cfg.TEST.RPN_POST_NMS_TOP_N,
+            top_boxes, top_scores, thresh, post,
             valid=top_scores > NEG_INF / 2, use_kernels=self.use_kernels, presorted=True)
         keep_idx = keep_idx.long()
         rois = torch.take_along_dim(top_boxes, keep_idx[..., None], dim=1)
@@ -277,7 +296,8 @@ class FasterRCNNFPN(nn.Module):
 
     def _pool(self, pyramid, rois):
         """RoIAlign of each roi on its assigned level of P2..P5 (K6, one
-        launch) → (B, N, p, p, C) in roi order."""
+        launch; its gradient K6b, one launch) → (B, N, p, p, C) in roi
+        order.  P6 is not passed: no roi gradient reaches it."""
         cfg = self.config
         f = cfg.FPN
         levels = self._assign_levels(rois) - f.MIN_LEVEL
@@ -304,7 +324,7 @@ class FasterRCNNFPN(nn.Module):
         if self.config.TEST.MODE != "nms":
             raise ValueError(f"TEST.MODE {self.config.TEST.MODE!r} is not ported (only 'nms')")
         pyramid = self._pyramid(images)
-        fg_prob, box_cells = self._rpn_all_levels(pyramid)
+        fg_prob, box_cells, _ = self._rpn_all_levels(pyramid)
         anchors = self._anchors(pyramid)
         rois, roi_scores, roi_valid = self._propose(pyramid, fg_prob, box_cells, anchors, im_info)
         _, cls_prob, bbox_pred = self._classify(self._pool(pyramid, rois))
@@ -318,6 +338,43 @@ class FasterRCNNFPN(nn.Module):
         return postprocess_detections(out, im_info, self.config, self.num_classes,
                                       max_per_image or self.config.TEST.MAX_PER_IMAGE,
                                       use_kernels=self.use_kernels)
+
+    def train_forward(self, images, im_info, gt_boxes, gt_labels, gt_valid, draws):
+        """TRAIN forward, the C4 model's signature: images (B, H, W, 3) BGR,
+        im_info (B, 3), gt_boxes (B, G, 4) padded, gt_labels (B, G), gt_valid
+        (B, G); ``draws`` is a ``torch.Generator`` on the model's device, or a
+        dict of the uniform draws ``uniform_draws`` makes (anchor_fg,
+        anchor_bg (B, K) over all K level anchors; roi_fg, roi_bg (B, P + G)
+        for the P proposals ``_propose`` returns).  Returns (losses dict of
+        batch-mean scalars, aux dict)."""
+        cfg = self.config
+        a_n = self._A
+        pyramid = self._pyramid(images)
+        fg_prob, box_cells, cls_cells = self._rpn_all_levels(pyramid, train=True)
+        anchors = self._anchors(pyramid)
+        rois, roi_scores, roi_valid = self._propose(
+            pyramid, fg_prob.detach(), [c.detach() for c in box_cells], anchors, im_info,
+            train=True)
+        if isinstance(draws, torch.Generator):
+            draws = uniform_draws(draws, images.shape[0], anchors.shape[0],
+                                  rois.shape[1] + gt_boxes.shape[1])
+
+        at = anchor_target_compact(anchors, gt_boxes, gt_valid, im_info, draws["anchor_fg"],
+                                   draws["anchor_bg"], cfg)
+        pt = proposal_target_layer(rois, roi_valid, gt_boxes, gt_labels, gt_valid,
+                                   draws["roi_fg"], draws["roi_bg"], cfg, self.num_classes)
+
+        cls_logits, cls_prob, bbox_pred = self._classify(self._pool(pyramid, pt.rois))
+        # the RPN loss rows at the sampled anchors only, read from the cells in
+        # the compute dtype and cast after the select
+        cls_rows = gather_anchor_rows(torch.cat(cls_cells, dim=1), at.sel, a_n)
+        box_rows = gather_anchor_rows(torch.cat(box_cells, dim=1), at.sel, a_n)
+        per_image = detection_losses_compact(cls_rows, box_rows, at, cls_logits, bbox_pred, pt)
+        losses = {name: v.mean() for name, v in per_image.items()}
+        aux = {"rois": pt.rois, "roi_labels": pt.labels, "cls_prob": cls_prob,
+               "n_fg": (pt.labels > 0).sum(), "n_proposals": roi_valid.sum(),
+               "proposals": rois, "proposal_scores": roi_scores, "proposal_valid": roi_valid}
+        return losses, aux
 
 
 def build_fpn_model(net: str, num_classes: int, cfg: Config, dtype=torch.float32):

@@ -87,6 +87,25 @@ def postprocess_detections(out, im_info, cfg, num_classes: int, max_per_image: i
     return det, det_valid
 
 
+def anchor_rows(cells, cell, a, a_n: int):
+    """Per-anchor head rows straight from the conv-cell layout: cells
+    (B, HW, d*A), the last axis split (A, d) a-major; cell, a (B, S) cell
+    index and anchor-in-cell → (B, S, d) f32.  A row gather on the cell axis
+    plus an A-way select, cast after the select: the (B, K, d) per-anchor
+    rows of all K anchors are never made."""
+    b, s = cell.shape
+    rows = torch.take_along_dim(cells, cell[..., None], dim=1).reshape(b, s, a_n, -1)
+    return torch.take_along_dim(rows, a[..., None, None], dim=2)[:, :, 0].float()
+
+
+def gather_anchor_rows(cells, sel, a_n: int):
+    """``anchor_rows`` for global A-minor anchor ids ``sel`` (B, S) over the
+    level-concatenated cells (B, sum HW, d*A): id = cell * A + a holds across
+    level boundaries because every level's anchor offset is a multiple of A."""
+    cell = torch.div(sel, a_n, rounding_mode="floor")
+    return anchor_rows(cells, cell, sel - cell * a_n, a_n)
+
+
 class FasterRCNN(nn.Module):
     """The detector.  The backbone's children (``conv1``, ``bn1``,
     ``layer1``..``layer4``) are registered on the detector itself, so the

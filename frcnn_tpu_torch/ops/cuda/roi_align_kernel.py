@@ -1,11 +1,14 @@
 """K2: batched RoIAlign forward, K2b: its backward, K6: the multilevel (FPN)
-RoIAlign forward — CUDA kernel wrappers, their plain twins, and
-``RoIAlignFunction`` that joins K2 and K2b for autograd.
+RoIAlign forward, K6b: its backward — CUDA kernel wrappers, their plain
+twins, and the autograd Functions that join each forward to its backward
+(``RoIAlignFunction``: K2 and K2b; ``RoIAlignMultilevelFunction``: K6 and
+K6b).
 
 Replaces the TPU kernels ``frcnn_tpu/ops/pallas/roi_align_kernel.py``
 (``roi_align_pallas`` / ``_fwd_kernel``, its custom VJP ``_bwd_rule`` /
-``_bwd_kernel``, and the per-level FPN forwards ``roi_align_level_fwd`` /
-``_fwd_kernel_lv`` and ``roi_align_levels_fwd_merged`` / ``_fwd_kernel_ml``).
+``_bwd_kernel``, the per-level FPN forwards ``roi_align_level_fwd`` /
+``_fwd_kernel_lv`` and ``roi_align_levels_fwd_merged`` / ``_fwd_kernel_ml``,
+and the per-level FPN backward ``roi_align_level_bwd`` / ``_bwd_kernel_lv``).
 The TPU kernels phrased bilinear sampling as interpolation matmuls for its
 matrix unit; the kernels (``frcnn_tpu_torch/csrc/roi_align_kernel.cu``)
 gather instead: one block per (image, roi, bin), threads over channels of
@@ -21,9 +24,15 @@ K6 (same source) pools every roi from its own pyramid level in one launch
 over all levels, in roi order; the levels' base pointers, sizes and scales
 are launch arguments, so the maps are never concatenated.  It shares K2's
 sample geometry and interpolation code, so on one level the two agree bit
-for bit.  Its backward (the TPU kernel ``roi_align_level_bwd``) is not
-ported yet: ``roi_align_multilevel_forward`` raises on level maps that
-require grad rather than return a result without a gradient.
+for bit.
+
+K6b (same source) is K2b's scatter over all levels in one launch: each
+roi's bin gradients go to its own level's slice of one f32 accumulator (one
+memset clears it), which one pass rounds to the gradient dtype; every level
+gets a dense gradient, all zeros where no roi was assigned to it; rois and
+levels get none.  It shares K2b's scatter code, so on one level the two add
+the same values.  As K2b it is not bit-deterministic (f32 atomics).  Bound
+on the H100: memory traffic, the levels' gradients written once.
 
 ``roi_align_reference`` is the plain twin of K2: the same gather in PyTorch
 ops, f32 accumulation (f64 for f64 features), result in the feature dtype.
@@ -32,6 +41,8 @@ of the same sample weights into an f32 buffer (f64 for f64), then a cast.
 It is not autograd of the forward twin, which in bf16 would accumulate in
 bf16.  ``roi_align_multilevel_reference`` is the plain twin of K6: K2's twin
 on every level, each roi's row taken from its own level.
+``roi_align_multilevel_backward_reference`` is the plain twin of K6b: K2b's
+twin on every level, with the gradient rows of the other levels' rois zeroed.
 """
 
 from __future__ import annotations
@@ -150,12 +161,9 @@ def roi_align_multilevel_forward(feats, rois, levels, strides, output_size: int 
                                  sampling_ratio: int = 2):
     """The multilevel RoIAlign of ``roi_align_multilevel_reference``, over a
     batch.  CPU tensors run the plain twin; CUDA tensors launch K6 (one
-    launch for every level and image, rois in their own order).  Raises if
-    a level map requires grad: K6 has no backward yet."""
-    if any(f.requires_grad for f in feats) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "roi_align_multilevel_forward: the level maps require grad, but the "
-            "multilevel RoIAlign backward is not ported (no gradient would flow)")
+    launch for every level and image, rois in their own order).  The
+    result carries no gradient: ``RoIAlignMultilevelFunction`` joins it to
+    K6b."""
     if not feats[0].is_cuda:
         return roi_align_multilevel_reference(feats, rois, levels, strides, output_size,
                                               sampling_ratio)
@@ -259,3 +267,82 @@ class RoIAlignFunction(torch.autograd.Function):
         h, w, p, scale, sr = ctx.geometry
         dfeat = roi_align_backward(dout, rois, (h, w), p, scale, sr)
         return dfeat, None, None, None, None
+
+
+def roi_align_multilevel_backward_reference(dout, rois, levels, level_hws, strides,
+                                            output_size: int = 7, sampling_ratio: int = 2):
+    """dF of the multilevel RoIAlign: dout (B, R, p, p, C), rois (B, R, 4),
+    levels (B, R) int, level_hws: L pairs (H_l, W_l), strides: L ints → a
+    list of L tensors (B, H_l, W_l, C) in dout's dtype, accumulated in f32
+    (f64 for f64).  A roi adds to its own level only; a level outside
+    [0, L) adds nothing."""
+    grads = []
+    for li, (hw, stride) in enumerate(zip(level_hws, strides)):
+        on_level = (levels == li)[..., None, None, None]
+        grads.append(roi_align_backward_reference(
+            torch.where(on_level, dout, 0.0), rois, tuple(hw), output_size, 1.0 / stride,
+            sampling_ratio))
+    return grads
+
+
+def roi_align_multilevel_backward(dout, rois, levels, level_hws, strides,
+                                  output_size: int = 7, sampling_ratio: int = 2):
+    """dF of the multilevel RoIAlign over a batch, as
+    ``roi_align_multilevel_backward_reference``: a list of L dense tensors
+    (B, H_l, W_l, C) in dout's dtype.  CPU tensors run the plain twin; CUDA
+    tensors launch K6b (one launch for every level and image).  On the card
+    the L results are views of one buffer, the levels end to end."""
+    if not dout.is_cuda:
+        return roi_align_multilevel_backward_reference(dout, rois, levels, level_hws, strides,
+                                                       output_size, sampling_ratio)
+    b, r, p, _, c = dout.shape
+    n = len(level_hws)
+    if dout.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"roi_align_multilevel_backward: unsupported dtype {dout.dtype}")
+    if len(strides) != n:
+        raise ValueError(f"roi_align_multilevel_backward: {n} level sizes but "
+                         f"{len(strides)} strides")
+    if p != output_size:
+        raise ValueError(f"roi_align_multilevel_backward: dout has {p} bins a side, "
+                         f"output_size is {output_size}")
+    dout = dout.contiguous()
+    rois = rois.float().contiguous()
+    levels = levels.to(torch.int32).contiguous()
+    build.check_cuda("roi_align_multilevel_backward dout", dout, dout.dtype, (b, r, p, p, c))
+    build.check_cuda("roi_align_multilevel_backward rois", rois, torch.float32, (b, r, 4))
+    build.check_cuda("roi_align_multilevel_backward levels", levels, torch.int32, (b, r))
+    sizes = [b * h * w * c for h, w in level_hws]
+    acc32 = torch.empty(sum(sizes), dtype=torch.float32, device=dout.device)
+    flat = acc32 if dout.dtype == torch.float32 else torch.empty_like(acc32, dtype=dout.dtype)
+    dims = (ctypes.c_int * (2 * n))(*[int(s) for hw in level_hws for s in hw])
+    scales = (ctypes.c_float * n)(*[1.0 / s for s in strides])
+    build.launch("frcnn_roi_align_ml_bwd", dout.data_ptr(), int(dout.dtype == torch.bfloat16),
+                 rois.data_ptr(), levels.data_ptr(), dims, scales, n, b, c, r, p,
+                 int(sampling_ratio), acc32.data_ptr(), flat.data_ptr())
+    build.LAUNCH_COUNTS["roi_align_ml_bwd"] += 1
+    return [part.view(b, h, w, c) for part, (h, w) in zip(flat.split(sizes), level_hws)]
+
+
+class RoIAlignMultilevelFunction(torch.autograd.Function):
+    """Multilevel RoIAlign with its gradient: forward K6
+    (``roi_align_multilevel_forward``), backward K6b
+    (``roi_align_multilevel_backward``) — the kernels on CUDA tensors, their
+    twins on CPU tensors.  The level maps come last, one argument each (a
+    Function differentiates tensors, not lists); every map gets a dense
+    gradient; rois and levels get none (the TPU kernel's VJP returns zeros
+    for them)."""
+
+    @staticmethod
+    def forward(ctx, rois, levels, strides, output_size, sampling_ratio, *feats):
+        ctx.save_for_backward(rois, levels)
+        ctx.geometry = ([tuple(f.shape[1:3]) for f in feats], tuple(strides), output_size,
+                        sampling_ratio)
+        return roi_align_multilevel_forward(list(feats), rois, levels, strides, output_size,
+                                            sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, dout):
+        rois, levels = ctx.saved_tensors
+        level_hws, strides, p, sr = ctx.geometry
+        grads = roi_align_multilevel_backward(dout, rois, levels, level_hws, strides, p, sr)
+        return (None, None, None, None, None, *grads)

@@ -8,14 +8,16 @@ each for the batch, their twins on CPU tensors.  ``roi_align`` is the plain
 twin, differentiated by autograd when the kernels are off.
 
 FPN: ``extract_multilevel_features`` pools each roi from its assigned
-pyramid level, through K6 (``roi_align_multilevel_forward``, one launch for
-all levels and images, forward only) on CUDA tensors, or the plain twin
-``roi_align_multilevel``.
+pyramid level.  With ``use_kernels`` it goes through
+``RoIAlignMultilevelFunction``: K6 forward and K6b backward on CUDA tensors,
+one launch each for all levels and images, their twins on CPU tensors.
+``roi_align_multilevel`` is the plain twin, differentiated by autograd when
+the kernels are off.
 """
 
 from __future__ import annotations
 
-from frcnn_tpu_torch.ops.cuda.roi_align_kernel import RoIAlignFunction, roi_align_multilevel_forward
+from frcnn_tpu_torch.ops.cuda.roi_align_kernel import RoIAlignFunction, RoIAlignMultilevelFunction
 from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (
     roi_align_multilevel_reference as roi_align_multilevel)
 from frcnn_tpu_torch.ops.cuda.roi_align_kernel import roi_align_reference as roi_align  # noqa: F401
@@ -40,5 +42,7 @@ def extract_multilevel_features(feats, rois, levels, strides, output_size: int =
     coordinates; levels (B, R) in [0, L); strides: L ints → (B, R, p, p, C),
     in roi order.  rois get no gradient."""
     rois = rois.detach()
-    pool = roi_align_multilevel_forward if use_kernels else roi_align_multilevel
-    return pool(feats, rois, levels, strides, output_size, sampling_ratio)
+    if use_kernels:
+        return RoIAlignMultilevelFunction.apply(rois, levels, strides, output_size,
+                                                sampling_ratio, *feats)
+    return roi_align_multilevel(feats, rois, levels, strides, output_size, sampling_ratio)

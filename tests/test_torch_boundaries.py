@@ -2,8 +2,10 @@
 config keeps the JAX package's keys and defaults, its kernel wrappers run
 their plain twins (and count no launch) on CPU tensors, the ctypes
 signatures match the CUDA sources, ``chip_smoke.py`` (with or without
-``--only kernels`` or ``--profile``) fails without a card, and the cv2-free resize stays
-within a stated bound of ``cv2.resize``."""
+``--only kernels`` or ``--profile``) fails without a card, the entry points
+(``Detector``, ``SolverWrapper``) raise without a card unless the caller asks
+for the CPU, and the cv2-free resize stays within a stated bound of
+``cv2.resize``."""
 
 import dataclasses
 import glob
@@ -59,6 +61,64 @@ def test_chip_smoke_rejects_unknown_only():
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--only", "train"], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 2 and "invalid choice" in proc.stderr
+
+
+def test_chip_smoke_roi_bound_counts_the_pixels_under_the_rois():
+    """The RoIAlign bounds of ``chip_smoke.py`` read a level map's pixel only
+    where some roi on that level samples it with weight: the same set that
+    gets a gradient through the forward twin."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from frcnn_tpu_torch.ops.cuda.roi_align_kernel import roi_align_multilevel_reference
+
+    rng = np.random.RandomState(0)
+    hws, strides, c = [(32, 50), (16, 25), (8, 13), (4, 7)], (4, 8, 16, 32), 3
+    rois = chip_smoke.random_boxes(rng, 2, 9, size=200.0)
+    rois[:, 0] = rng.uniform(-300, 500, (2, 4))           # partly / wholly outside
+    rois[:, 1] = 0.0                                       # a padding roi
+    rois[:, 2, 2:] = rois[:, 2, :2]                        # zero size
+    rois = torch.from_numpy(rois)
+    levels = torch.from_numpy(rng.randint(0, 4, (2, 9)).astype(np.int32))
+    levels[0, 3] = 7                                       # out of range: reads nothing
+    feats = [torch.randn(2, h, w, c, dtype=torch.float64).requires_grad_(True) for h, w in hws]
+    out = roi_align_multilevel_reference(feats, rois, levels, strides)
+    (out * torch.rand_like(out).add(0.5)).sum().backward()
+    want = sum(int((f.grad.abs().sum(-1) > 0).sum()) for f in feats)
+    got = chip_smoke.roi_read_bytes(rois, levels, hws, [1.0 / s for s in strides], c, 2)
+    assert 0 < want < sum(2 * h * w for h, w in hws) and got == want * c * 2
+
+
+@pytest.mark.parametrize("net", ["res50", "res50_fpn"])
+def test_entry_points_default_to_the_card(net):
+    """``Detector(model)`` and ``SolverWrapper(model, roidb)`` run on cuda:0
+    unless told otherwise: with no card they raise instead of quietly serving
+    or training on the CPU; ``device="cpu"`` is the explicit request."""
+    from frcnn_tpu_torch.engine.serve import Detector
+    from frcnn_tpu_torch.engine.train import SolverWrapper
+    from frcnn_tpu_torch.models.network import build_model
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    cfg = cfg_from_list(default_config(), [
+        "TEST.SCALES", "(64,)", "TEST.MAX_SIZE", "96", "TRAIN.SCALES", "(64,)",
+        "TRAIN.MAX_SIZE", "96", "DEVICE.BUCKETS", "((64, 96),)", "TRAIN.IMS_PER_BATCH", "1",
+        "TEST.RPN_POST_NMS_TOP_N", "16", "TRAIN.RPN_POST_NMS_TOP_N", "16",
+        "TRAIN.BATCH_SIZE", "8", "TRAIN.RPN_BATCHSIZE", "16", "DEVICE.MAX_GT", "4",
+        "ANCHOR_SCALES", "(1, 2)", "TEST.SCORE_THRESH", "0.0"])
+    model = build_model(net, 5, cfg)
+    im = np.random.RandomState(0).randint(0, 255, (64, 96, 3)).astype(np.uint8)
+    roidb = [{"image": "im", "boxes": np.array([[8.0, 8.0, 60.0, 50.0]], np.float32),
+              "gt_classes": np.array([2], np.int32), "flipped": False, "height": 64,
+              "width": 96, "max_overlaps": np.ones(1, np.float32)}]
+    with pytest.raises(RuntimeError, match="cuda:0"):
+        Detector(model)
+    with pytest.raises(RuntimeError, match="cuda:0"):
+        SolverWrapper(model, roidb, cfg, reader=lambda name: im)
+    det = Detector(model.eval(), device="cpu")
+    assert det.device == torch.device("cpu") and det([im])[0].shape[1] == 6
+    solver = SolverWrapper(model, roidb, cfg, reader=lambda name: im, device=torch.device("cpu"))
+    losses = solver.train_step(solver.data_layer.forward())
+    assert solver.device.type == "cpu" and np.isfinite(float(losses["total_loss"]))
 
 
 def test_ctypes_signatures_match_sources():

@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain twins on a card (marker ``cuda``),
-gradients through the autograd Functions of K2 and K3, and K6 (the
-multilevel RoIAlign) bit-equal to K2 on one level.
+gradients through the autograd Functions of K2, K3 and K6 (backward K6b),
+and K6 (the multilevel RoIAlign) bit-equal to K2 on one level.
 
 Run on a machine with an NVIDIA H100 (which has no jax, so without the
 suite's conftest):  pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -21,11 +21,14 @@ from frcnn_tpu_torch.ops.cuda.overlap_kernel import (anchor_overlap_stats,
 from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (roi_align_backward,
                                                        roi_align_backward_reference,
                                                        roi_align_forward,
+                                                       roi_align_multilevel_backward,
+                                                       roi_align_multilevel_backward_reference,
                                                        roi_align_multilevel_forward,
                                                        roi_align_multilevel_reference,
                                                        roi_align_reference)
 from frcnn_tpu_torch.ops.cuda.select_kernel import topk_threshold, topk_threshold_reference
-from frcnn_tpu_torch.ops.roi_align import extract_roi_features
+from frcnn_tpu_torch.ops.roi_align import extract_multilevel_features, extract_roi_features
+
 pytestmark = pytest.mark.cuda
 
 
@@ -104,6 +107,56 @@ def test_roi_align_multilevel_on_one_level_equals_k2(dev, rng, c):
     levels = torch.full((2, 50), 1, dtype=torch.int32, device=dev)
     got = roi_align_multilevel_forward(feats, rois, levels, [4, 8, 16, 32])
     assert torch.equal(got, roi_align_forward(feats[1], rois, 7, 1.0 / 8, 2))
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 96), (torch.bfloat16, 96),
+                                     (torch.float32, 33), (torch.bfloat16, 33)])
+def test_roi_align_multilevel_backward_kernel_matches_twin(dev, rng, dtype, c):
+    """K6b: even C adds two channels with one float2 atomic, odd C one; level
+    2 is empty (dense zeros); a level outside [0, 4) adds nothing."""
+    feats, rois = _pyramid(rng, dev, c, dtype)
+    hws = [tuple(f.shape[1:3]) for f in feats]
+    levels = torch.from_numpy(rng.choice([0, 1, 3, 4, -1], (2, 50), p=[.3, .3, .3, .05, .05])
+                              .astype(np.int32)).to(dev)
+    dout = torch.from_numpy(rng.randn(2, 50, 7, 7, c).astype(np.float32)).to(dev, dtype)
+    build.reset_launch_counts()
+    got = roi_align_multilevel_backward(dout, rois, levels, hws, [4, 8, 16, 32])
+    want = roi_align_multilevel_backward_reference(dout, rois, levels, hws, [4, 8, 16, 32])
+    assert build.LAUNCH_COUNTS["roi_align_ml_bwd"] == 1 and len(got) == 4
+    scale = max(w.float().abs().max().item() for w in want)
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(scale)) - 7)
+    for g, w, f in zip(got, want, feats):
+        assert g.dtype == dtype and g.shape == f.shape
+        assert (g.float() - w.float()).abs().max().item() <= tol
+    assert not got[2].any() and got[0].any()
+
+
+def test_gradients_reach_every_level_map(dev, rng):
+    """Level maps that require grad, handed over as channels-last views as
+    the FPN model's ``_pool`` does: K6's result carries a grad_fn and K6b's
+    gradient reaches every map, dense, equal to the twin's."""
+    c = 64
+    nchw = [torch.randn(2, c, h, w, device=dev).contiguous(memory_format=torch.channels_last)
+            .requires_grad_(True) for h, w in ((40, 60), (20, 30), (10, 15), (5, 8))]
+    rois = torch.from_numpy(np.stack([random_boxes(rng, 50, width=239, height=159)
+                                      for _ in range(2)])).to(dev)
+    levels = torch.from_numpy(rng.randint(0, 3, (2, 50)).astype(np.int32)).to(dev)  # P5 empty
+    g = torch.randn(2, 50, 7, 7, c, device=dev)
+    build.reset_launch_counts()
+    out = extract_multilevel_features([m.permute(0, 2, 3, 1) for m in nchw], rois, levels,
+                                      [4, 8, 16, 32])
+    assert out.grad_fn is not None
+    out.backward(g)
+    assert build.LAUNCH_COUNTS["roi_align_ml"] == 1
+    assert build.LAUNCH_COUNTS["roi_align_ml_bwd"] == 1
+    want = roi_align_multilevel_backward_reference(g, rois, levels,
+                                                   [tuple(m.shape[2:]) for m in nchw],
+                                                   [4, 8, 16, 32])
+    scale = max(w.abs().max().item() for w in want)
+    for m, w in zip(nchw, want):
+        assert m.grad is not None and m.grad.shape == m.shape
+        assert (m.grad.permute(0, 2, 3, 1) - w).abs().max().item() <= 1e-5 * scale
+    assert not nchw[3].grad.any() and nchw[0].grad.any()
 
 
 def test_rpn_logit_product_bf16_matches_f32(dev, rng):
@@ -246,6 +299,9 @@ def test_wrappers_raise_instead_of_falling_back(dev):
                                                                  device=dev)
     with pytest.raises(ValueError):                 # f16 maps: the kernel takes f32 or bf16
         roi_align_multilevel_forward([f.half() for f in feats], rois, levels, [4, 8])
-    with pytest.raises(NotImplementedError):       # no backward: no result without a grad_fn
-        roi_align_multilevel_forward([feats[0].requires_grad_(True), feats[1]], rois, levels,
-                                     [4, 8])
+    with pytest.raises(ValueError):                 # f16 gradient: K6b takes f32 or bf16
+        roi_align_multilevel_backward(torch.randn(1, 1, 7, 7, 16, device=dev).half(), rois,
+                                      levels, [(8, 8), (4, 4)], [4, 8])
+    with pytest.raises(ValueError):                 # 3 x 3 bins against output_size 7
+        roi_align_multilevel_backward(torch.randn(1, 1, 3, 3, 16, device=dev), rois, levels,
+                                      [(8, 8), (4, 4)], [4, 8])

@@ -59,7 +59,7 @@ def both():
 
     model = build_model("res50", NUM_CLASSES, cfg_from_list(default_config(), OVERRIDES))
     model.load_state_dict(sd)
-    det = Detector(model.eval(), max_per_image=MAX_PER_IMAGE)
+    det = Detector(model.eval(), max_per_image=MAX_PER_IMAGE, device="cpu")
     groups = det._prep_groups(_images())
     items = groups[(128, 192)]
     data = np.stack([blob for _, blob, _ in items])

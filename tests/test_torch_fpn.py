@@ -20,8 +20,8 @@ one leaves padding.
     CPU tensors;
   * single-problem NMS (``nms_fixed``, ``proposal_layer``: the TPU
     package's K1b path) with indices and valid equal;
-  * the K6 wrapper raises on level maps that require grad; the GroupNorm
-    variant raises; the converted state_dict loads with ``strict=True``.
+  * the GroupNorm variant raises; the converted state_dict loads with
+    ``strict=True``.
 """
 
 import numpy as np
@@ -45,7 +45,6 @@ from frcnn_tpu_torch.models.fpn import fg_logit_diff, select_pre_nms
 from frcnn_tpu_torch.models.network import build_model
 from frcnn_tpu_torch.models.proposals import proposal_layer
 from frcnn_tpu_torch.ops.cuda import build
-from frcnn_tpu_torch.ops.cuda.roi_align_kernel import roi_align_multilevel_forward
 from frcnn_tpu_torch.ops.nms import nms_fixed
 from frcnn_tpu_torch.ops.roi_align import roi_align_multilevel
 from frcnn_tpu_torch.utils.weight_convert import convert_fpn_from_jax
@@ -118,7 +117,7 @@ def both():
     sd = convert_fpn_from_jax(params, "res50_fpn")
     model = build_model("res50_fpn", NUM_CLASSES, cfg_from_list(default_config(), OVERRIDES))
     model.load_state_dict(sd, strict=True)
-    det = Detector(model.eval(), max_per_image=MAX_PER_IMAGE)
+    det = Detector(model.eval(), max_per_image=MAX_PER_IMAGE, device="cpu")
     items = det._prep_groups(_images())[(H, W)]
     data = np.stack([blob for _, blob, _ in items])
     im_info = np.asarray([info for _, _, info in items], np.float32)
@@ -158,7 +157,7 @@ def test_pyramid_level_matches_jax(both, level):
 
 
 def test_rpn_matches_jax(both):
-    prob, cells = _port(both, lambda m, x, i: m._rpn_all_levels(m._pyramid(x)))
+    prob, cells, _ = _port(both, lambda m, x, i: m._rpn_all_levels(m._pyramid(x)))
     # probabilities in (0, 1): the pyramid's 1e-4 of max, after the 3x3 RPN conv
     np.testing.assert_allclose(prob.numpy(), both["want"][1], rtol=0, atol=1e-4)
     for g, w in zip(cells, both["want"][2]):
@@ -331,16 +330,6 @@ def test_detector_serves_same_results(both):
     det_d, det_v = both["want"][5]
     want = [det_d[i][det_v[i]] for i in range(2)]
     _match_per_class(want, both["det"](_images()), "Detector")
-
-
-def test_k6_wrapper_raises_on_requires_grad():
-    feats = [torch.randn(1, 8, 8, 4, requires_grad=True), torch.randn(1, 4, 4, 4)]
-    rois = torch.tensor([[[0.0, 0.0, 20.0, 20.0]]])
-    levels = torch.zeros(1, 1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="backward"):
-        roi_align_multilevel_forward(feats, rois, levels, [4, 8])
-    with torch.no_grad():
-        assert roi_align_multilevel_forward(feats, rois, levels, [4, 8]).shape == (1, 1, 7, 7, 4)
 
 
 def test_fpn_gn_raises():

@@ -215,7 +215,7 @@ def stepped():
     feed = [_t(blobs[k]) for k in ("data", "im_info", "gt_boxes", "gt_labels", "gt_valid")]
     with torch.no_grad():
         losses, aux = model.train_forward(*feed, draws[0])
-    solver = SolverWrapper(model, roidb, cfg, reader=reader)
+    solver = SolverWrapper(model, roidb, cfg, reader=reader, device="cpu")
     step_losses = solver.train_step(blobs, draws[0])
     after = {k: v.clone() for k, v in model.state_dict().items()}
     step2_losses = solver.train_step(blobs, draws[1])
