@@ -17,7 +17,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      shape (8 x 300 rois, 50x76x1024) and the train shape (8 x 128 rois,
      38x64x1024);
   4. K3 (fused bottleneck) against its twin at the layer1/layer2 shapes of
-     the serving path (800x1216) and of the train path (608x1024);
+     the serving path (800x1216) and of the train path (608x1024), with
+     ptxas's registers and spills of its instantiations;
   5. K1 at the train shapes (C4: 8 x 12000, FPN: 8 x 8480; t=0.7, cap 2000);
   6. K2b (RoIAlign backward) against its twin, f32 and bf16, at the train
      shape (8 x 128 rois, 38x64x1024); K6b (multilevel RoIAlign backward)
@@ -27,9 +28,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
   7. K4 (anchor-overlap stats) bit-equal to its twin at the train shape
      (21888 anchors, 8 x 64 padded gt);
   8. K5 (threshold top-k) indices equal to its twin at (8, 21888), k 128
-     and 256, on rows of ties, NaN and +-inf, and k = S, at the FPN
-     serving rows (8, 182400) and (8, 45600), k 1000, and at the FPN train
-     rows (8, 155520), k 128 and 256, and (8, 116736), k 2000;
+     and 256, on rows of ties, NaN and +-inf, and k = S, on rows whose ties
+     at the cut fall in several segments of the kernel's cluster (8 and 1 x
+     182400), at a row length that is no multiple of 4 and at S = 5, at the
+     FPN serving rows (8, 182400) and (8, 45600), k 1000, and at the FPN
+     train rows (8, 155520), k 128 and 256, and (8, 116736), k 2000;
   9. K6 (multilevel RoIAlign forward) against its twin, f32 and bf16, at
      the FPN serving shape (P2-P5 of 800x1216, 256 channels, 8 x 300
      rois), every level populated and with one level empty; and K6 with
@@ -412,17 +415,50 @@ K3_SHAPES = (("layer1 block0 (proj)", 200, 304, 64, 64, True, 1),
              ("train layer2 block1-3", 76, 128, 512, 128, False, 3))
 
 
+def ptxas_report(build_log: str, symbol: str):
+    """ptxas's registers and spill bytes for every compiled entry function
+    whose mangled name holds ``symbol``, from nvcc's ``-Xptxas -v`` output."""
+    found, name = [], None
+    for line in build_log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+            found.append({"function": name, "spill_stores": None, "spill_loads": None,
+                          "registers": None})
+        elif name and "spill stores" in line:
+            nums = [int(tok) for tok in line.replace(",", " ").split() if tok.isdigit()]
+            found[-1]["spill_stores"], found[-1]["spill_loads"] = nums[1], nums[2]
+        elif name and "Used" in line and "registers" in line:
+            found[-1]["registers"] = int(line.split("Used")[1].split("registers")[0])
+            name = None
+    return [f for f in found if symbol in f["function"]]
+
+
 def check_fused_block(dev):
-    from frcnn_tpu_torch.ops.cuda.fused_block import bottleneck_reference, fused_bottleneck
+    from frcnn_tpu_torch.ops.cuda import build
+    from frcnn_tpu_torch.ops.cuda.fused_block import (bottleneck_reference, fused_bottleneck,
+                                                      fused_plan)
 
     g = torch.Generator().manual_seed(2)
 
     def rnd(*shape, std=1.0):
         return (torch.randn(shape, generator=g) * std).to(dev, torch.bfloat16)
 
+    ptxas = ptxas_report(build.BUILD_LOG, "fused_bottleneck_kernel")
+    for entry in ptxas:
+        # the mangled name carries the template arguments: ILi<mid>ELb<projection>EE
+        log(f"K3 ptxas {entry['function'].split('fused_bottleneck_kernel')[1][:14]}: "
+            f"{entry['registers']} registers, spill stores {entry['spill_stores']} B, "
+            f"loads {entry['spill_loads']} B")
+    log(f"K3: one 512-thread block an SM; shared memory a block "
+        f"{fused_plan(1, 1, 64, 256)['smem_bytes']} B (mid 64), "
+        f"{fused_plan(1, 1, 128, 512)['smem_bytes']} B (mid 128)")
+
     k_total = t_total = 0.0
     worst = 0.0
     bound = Bound()
+    by_shape = []
+    buckets = {"800x1216": {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0},
+               "608x1024": {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}}
     for name, h, w, cin, mid, proj, count in K3_SHAPES:
         cout = 4 * mid
         x = torch.relu(rnd(8, h, w, cin))
@@ -452,14 +488,22 @@ def check_fused_block(dev):
                          BF16_TENSOR_FLOPS, count)
         if count:
             worst = max(worst, err)
+        bucket = "608x1024" if name.startswith("train") else "800x1216"
+        by_shape.append({"name": name, "bucket": bucket, "launches": count, "ms": k_ms,
+                         "library_ms": t_ms, "bound_ms": b_ms})
+        for key, val in (("ms", k_ms), ("library_ms", t_ms), ("bound_ms", b_ms)):
+            buckets[bucket][key] += count * val
         log(f"K3 {name} x (8, {h}, {w}, {cin}) mid {mid}: max abs err {err:.3e} <= {tol:.3e} "
             f"(4 bf16 ulps of max|twin| {scale:.3f}), mean abs err {mean_err:.3e}; "
             f"kernel {k_ms:.4f} ms, plain twin (cuDNN bf16) {t_ms:.4f} ms, bound {b_ms:.4f} ms")
+    for bucket, tot in buckets.items():
+        log(f"K3 {bucket}, the 6 launches of a batch or step: kernel {tot['ms']:.4f} ms, cuDNN "
+            f"bf16 {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
     log(f"K3 time over the 12 main-path launches (6 per serving batch, 6 per train step): "
         f"kernel {k_total:.4f} ms, plain twin {t_total:.4f} ms; the twin is the library's "
         f"(cuDNN's) bf16 convolutions")
     return {"ms": k_total, "plain_ms": t_total, "library_ms": t_total, "max_abs_err": worst,
-            **bound.result()}
+            **bound.result(), "by_shape": by_shape, "by_bucket": buckets, "ptxas": ptxas}
 
 
 # ---------------------------------------------------------------------------
@@ -714,12 +758,33 @@ def check_select(dev):
     hard_t = torch.from_numpy(hard).to(dev)
     for k in (1, 128, 256, 5000, n):
         same("ties, NaN, +-inf", hard_t, k)
+    # ties at the cut in several segments of the cluster's decomposition: at
+    # S = 182400 three values scattered (every block holds ties) and in three
+    # runs (the middle run crosses every segment boundary; r is spent in
+    # index order across blocks), for all eight rows and for B = 1; a row
+    # length that is no multiple of 4 (scalar loads, segments that start
+    # unaligned) and one below the cluster size (blocks that own nothing)
+    long_s = 3 * FPN_LEVELS[0][0] * FPN_LEVELS[0][1]
+    three = rng.randint(0, 3, (b, long_s)).astype(np.float32)
+    runs = np.ascontiguousarray(np.sort(three, axis=1)[:, ::-1])
+    for name, arr in (("three values", three), ("three runs", runs)):
+        tens = torch.from_numpy(arr).to(dev)
+        for k in (1000, long_s // 2, long_s - 1):
+            same(f"{name} (8, {long_s})", tens, k)
+            same(f"{name} (1, {long_s})", tens[3:4].contiguous(), k)
+    ragged = torch.from_numpy(rng.randint(-3, 4, (b, n + 3)).astype(np.float32)).to(dev)
+    for k in (1, 256, n + 3):
+        same(f"ties, S = {n + 3} (no multiple of 4)", ragged, k)
+    tiny = torch.from_numpy(rng.randint(0, 3, (b, 5)).astype(np.float32)).to(dev)
+    for k in (1, 3, 5):
+        same("S = 5 (below the cluster size)", tiny, k)
     k_ms = sum(cuda_ms(lambda kind=kind, k=k: topk_threshold(prios[kind], k))
                for kind, k in (("fg", 128), ("bg", 256)))
     t_ms = sum(cuda_ms(lambda kind=kind, k=k: topk_threshold_reference(prios[kind], k))
                for kind, k in (("fg", 128), ("bg", 256)))
     log(f"K5 ((8, {n}) production priorities at k 128 and 256; rows of ties, NaN and +-inf at "
-        f"k 1..S): indices and value bits equal to the twin; kernel {k_ms:.4f} ms, "
+        f"k 1..S; ties across the cluster's segments at (8, {long_s}) and (1, {long_s}); "
+        f"S = {n + 3} and S = 5): indices and value bits equal to the twin; kernel {k_ms:.4f} ms, "
         f"plain twin (stable sort) {t_ms:.4f} ms for the two launches")
     # the FPN serving rows: P2 and P3 of 800x1216 (3 anchors a cell), k 1000,
     # probabilities on a grid (runs of exact ties, as over padding)
@@ -759,6 +824,7 @@ def check_select(dev):
               ("FPN train rows", rows, tk_ms))
     bound = Bound()
     topk_ms = sort_ms = 0.0
+    by_group = {}
     for name, timed, kernel_ms in groups:
         g_topk = sum(cuda_ms(lambda v=v, k=k: torch.topk(v, k, dim=1)) for v, k in timed)
         g_sort = sum(cuda_ms(lambda v=v: torch.sort(v, dim=1, descending=True)) for v, _ in timed)
@@ -767,11 +833,14 @@ def check_select(dev):
             f"{g_topk:.4f} ms, torch.sort {g_sort:.4f} ms, bound {g_bound:.4f} ms")
         topk_ms += g_topk
         sort_ms += g_sort
+        by_group[name] = {"ms": kernel_ms, "library_ms": g_topk, "library_sort_ms": g_sort,
+                          "bound_ms": g_bound}
     total = k_ms + fk_ms + tk_ms
     log(f"K5 over its 7 timed launches: kernel {total:.4f} ms, torch.topk {topk_ms:.4f} ms, "
         f"torch.sort {sort_ms:.4f} ms, bound {bound.ms:.4f} ms")
     return {"ms": total, "plain_ms": t_ms + ft_ms + tt_ms, "library_ms": topk_ms,
-            "library_sort_ms": sort_ms, "max_abs_err": 0.0, **bound.result()}
+            "library_sort_ms": sort_ms, "max_abs_err": 0.0, **bound.result(),
+            "by_group": by_group}
 
 
 # ---------------------------------------------------------------------------

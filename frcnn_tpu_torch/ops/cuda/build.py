@@ -40,10 +40,10 @@ _SIGNATURES = {
     "frcnn_roi_align_bwd": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P),
     "frcnn_roi_align_ml_fwd": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "frcnn_roi_align_ml_bwd": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "frcnn_fused_bottleneck": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+    "frcnn_fused_bottleneck": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P),
     "frcnn_anchor_overlap_stats": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
-    "frcnn_topk_threshold": (_P, _I, _I, _I, _P, _P, _P),
+    "frcnn_topk_threshold": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -2,13 +2,21 @@
 
 Replaces the TPU kernel ``frcnn_tpu/ops/pallas/fused_block.py``
 (``fused_bottleneck`` / ``_kernel``).  The kernel
-(``frcnn_tpu_torch/csrc/fused_block.cu``) computes one 8x16 output tile per
-block: conv1 over the tile and its 1-pixel halo into shared memory, conv2
-from there, conv3 + residual in the epilogue, all on the tensor cores
-(wmma, bf16 in, f32 accumulate).  Bound on the H100: the unfused chain moves
-three activation tensors through device memory per conv; fused, only the
-block input is read and the output written.  Intermediates are rounded to
-bf16 after bias + relu, where the TPU kernel rounds them.
+(``frcnn_tpu_torch/csrc/fused_block.cu``) computes one 8x30 output tile per
+512-thread block (four warpgroups), one block an SM: conv1 over the tile
+and its 1-pixel halo into shared memory, conv2 from there (pixels flattened
+at a pitch of 32, so each 3x3 tap is one shifted wgmma operand), conv3 +
+residual in the epilogue, all by wgmma (bf16 in, f32 accumulate) with
+weights and x staged through a three-stage cp.async ring in shared memory.
+Only the block input is read and the output written (16-byte stores).
+Bound on the H100 by the count: bytes (the unfused chain moves three
+activation tensors through device memory per conv); in fact by the traffic
+from L2 into shared memory, since every block stages all the weights again
+(``scripts/ablate_fused_block.py``), which is why the tile is as large as a
+block can hold.  Intermediates are rounded to bf16 after bias + relu, where
+the TPU kernel rounds them.  ``fused_plan`` is the launch geometry (tiles,
+shared-memory bytes); the launcher refuses a plan that is not the kernel's
+layout.
 
 ``bottleneck_reference`` is the plain twin (``bottleneck_reference`` of the
 JAX module): three convolutions with the same folded weights, biases added
@@ -32,6 +40,31 @@ import torch.nn.functional as F
 from frcnn_tpu_torch.ops.cuda import build
 
 SUPPORTED_MID = (64, 128)
+
+# the kernel's tile and shared-memory layout (csrc/fused_block.cu, Layout)
+TILE_H, TILE_W, PITCH = 8, 30, 32
+HALO_ROWS = (TILE_H + 2) * PITCH               # conv1's rows: the flattened halo region
+OUT_ROWS = TILE_H * PITCH                      # conv2's and conv3's rows
+Y1_ROWS = OUT_ROWS + 2 * PITCH + 2             # the last tap of the last output row
+WARPGROUPS = OUT_ROWS // 64                    # one 64-row output tile each
+STEP_CHANNELS, TAP_ROWS, PANEL, STAGES = 32, 64, 64, 3
+
+
+def fused_plan(h: int, w: int, mid: int, cout: int) -> dict:
+    """Launch geometry of the kernel for an (h, w) map: tiles along x and y
+    (TILE_H x TILE_W output pixels a block) and the block's dynamic shared
+    memory in bytes: y1 (y2 and the output tiles take its place later), the
+    three-stage ring sized for the largest of the three phases' steps, and
+    the f32 biases."""
+    y1 = mid // 8 * Y1_ROWS * 16
+    y2 = mid // 8 * OUT_ROWS * 16
+    out_tiles = WARPGROUPS * 64 * PANEL * 2
+    ring = (max(y1, y2 + out_tiles) + 127) // 128 * 128
+    stage1 = STEP_CHANNELS // 8 * HALO_ROWS * 16 + STEP_CHANNELS * mid * 2
+    stage2 = TAP_ROWS * mid * 2
+    stage3 = max(mid * PANEL * 2, STEP_CHANNELS // 8 * OUT_ROWS * 16 + STEP_CHANNELS * PANEL * 2)
+    return {"tiles_x": -(-w // TILE_W), "tiles_y": -(-h // TILE_H),
+            "smem_bytes": ring + STAGES * max(stage1, stage2, stage3) + (2 * mid + cout) * 4}
 
 
 def bottleneck_reference(x, w1, b1, w2, b2, w3, b3, wds=None, bds=None):
@@ -89,7 +122,7 @@ def fused_bottleneck(x, w1, b1, w2cat, b2, w3, b3, wds=None, bds=None):
     ptrs = [t.data_ptr() for t in weights] + [None] * (8 - len(weights))
     out = torch.empty((b, h, w, cout), dtype=bf, device=x.device)
     build.launch("frcnn_fused_bottleneck", x.data_ptr(), b, h, w, cin, mid, cout,
-                 *ptrs, out.data_ptr())
+                 fused_plan(h, w, mid, cout)["smem_bytes"], *ptrs, out.data_ptr())
     build.LAUNCH_COUNTS["fused_block"] += 1
     return out
 

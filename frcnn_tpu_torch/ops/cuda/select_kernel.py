@@ -8,11 +8,15 @@ tie at the cut, NaN counts as the largest value — in INDEX-ASCENDING order.
 Callers that need descending order re-rank the k winners with a small
 stable sort.
 
-The kernel (``frcnn_tpu_torch/csrc/select_kernel.cu``) gives each row one
-1024-thread block: a radix select over the bytes of the sortable keys finds
-the k-th largest key with integer histograms, then block-wide prefix scans
-compact the selected indices in order.  Bound on the H100: latency (a row is
-a few tens of KB and stays in cache; B blocks run).
+The kernel (``frcnn_tpu_torch/csrc/select_kernel.cu``) gives each row a
+thread-block cluster: block j reads the j-th contiguous segment of the row
+once into its shared memory, a radix select over the bytes of the sortable
+keys finds the k-th largest key with integer histograms summed across the
+cluster through distributed shared memory, and scans of the blocks' and
+warps' counts place the selected indices in order.  Bound on the H100:
+bytes by the count (the row read once), latency in fact (six cluster
+barriers and the passes over shared memory).  ``select_plan`` is the launch
+geometry: blocks a row, segment length, floats of shared memory a block.
 
 ``topk_threshold_reference`` is the plain twin (``topk_threshold_ref`` of
 the JAX module): a stable descending sort of the same keys, the first k
@@ -32,6 +36,10 @@ from frcnn_tpu_torch.ops.cuda import build
 
 THRESHOLD_SELECT_MIN_S = 16384
 THRESHOLD_SELECT_MIN_RATIO = 24
+
+CLUSTER_BLOCKS = 8            # blocks a row: the portable cluster size
+MAX_SMEM_FLOATS = 56320       # 220 KB of dynamic shared memory a block
+STATIC_SMEM_BYTES = 4 * 256 * 4 + 256   # the kernel's histograms and scan scratch
 
 
 def sortable_keys(scores):
@@ -56,6 +64,17 @@ def use_threshold_select(n: int, k: int) -> bool:
     return n >= THRESHOLD_SELECT_MIN_S and n >= THRESHOLD_SELECT_MIN_RATIO * k
 
 
+def select_plan(s: int, cluster: int = CLUSTER_BLOCKS) -> dict:
+    """Launch geometry for rows of length ``s``: ``cluster`` blocks a row,
+    block j owning ``[j * segment, (j + 1) * segment)`` (a multiple of 4, so
+    that every segment of a 16-byte aligned row starts 16-byte aligned), the
+    first ``smem_floats`` of it in shared memory and the rest, if any, left
+    in device memory."""
+    segment = (-(-s // cluster) + 3) // 4 * 4
+    return {"cluster": cluster, "segment": segment,
+            "smem_floats": min(segment, MAX_SMEM_FLOATS)}
+
+
 def topk_threshold(scores, k: int):
     """Exact top-k of each row of ``scores`` (B, S) f32 in index-ascending
     order → (values (B, k) f32, indices (B, k) int32).  CPU tensors run the
@@ -69,7 +88,8 @@ def topk_threshold(scores, k: int):
     build.check_cuda("topk_threshold scores", scores, torch.float32, (b, s))
     vals = torch.empty((b, k), dtype=torch.float32, device=scores.device)
     idx = torch.empty((b, k), dtype=torch.int32, device=scores.device)
-    build.launch("frcnn_topk_threshold", scores.data_ptr(), b, s, int(k), vals.data_ptr(),
-                 idx.data_ptr())
+    plan = select_plan(s)
+    build.launch("frcnn_topk_threshold", scores.data_ptr(), b, s, int(k), plan["cluster"],
+                 plan["segment"], plan["smem_floats"], vals.data_ptr(), idx.data_ptr())
     build.LAUNCH_COUNTS["select"] += 1
     return vals, idx

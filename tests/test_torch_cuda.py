@@ -171,25 +171,33 @@ def test_rpn_logit_product_bf16_matches_f32(dev, rng):
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
-def test_fused_block_kernel_matches_twin(dev, rng):
+@pytest.mark.parametrize("cin,mid,proj", [(64, 64, True), (256, 64, False), (512, 128, False),
+                                          (256, 128, True), (48, 64, True)])
+@pytest.mark.parametrize("b,h,w", [(2, 21, 37),    # odd, ragged in both directions
+                                   (1, 3, 5),      # smaller than one 8 x 30 tile
+                                   (1, 8, 30),     # exactly one tile
+                                   (3, 9, 61)])    # one row and one column into the next tiles
+def test_fused_block_kernel_matches_twin(dev, b, h, w, cin, mid, proj):
     g = torch.Generator().manual_seed(0)
-    for cin, mid, proj in ((64, 64, True), (256, 64, False), (512, 128, False)):
-        cout = 4 * mid
+    cout = 4 * mid
 
-        def r(*s, std=1.0):
-            return (torch.randn(s, generator=g) * std).to(dev, torch.bfloat16)
+    def r(*s, std=1.0):
+        return (torch.randn(s, generator=g) * std).to(dev, torch.bfloat16)
 
-        x = torch.relu(r(2, 21, 37, cin))
-        w = [r(cin, mid, std=(2 / cin) ** 0.5), r(mid, std=0.1),
-             r(9 * mid, mid, std=(2 / (9 * mid)) ** 0.5), r(mid, std=0.1),
-             r(mid, cout, std=mid ** -0.5), r(cout, std=0.1)]
-        ds = [r(cin, cout, std=cin ** -0.5), r(cout, std=0.1)] if proj else [None, None]
-        got = fused_bottleneck(x, *w, *ds).float()
-        want = bottleneck_reference(x, w[0], w[1], w[2].reshape(3, 3, mid, mid), *w[3:],
-                                    *ds).float()
-        scale = want.abs().max().item()
-        ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
-        assert (got - want).abs().max().item() <= 4 * ulp
+    x = torch.relu(r(b, h, w, cin))
+    wts = [r(cin, mid, std=(2 / cin) ** 0.5), r(mid, std=0.1),
+           r(9 * mid, mid, std=(2 / (9 * mid)) ** 0.5), r(mid, std=0.1),
+           r(mid, cout, std=mid ** -0.5), r(cout, std=0.1)]
+    ds = [r(cin, cout, std=cin ** -0.5), r(cout, std=0.1)] if proj else [None, None]
+    build.reset_launch_counts()
+    got = fused_bottleneck(x, *wts, *ds).float()
+    assert build.LAUNCH_COUNTS["fused_block"] == 1
+    want = bottleneck_reference(x, wts[0], wts[1], wts[2].reshape(3, 3, mid, mid), *wts[3:],
+                                *ds).float()
+    scale = want.abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 4 * ulp
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -225,17 +233,46 @@ def test_overlap_kernel_bit_equal(dev, rng):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("k", [1, 100, 1999, 4000])
-def test_select_kernel_matches_twin(dev, rng, k):
-    x = rng.randn(3, 4000).astype(np.float32)
-    x[1] = np.floor(x[1] * 2)                         # ties
-    x[2, ::9], x[2, 1::9], x[2, 2::31] = np.inf, -np.inf, np.nan
+def _select_rows(rng, case):
+    """(rows, the k to try): the cluster kernel's boundary cases."""
+    if case == "mixed":                                  # S = 4000: ties, +-inf, NaN
+        x = rng.randn(3, 4000).astype(np.float32)
+        x[1] = np.floor(x[1] * 2)
+        x[2, ::9], x[2, 1::9], x[2, 2::31] = np.inf, -np.inf, np.nan
+        return x, (1, 100, 1999, 4000)
+    if case == "runs_across_segments":                   # each run of ties spans several blocks
+        x = np.sort(rng.randint(0, 3, (2, 182400)), axis=1)[:, ::-1].astype(np.float32)
+        return np.ascontiguousarray(x), (1, 1000, 91200, 182399, 182400)
+    if case == "three_values_one_row":                   # B = 1, ties in every block
+        return rng.randint(0, 3, (1, 182400)).astype(np.float32), (1000, 100000)
+    if case == "ragged":                                 # S no multiple of 4
+        x = rng.randint(-3, 4, (3, 21891)).astype(np.float32)
+        x[0, ::97] = np.nan
+        x[0, 5] = np.frombuffer(np.uint32(0xFFC00000).tobytes(), np.float32)[0]
+        x[1, ::2] = -0.0
+        return x, (1, 256, 21891)
+    if case == "shorter_than_cluster":
+        return rng.randint(0, 3, (4, 5)).astype(np.float32), (1, 3, 5)
+    if case == "one_value":
+        return np.full((2, 50000), 7.0, np.float32), (1, 777, 50000)
+    if case == "longer_than_shared_memory":              # the segment's tail stays in device memory
+        return np.round(rng.rand(1, 500001) * 512).astype(np.float32), (1, 5000, 500001)
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", ["mixed", "runs_across_segments", "three_values_one_row",
+                                  "ragged", "shorter_than_cluster", "one_value",
+                                  "longer_than_shared_memory"])
+def test_select_kernel_matches_twin(dev, rng, case):
+    x, ks = _select_rows(rng, case)
     scores = torch.from_numpy(x).to(dev)
-    build.reset_launch_counts()
-    vals, idx = topk_threshold(scores, k)
-    tv, ti = topk_threshold_reference(scores, k)
-    assert build.LAUNCH_COUNTS["select"] == 1
-    assert torch.equal(idx, ti) and torch.equal(vals.view(torch.int32), tv.view(torch.int32))
+    for k in ks:
+        build.reset_launch_counts()
+        vals, idx = topk_threshold(scores, k)
+        tv, ti = topk_threshold_reference(scores, k)
+        assert build.LAUNCH_COUNTS["select"] == 1
+        assert torch.equal(idx, ti), (case, k)
+        assert torch.equal(vals.view(torch.int32), tv.view(torch.int32)), (case, k)
 
 
 def test_gradients_flow_through_roi_align_and_fused_block(dev, rng):
