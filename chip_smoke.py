@@ -12,14 +12,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
   2. K1 (batched NMS) against its plain twin at the C4 proposal shape (8 x
      6000), the FPN proposal shape (8 x 4741, an invalid NEG_INF tail) and
      the per-class shape (168 x 300): nms_fixed_batched indices and valid
-     masks equal; uncapped keep masks bit-equal;
+     masks equal; the capped keep masks (the form the main path runs)
+     bit-equal to the twin's mask cut after its first ``cap`` kept boxes,
+     also with the cap inside the first chunk of 64 and with a cap that is
+     never reached; uncapped keep masks bit-equal;
   3. K2 (RoIAlign forward) against its twin, f32 and bf16, at the serving
      shape (8 x 300 rois, 50x76x1024) and the train shape (8 x 128 rois,
-     38x64x1024);
+     38x64x1024), with the share of corner reads that its staging leaves;
+     then at C = 1024, 256 and 1023 (an odd C: one channel a thread) with
+     rois wider than 28 map columns and one pixel wide;
   4. K3 (fused bottleneck) against its twin at the layer1/layer2 shapes of
      the serving path (800x1216) and of the train path (608x1024), with
      ptxas's registers and spills of its instantiations;
-  5. K1 at the train shapes (C4: 8 x 12000, FPN: 8 x 8480; t=0.7, cap 2000);
+  5. K1 at the train shapes (C4: 8 x 12000, FPN: 8 x 8480; t=0.7, cap 2000),
+     indices and capped keep masks as in 2;
   6. K2b (RoIAlign backward) against its twin, f32 and bf16, at the train
      shape (8 x 128 rois, 38x64x1024); K6b (multilevel RoIAlign backward)
      against its twin, f32 and bf16, at the FPN train shape (dOut 8 x 128 x
@@ -38,7 +44,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      rois), every level populated and with one level empty; and K6 with
      every roi on one level bit-equal to K2 on that level;
  10. single-problem NMS (``nms_fixed``, K1 at B = 1: the TPU package's
-     K1b) at 6000 boxes, t=0.7: indices and valid equal to the twin;
+     K1b) at 6000 boxes, t=0.7: indices and valid equal to the twin, capped
+     keep masks as in 2, and the kernel's launch timed alone;
  11. (with ``--only kernels``: print the kernel results and the card line
      and stop; a partial run prints no ok line);
  12. the serving path: res50 C4, 21 classes, seeded random weights, bf16
@@ -215,6 +222,27 @@ def random_boxes(rng, b, n, size=800.0, clusters=40):
 # ---------------------------------------------------------------------------
 
 
+def check_capped_mask(name, boxes, thresh, valid, caps):
+    """K1 with ``max_keep`` against the twin's uncapped mask cut after its
+    first ``cap`` kept boxes, bit for bit, for each cap; returns the kernel's
+    mask at the last cap."""
+    from frcnn_tpu_torch.ops.cuda.nms_kernel import nms_mask_batched, nms_mask_reference
+
+    full = nms_mask_reference(boxes, thresh, valid)
+    order = torch.cumsum(full, 1)
+    for cap in caps:
+        keep = nms_mask_batched(boxes, thresh, valid, max_keep=cap)
+        torch.cuda.synchronize()
+        want = full & (order <= cap)
+        if not torch.equal(keep, want):
+            raise AssertionError(f"K1 {name} capped at {cap}: keep mask differs from the twin's "
+                                 f"({(keep != want).sum().item()} bits)")
+    kept = full.sum(1)
+    log(f"K1 {name}: keep masks capped at {list(caps)} bit-equal to the twin's first kept boxes "
+        f"(uncapped the twin keeps {kept.min().item()}-{kept.max().item()} a problem)")
+    return keep
+
+
 def check_nms(dev):
     from frcnn_tpu_torch.ops.cuda.nms_kernel import nms_mask_batched, nms_mask_reference
     from frcnn_tpu_torch.ops.nms import NEG_INF, nms_fixed_batched
@@ -309,10 +337,13 @@ def check_nms(dev):
                                         ("per_class", cls_args, cls_kw, True, 5),
                                         ("FPN proposals", fpn_args, fpn_kw, False, 3)):
         bx, thresh, vd, cap = mask_args(args, kw, sort)
+        # the main path's cap, one inside the first chunk of 64 candidates, one
+        # never reached, then the main path's again (the mask the bound counts)
+        keep = check_capped_mask(f"{name} ({bx.shape[0]}, {bx.shape[1]}, t={thresh})", bx, thresh,
+                                 vd, (1, 20, bx.shape[1] + 1, cap))
         k_ms = cuda_ms(lambda: nms_mask_batched(bx, thresh, vd, max_keep=cap))
         t_ms = cuda_ms(lambda: nms_mask_reference(bx, thresh, vd), iters=iters, warmup=1)
         timings[name] = (k_ms, t_ms)
-        keep = nms_mask_batched(bx, thresh, vd, max_keep=cap)
         b_ms = bound.add(nbytes(bx, vd, keep), nms_pairs(keep, vd, cap) * IOU_FLOPS)
         log(f"K1 time {name}: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms, bound {b_ms:.4f} ms")
     results["ms"] = sum(v[0] for v in timings.values())
@@ -330,7 +361,8 @@ ROI_FLOPS = 32   # per pooled value at sampling ratio 2: 4 samples x 4 corners x
 
 
 def check_roi_align(dev):
-    from frcnn_tpu_torch.ops.cuda.roi_align_kernel import roi_align_forward, roi_align_reference
+    from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (roi_align_forward,
+                                                           roi_align_reference, staged_pixels)
 
     rng = np.random.RandomState(1)
     k_total = t_total = 0.0
@@ -366,9 +398,34 @@ def check_roi_align(dev):
         read = roi_read_bytes(rois_t, torch.zeros_like(rois_t[..., 0]), [(h, w)], [1.0 / 16.0],
                               c, feat.element_size())
         b_ms = bound.add(read + nbytes(rois_t, k), k.numel() * ROI_FLOPS)
+        staged = staged_pixels(rois_t, h, w).sum().item() / (16 * 49 * b * r)
         log(f"K2 time {name} bf16: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({read / 1e6:.1f} of the map's {nbytes(feat) / 1e6:.1f} MB lie "
-            f"under a roi)")
+            f"under a roi; the pixels staged are {staged:.4f} of the 16 corner reads a bin)")
+    # other channel counts (256: the FPN width; 1023: one channel a thread) and
+    # rois at the ends of the staging: wider than 28 map columns (no pixel
+    # shared, the most passes) and one pixel wide
+    b, h, w, r, size = 2, 50, 76, 64, 1216.0
+    rois = random_boxes(rng, b, r, size=size)
+    rois[:, :8] = rng.uniform(-400, size + 400, (b, 8, 4))
+    rois[:, 8:12] = [0.0, 0.0, size - 1.0, 799.0]                      # the whole map
+    rois[:, 12:16] = [100.0, 300.0, 1100.0, 340.0]                     # 62 columns, 2 rows
+    rois[:, 16:24, 2:] = rois[:, 16:24, :2] + 1.0                      # one pixel
+    rois[:, 24:28] = 0.0
+    rois_t = torch.from_numpy(rois).to(dev)
+    for c in (1024, 256, 1023):
+        feat32 = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            feat = feat32.to(dtype)
+            k = roi_align_forward(feat, rois_t)
+            t = roi_align_reference(feat, rois_t)
+            torch.cuda.synchronize()
+            err = (k.float() - t.float()).abs().max().item()
+            tol, rule = roi_tolerance(dtype, t.float().abs().max().item())
+            if not err <= tol:
+                raise AssertionError(f"K2 C={c} {dtype}: max abs err {err} > {tol} ({rule})")
+        log(f"K2 C={c} (2 x {h}x{w}, {r} rois; whole-map, 62-column and one-pixel rois), f32 and "
+            f"bf16: within tolerance of the twin (bf16 err {err:.3e} <= {tol:.3e})")
     return {"ms": k_total, "plain_ms": t_total, "max_abs_err": worst, **bound.result()}
 
 
@@ -541,9 +598,9 @@ def check_nms_train(dev):
         if not (torch.equal(ki, ti) and torch.equal(kv, tv)):
             raise AssertionError(f"K1 {name} shape: nms_fixed_batched idx/valid differ from "
                                  "the twin")
+        keep = check_capped_mask(f"{name} (8, {n}, t=0.7)", boxes, 0.7, valid, (20, n + 1, cap))
         k_ms = cuda_ms(lambda: nms_mask_batched(boxes, 0.7, valid, max_keep=cap))
         t_ms = cuda_ms(lambda: nms_mask_reference(boxes, 0.7, valid), iters=3, warmup=1)
-        keep = nms_mask_batched(boxes, 0.7, valid, max_keep=cap)
         bound = Bound()
         bound.add(nbytes(boxes, valid, keep), nms_pairs(keep, valid, cap) * IOU_FLOPS)
         log(f"K1 {name} shape (8, {n}, t=0.7, cap 2000): idx/valid equal to the twin, kept per "
@@ -918,6 +975,7 @@ def check_roi_align_ml(dev):
 
 
 def check_nms_single(dev):
+    from frcnn_tpu_torch.ops.cuda.nms_kernel import nms_mask_batched
     from frcnn_tpu_torch.ops.nms import nms_fixed
 
     rng = np.random.RandomState(11)
@@ -933,10 +991,16 @@ def check_nms_single(dev):
     k_ms = cuda_ms(lambda: nms_fixed(boxes, scores, 0.7, 300, valid=valid))
     t_ms = cuda_ms(lambda: nms_fixed(boxes, scores, 0.7, 300, valid=valid, use_kernels=False),
                    iters=3, warmup=1)
+    # the kernel's launch alone, on the sorted boxes: nms_fixed adds a sort,
+    # gathers and a dozen small ops, which the host enqueues
+    order = torch.argsort(-torch.where(valid, scores, -1e10), stable=True)
+    sboxes, svalid = boxes[order][None].contiguous(), valid[order][None].contiguous()
+    check_capped_mask("one problem (1, 6000, t=0.7)", sboxes, 0.7, svalid, (1, 20, n + 1, 300))
+    m_ms = cuda_ms(lambda: nms_mask_batched(sboxes, 0.7, svalid, max_keep=300))
     log(f"K1b (nms_fixed: K1 at B = 1, 6000 boxes, t=0.7, cap 300): idx/valid equal to the "
-        f"twin, {kv.sum().item()} kept; nms_fixed with the kernel {k_ms:.4f} ms, with the "
-        f"plain twin {t_ms:.4f} ms")
-    return {"ms": k_ms, "plain_ms": t_ms}
+        f"twin, {kv.sum().item()} kept; nms_fixed with the kernel {k_ms:.4f} ms (the kernel's "
+        f"launch alone {m_ms:.4f} ms), with the plain twin {t_ms:.4f} ms")
+    return {"ms": k_ms, "mask_ms": m_ms, "plain_ms": t_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1703,6 +1767,7 @@ def main(argv=None) -> int:
             entry["also_replaces"] = rep2
             if timing:
                 entry["single_problem_ms"] = timing["ms"]
+                entry["single_problem_mask_ms"] = timing["mask_ms"]
                 entry["single_problem_plain_ms"] = timing["plain_ms"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))

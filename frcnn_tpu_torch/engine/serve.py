@@ -1,6 +1,7 @@
 """Single-device serving (``frcnn_tpu/engine/serve.py::Detector`` without
 the mesh): host-side resize + pad into buckets, one ``detect`` call per
-bucket group, detections in original image coordinates.  The detector runs
+bucket group (all dispatched before the first readback), detections in
+original image coordinates.  The detector runs
 on the card (``cuda:0``) unless the caller passes ``device``."""
 
 from __future__ import annotations
@@ -60,10 +61,15 @@ class Detector:
         """images: list of BGR uint8 arrays → list of (k, 6) float32 arrays
         [x1, y1, x2, y2, score, class] in original image coordinates."""
         results = [None] * len(images)
+        # launch every bucket group first, keep its detections on the device,
+        # then read back: the host never waits on one group before it has
+        # handed the device the next
+        pending = []
         for items in self._prep_groups(images).values():
             data = np.stack([blob for _, blob, _ in items])
             im_info = np.asarray([info for _, _, info in items], np.float32)
-            dets, valid = self.detect_blobs(data, im_info)
+            pending.append((items, *self.detect_blobs(data, im_info)))
+        for items, dets, valid in pending:
             dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
             for bi, (i, _, _) in enumerate(items):
                 results[i] = dets[bi][valid[bi]]

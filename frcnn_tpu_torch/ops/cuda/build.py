@@ -35,10 +35,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the extern "C" launchers, the stream last (each returns a
 # cudaError_t).
 _SIGNATURES = {
-    "frcnn_nms_batched": (_P, _P, _I, _I, _F, _I, _P, _P, _P),
-    "frcnn_roi_align_fwd": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P),
+    "frcnn_nms_batched": (_P, _P, _I, _I, _F, _I, _I, _I, _I, _P, _P),
+    "frcnn_roi_align_fwd": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P),
     "frcnn_roi_align_bwd": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P),
-    "frcnn_roi_align_ml_fwd": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "frcnn_roi_align_ml_fwd": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "frcnn_roi_align_ml_bwd": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "frcnn_fused_bottleneck": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P),

@@ -11,9 +11,17 @@ Replaces the TPU kernels ``frcnn_tpu/ops/pallas/roi_align_kernel.py``
 and the per-level FPN backward ``roi_align_level_bwd`` / ``_bwd_kernel_lv``).
 The TPU kernels phrased bilinear sampling as interpolation matmuls for its
 matrix unit; the kernels (``frcnn_tpu_torch/csrc/roi_align_kernel.cu``)
-gather instead: one block per (image, roi, bin), threads over channels of
-the channels-last features.  Bound on the H100: memory traffic (the
-B*R*p*p*C output is written once; corner reads mostly hit L2).
+gather instead.  K2 takes one block per (image, roi, chunk of channels): it
+computes the roi's 2 * p * sr sample geometries once, stages the distinct
+map rows x columns they touch in shared memory with 16-byte copies
+(channels-last: a pixel's chunk is contiguous), pools every bin from there
+and writes 16 bytes of channels a thread.  Bound on the H100: by the count
+memory traffic (the B*R*p*p*C output written once, the pixels under a roi
+read once); in fact the SMs' arithmetic rate (16 corner reads from shared
+memory and 28 multiply-adds an output value, in the order that keeps its
+bits).
+``roi_plan`` is the launch geometry: channels a block, threads, staging
+bytes; ``staged_pixels`` counts the pixels a run's rois stage.
 
 K2b (same source) scatters each bin's gradient to its sample corners with
 f32 atomics, then rounds once to the feature dtype, as the TPU kernel's f32
@@ -23,8 +31,8 @@ vary from run to run: the result is not bit-deterministic.
 K6 (same source) pools every roi from its own pyramid level in one launch
 over all levels, in roi order; the levels' base pointers, sizes and scales
 are launch arguments, so the maps are never concatenated.  It shares K2's
-sample geometry and interpolation code, so on one level the two agree bit
-for bit.
+sample geometry, staging and interpolation code, so on one level the two
+agree bit for bit.
 
 K6b (same source) is K2b's scatter over all levels in one launch: each
 roi's bin gradients go to its own level's slice of one f32 accumulator (one
@@ -77,6 +85,12 @@ def _axis_samples(lo, hi, p: int, sr: int, size: int):
 
 _CHUNK = 64  # rois per step of the twins: bounds their gathered intermediates
 
+STAGE_BYTES = 40 * 1024      # shared memory a forward block stages pixels in
+CHUNK_CHANNELS = 256         # channels of a roi that one block pools
+FORWARD_THREADS = 128
+MAX_SAMPLES = 32             # p * sr an axis, at most
+GEOMETRY_SMEM_BYTES = 4 * MAX_SAMPLES * 8 + 2 * 2 * MAX_SAMPLES * 4 + 8   # RoiGeometry
+
 
 def _acc_dtype(dtype):
     """Accumulation dtype of the twins: f32, or f64 for f64 features."""
@@ -117,11 +131,49 @@ def roi_align_reference(feat, rois, output_size: int = 7,
     return out
 
 
+def roi_plan(c: int, element_size: int, output_size: int = 7, sampling_ratio: int = 2) -> dict:
+    """Launch geometry of the forward kernels (K2, K6) for maps of ``c``
+    channels of ``element_size`` bytes: ``vec`` channels a thread (16 bytes'
+    worth where a pixel's channels are a multiple of 16 bytes, else 1),
+    ``chunk`` channels a block, ``threads`` a block, ``smem_bytes`` of staging
+    buffer: at least ``vec`` channels of the (2 * p * sr)^2 pixels a roi
+    touches at most, so that any roi is served (a roi with many distinct
+    pixels takes its chunk in passes)."""
+    vec = 16 // element_size
+    if c % vec:
+        vec = 1
+    chunk = max(vec, min(c, CHUNK_CHANNELS) // vec * vec)
+    ns = output_size * sampling_ratio
+    if ns > MAX_SAMPLES:
+        raise ValueError(f"roi_align: {ns} samples an axis, the kernel takes {MAX_SAMPLES}")
+    smem = max(STAGE_BYTES, -(-(2 * ns) ** 2 * vec * element_size // 16) * 16)
+    return {"vec": vec, "chunk": chunk, "threads": FORWARD_THREADS, "smem_bytes": smem}
+
+
+def staged_pixels(rois, h: int, w: int, output_size: int = 7,
+                  spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2):
+    """(B, R) int: the pixels the forward kernel stages for each roi, distinct
+    rows x distinct columns touched by its non-empty samples (low and high
+    corner of each).  Against the 16 corner reads of each of the p * p bins
+    this is the staging's saving."""
+    def distinct(low, high, w_lo, w_hi, size):
+        live = ((w_lo != 0) | (w_hi != 0)).float()
+        hits = torch.zeros((*low.shape[:2], size), device=low.device)
+        hits.scatter_reduce_(2, low, live, "amax")
+        hits.scatter_reduce_(2, high, live, "amax")
+        return (hits > 0).sum(-1)
+
+    ys, xs = _geometry(rois, h, w, output_size, sampling_ratio, spatial_scale)
+    return distinct(*ys, h) * distinct(*xs, w)
+
+
 def roi_align_forward(feat, rois, output_size: int = 7,
-                      spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2):
+                      spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2,
+                      plan: dict | None = None):
     """RoIAlign over a batch: feat (B, H, W, C) f32/bf16, rois (B, R, 4) →
     (B, R, p, p, C).  CPU tensors run the plain twin; CUDA tensors launch
-    the kernel (one launch for the whole batch)."""
+    the kernel (one launch for the whole batch) with the geometry of
+    ``roi_plan`` (or ``plan``)."""
     if not feat.is_cuda:
         return roi_align_reference(feat, rois, output_size, spatial_scale,
                                    sampling_ratio)
@@ -134,10 +186,13 @@ def roi_align_forward(feat, rois, output_size: int = 7,
     build.check_cuda("roi_align feat", feat, feat.dtype, (b, h, w, c))
     build.check_cuda("roi_align rois", rois, torch.float32, (b, r, 4))
     p = output_size
+    if plan is None:
+        plan = roi_plan(c, feat.element_size(), p, int(sampling_ratio))
     out = torch.empty((b, r, p, p, c), dtype=feat.dtype, device=feat.device)
     build.launch("frcnn_roi_align_fwd", feat.data_ptr(),
                  int(feat.dtype == torch.bfloat16), rois.data_ptr(), b, h, w, c,
-                 r, p, int(sampling_ratio), float(spatial_scale), out.data_ptr())
+                 r, p, int(sampling_ratio), float(spatial_scale), plan["chunk"],
+                 plan["threads"], plan["smem_bytes"], out.data_ptr())
     build.LAUNCH_COUNTS["roi_align"] += 1
     return out
 
@@ -184,13 +239,15 @@ def roi_align_multilevel_forward(feats, rois, levels, strides, output_size: int 
     build.check_cuda("roi_align_multilevel rois", rois, torch.float32, (b, r, 4))
     build.check_cuda("roi_align_multilevel levels", levels, torch.int32, (b, r))
     p = output_size
+    plan = roi_plan(c, feats[0].element_size(), p, int(sampling_ratio))
     out = torch.empty((b, r, p, p, c), dtype=dtype, device=rois.device)
     ptrs = (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats])
     dims = (ctypes.c_int * (2 * n))(*[s for f in feats for s in f.shape[1:3]])
     scales = (ctypes.c_float * n)(*[1.0 / s for s in strides])
     build.launch("frcnn_roi_align_ml_fwd", ptrs, dims, scales, n,
                  int(dtype == torch.bfloat16), rois.data_ptr(), levels.data_ptr(), b, c, r,
-                 p, int(sampling_ratio), out.data_ptr())
+                 p, int(sampling_ratio), plan["chunk"], plan["threads"], plan["smem_bytes"],
+                 out.data_ptr())
     build.LAUNCH_COUNTS["roi_align_ml"] += 1
     return out
 

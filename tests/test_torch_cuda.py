@@ -15,7 +15,8 @@ from frcnn_tpu_torch.models.backbones import Bottleneck
 from frcnn_tpu_torch.models.fpn import fg_logit_diff
 from frcnn_tpu_torch.ops.cuda import build
 from frcnn_tpu_torch.ops.cuda.fused_block import bottleneck_reference, fused_bottleneck
-from frcnn_tpu_torch.ops.cuda.nms_kernel import nms_mask_batched, nms_mask_reference
+from frcnn_tpu_torch.ops.cuda.nms_kernel import (nms_mask_batched, nms_mask_reference,
+                                                 nms_plan)
 from frcnn_tpu_torch.ops.cuda.overlap_kernel import (anchor_overlap_stats,
                                                      anchor_overlap_stats_reference)
 from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (roi_align_backward,
@@ -25,7 +26,7 @@ from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (roi_align_backward,
                                                        roi_align_multilevel_backward_reference,
                                                        roi_align_multilevel_forward,
                                                        roi_align_multilevel_reference,
-                                                       roi_align_reference)
+                                                       roi_align_reference, roi_plan)
 from frcnn_tpu_torch.ops.cuda.select_kernel import topk_threshold, topk_threshold_reference
 from frcnn_tpu_torch.ops.roi_align import extract_multilevel_features, extract_roi_features
 
@@ -65,6 +66,113 @@ def test_nms_kernel_bit_equal(dev, rng):
     assert build.LAUNCH_COUNTS["nms"] == 2
 
 
+def _nms_problems(rng, case):
+    """(boxes (B, N, 4), valid (B, N)): the chunked kernel's boundary cases."""
+    if case == "ragged_n":                       # N no multiple of 64; problem 1 has no valid box
+        boxes = np.stack([random_boxes(rng, 333) for _ in range(3)])
+        valid = rng.uniform(0, 1, (3, 333)) > 0.2
+        valid[1] = False
+    elif case == "below_one_chunk":
+        boxes = np.stack([random_boxes(rng, 37) for _ in range(2)])
+        valid = rng.uniform(0, 1, (2, 37)) > 0.1
+    elif case == "duplicates_and_grid":          # IoU 1, and IoUs exactly on the threshold
+        boxes = np.stack([random_boxes(rng, 700) for _ in range(2)])
+        boxes[0, 1::3] = boxes[0, 0:-1:3]
+        boxes[1] = np.round(boxes[1] / 8) * 8
+        boxes[1, :4] = [[0, 0, 9, 9], [0, 0, 9, 4], [0, 5, 9, 9], [0, 0, 4, 9]]
+        valid = np.ones((2, 700), bool)
+    elif case == "few_distinct":                 # heavy suppression: a cap of 300 is never reached
+        boxes = np.tile(np.stack([random_boxes(rng, 40) for _ in range(2)]), (1, 50, 1))
+        valid = np.ones((2, 2000), bool)
+    elif case == "invalid_chunk":                # a whole chunk of invalid boxes
+        boxes = np.stack([random_boxes(rng, 256) for _ in range(2)])
+        valid = np.ones((2, 256), bool)
+        valid[:, 64:128] = False
+    else:
+        raise KeyError(case)
+    return boxes.astype(np.float32), valid
+
+
+@pytest.mark.parametrize("case", ["ragged_n", "below_one_chunk", "duplicates_and_grid",
+                                  "few_distinct", "invalid_chunk"])
+def test_nms_kernel_capped_masks_over_plans(dev, rng, case):
+    """With ``max_keep`` the mask is the twin's cut after its first cap kept
+    boxes, for every cluster size and thread count the launcher takes: cap 1,
+    a cap inside the first chunk, one in mid walk, one never reached, none."""
+    boxes, valid = _nms_problems(rng, case)
+    b, n = valid.shape
+    bx, vd = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
+    for thresh in (0.5, 0.7):
+        full = nms_mask_reference(bx, thresh, vd)
+        order = torch.cumsum(full, 1)
+        for cap in (None, 1, 9, 100, 300, n + 5):
+            want = full if cap is None else full & (order <= cap)
+            build.reset_launch_counts()
+            assert torch.equal(nms_mask_batched(bx, thresh, vd, max_keep=cap), want)
+            assert build.LAUNCH_COUNTS["nms"] == 1
+            for cluster in (1, 2, 8, 16):
+                for threads in (64, 1024):
+                    plan = nms_plan(b, n, cap, cluster=cluster, threads=threads)
+                    got = nms_mask_batched(bx, thresh, vd, max_keep=cap, plan=plan)
+                    assert torch.equal(got, want), (case, thresh, cap, plan)
+
+
+def test_nms_launcher_refuses_a_list_too_small(dev, rng):
+    bx = torch.from_numpy(np.stack([random_boxes(rng, 200)])).to(dev)
+    plan = dict(nms_plan(1, 200, 50), slots=10)          # 10 slots for 50 kept boxes
+    with pytest.raises(RuntimeError):
+        nms_mask_batched(bx, 0.7, max_keep=50, plan=plan)
+    plan = dict(nms_plan(1, 200, 50), threads=96)        # not a power of two
+    with pytest.raises(RuntimeError):
+        nms_mask_batched(bx, 0.7, max_keep=50, plan=plan)
+
+
+def _edge_rois(rng, b, r, width, height):
+    rois = np.stack([random_boxes(rng, r, width=width, height=height) for _ in range(b)])
+    rois[:, :4] = rng.uniform(-300, width + 300, (b, 4, 4))      # partly / wholly outside
+    rois[:, 4] = [-900.0, -900.0, -700.0, -800.0]                # wholly outside
+    rois[:, 5, 2:] = rois[:, 5, :2]                              # degenerate
+    rois[:, 6] = 0.0                                             # padding
+    rois[:, 7, 2:] = rois[:, 7, :2] - 30.0                       # inverted corners
+    rois[:, 8] = [8.0, 40.0, width - 8.0, 120.0]                 # wider than 28 columns
+    rois[:, 9, 2:] = rois[:, 9, :2] + 1.0                        # one pixel
+    rois[:, 10] = [0.0, 0.0, width, height]                      # the whole map
+    return rois
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1024, 256, 96, 33, 1023])
+def test_roi_align_staged_kernel_over_plans(dev, rng, c, dtype):
+    """The staged forward at 16 bytes of channels a thread and (odd C) one
+    channel, over channel chunks, threads and staging sizes; a small buffer
+    makes the wide rois take their chunk in several passes."""
+    b, h, w, r = 2, 24, 50, 32
+    feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(dev, dtype)
+    rois = torch.from_numpy(_edge_rois(rng, b, r, w * 16 - 1.0, h * 16 - 1.0)).to(dev)
+    want = roi_align_reference(feat, rois)
+    scale = want.float().abs().max().item()
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(scale)) - 7)
+    base = roi_plan(c, feat.element_size())
+    least = 28 * 28 * base["vec"] * feat.element_size()
+    first = roi_align_forward(feat, rois)
+    assert (first.float() - want.float()).abs().max().item() <= tol
+    assert not first[:, 4].any()
+    for chunk in (base["vec"], 4 * base["vec"], c // base["vec"] * base["vec"]):
+        for threads in (32, 128, 512):
+            for smem in (least, base["smem_bytes"], 100 * 1024):
+                plan = {**base, "chunk": chunk, "threads": threads, "smem_bytes": smem}
+                got = roi_align_forward(feat, rois, plan=plan)
+                assert torch.equal(got, first), plan      # the geometry changes no bit
+
+
+def test_roi_align_launcher_refuses_a_buffer_too_small(dev, rng):
+    feat = torch.from_numpy(rng.randn(1, 8, 8, 64).astype(np.float32)).to(dev)
+    rois = torch.zeros(1, 4, 4, device=dev)
+    plan = dict(roi_plan(64, 4), smem_bytes=4096)        # under 28 x 28 pixels x 16 bytes
+    with pytest.raises(RuntimeError):
+        roi_align_forward(feat, rois, plan=plan)
+
+
 def test_roi_align_kernel_matches_twin(dev, rng):
     feat = torch.from_numpy(rng.randn(2, 20, 30, 96).astype(np.float32)).to(dev)
     rois = np.stack([random_boxes(rng, 40, width=479, height=319) for _ in range(2)])
@@ -85,7 +193,7 @@ def _pyramid(rng, dev, c, dtype):
 @pytest.mark.parametrize("dtype,c", [(torch.float32, 96), (torch.bfloat16, 96),
                                      (torch.float32, 33), (torch.bfloat16, 33)])
 def test_roi_align_multilevel_kernel_matches_twin(dev, rng, dtype, c):
-    """Even C takes two channels a thread, odd C one; a level outside [0, 4)
+    """C = 96 takes 16 bytes of channels a thread, C = 33 one; a level outside [0, 4)
     pools zeros; level 2 is empty."""
     feats, rois = _pyramid(rng, dev, c, dtype)
     levels = torch.from_numpy(rng.choice([0, 1, 3, 4, -1], (2, 50), p=[.3, .3, .3, .05, .05])

@@ -110,3 +110,54 @@ def test_detector_serves_same_results(both):
         for j in range(1, NUM_CLASSES):
             _assert_det_sets_match(w[w[:, 5] == j][:, :5], g[g[:, 5] == j][:, :5],
                                    f"Detector image {i} class {j}")
+
+
+def test_detector_dispatches_every_group_before_reading_back():
+    """A request that mixes landscape and portrait images under the default
+    two buckets: ``Detector.__call__`` calls ``detect_blobs`` for both bucket
+    groups before its first device-to-host read, and serves what the
+    per-group form (detect, read back, next group) serves."""
+    cfg = cfg_from_list(default_config(), [
+        "TEST.RPN_PRE_NMS_TOP_N", "200", "TEST.RPN_POST_NMS_TOP_N", "8",
+        "TEST.SCORE_THRESH", "0.0"])
+    assert cfg.DEVICE.BUCKETS == ((608, 1024), (1024, 608))   # the default two
+    torch.manual_seed(0)
+    det = Detector(build_model("res50", 3, cfg).eval(), device="cpu")
+    rng = np.random.RandomState(7)
+    ims = [rng.randint(0, 255, hw + (3,)).astype(np.uint8) for hw in ((60, 96), (96, 60))]
+    groups = det._prep_groups(ims)
+    assert sorted(groups) == [(608, 1024), (1024, 608)]
+
+    # the per-group form
+    want = [None] * len(ims)
+    for items in groups.values():
+        data = np.stack([blob for _, blob, _ in items])
+        info = np.asarray([i for _, _, i in items], np.float32)
+        dets, valid = det.detect_blobs(data, info)
+        dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+        for bi, (i, _, _) in enumerate(items):
+            want[i] = dets[bi][valid[bi]]
+
+    calls = []
+    plain_detect, plain_cpu = det.detect_blobs, torch.Tensor.cpu
+
+    def detect_blobs(data, im_info):
+        calls.append("detect_blobs")
+        return plain_detect(data, im_info)
+
+    def cpu(tensor, *args, **kwargs):
+        calls.append("read")
+        return plain_cpu(tensor, *args, **kwargs)
+
+    det.detect_blobs = detect_blobs
+    torch.Tensor.cpu = cpu
+    try:
+        got = det(ims)
+    finally:
+        torch.Tensor.cpu = plain_cpu
+        del det.detect_blobs
+    assert calls[:2] == ["detect_blobs"] * 2 and calls.count("detect_blobs") == 2
+    assert calls[2:] and set(calls[2:]) == {"read"}
+    assert sum(len(g) for g in got) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
