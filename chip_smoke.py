@@ -30,7 +30,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      shape (8 x 128 rois, 38x64x1024); K6b (multilevel RoIAlign backward)
      against its twin, f32 and bf16, at the FPN train shape (dOut 8 x 128 x
      7x7x256 over P2-P5 of 608x1024), every level populated and with one
-     level empty, and with every roi on one level against K2b on that level;
+     level empty (exactly zero), and with every roi on one level bit-equal to
+     K2b on that level; each called twice with bit-equal results; both timed
+     under a few tile and chunk plans beside the default;
   7. K4 (anchor-overlap stats) bit-equal to its twin at the train shape
      (21888 anchors, 8 x 64 padded gt);
   8. K5 (threshold top-k) indices equal to its twin at (8, 21888), k 128
@@ -64,14 +66,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
  16. the train path: ``SolverWrapper.train_model`` for 5 steps of batch 8
      at 608x1024, bf16 trunk, over a synthetic in-memory roidb; launch
      counts per step, finite losses, frozen parameters bit-unchanged and
-     trainable ones changed; then the steady-state step time;
+     trainable ones changed; then the steady-state step time and the peak
+     device memory;
  17. one f32 train step on the card and on a CPU copy with the same weights
      and draws: losses and parameter updates matched;
  18. the FPN train path: res50_fpn, the shape, roidb and solver of 16; on
      step 1 every trainable tensor has a non-zero gradient; launch counts
      per step (K3 6, K4 1, K5 3, K1 1, K6 1, K6b 1), finite losses, frozen
      parameters bit-unchanged; then the steady-state step time and the peak
-     device memory;
+     device memory (as in 16, beside the figure of the f32-accumulator
+     backward);
  19. one f32 FPN train step on the card and on a CPU copy, as 17;
  20. (with ``--profile``) CUDA events around each stage of a steady-state
      train step and torch.profiler over 3 steps: stage times, the device's
@@ -79,7 +83,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
  21. (with ``--profile``) the same for a steady-state FPN detect batch,
      into chiprun_out/profile_fpn.json;
  22. (with ``--profile``) the same for a steady-state FPN train step, into
-     chiprun_out/profile_fpn_train.json.
+     chiprun_out/profile_fpn_train.json, with every device kernel of the RoI
+     pool's forward and backward alone (K6b one launch, no memset or
+     rounding kernel).
 Then one JSON line of per-kernel results, the card line, and, last, the
 JSON ok line.  Each kernel's line carries its launches on the four paths,
 its error against the twin, its time, the twin's, the time of the one
@@ -611,6 +617,31 @@ def check_nms_train(dev):
     return merge_results(*parts)
 
 
+# backward plans timed beside the default (tile rows, tile columns, channel chunk)
+BWD_PLANS = ((8, 8, 128), (8, 8, 64), (16, 8, 64), (16, 16, 32))
+
+
+def time_bwd_plans(call, c, element_size):
+    """The kernel's time under each of BWD_PLANS: {"HxW/chunk": ms}."""
+    from frcnn_tpu_torch.ops.cuda.roi_align_kernel import roi_bwd_plan
+
+    out = {}
+    for th, tw, chunk in BWD_PLANS:
+        plan = roi_bwd_plan(c, element_size, tile=(th, tw), chunk=chunk)
+        out[f"{th}x{tw}/{plan['chunk']}"] = cuda_ms(lambda: call(plan))
+    return out
+
+
+def check_twice(name, call):
+    """The kernel called twice on the same inputs gives the same bits."""
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    first, second = (x if isinstance(x, (list, tuple)) else [x] for x in (first, second))
+    if not all(torch.equal(a.view(torch.int8), b.view(torch.int8))
+               for a, b in zip(first, second)):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+
+
 def check_roi_align_bwd(dev):
     from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (roi_align_backward,
                                                            roi_align_backward_reference)
@@ -637,15 +668,20 @@ def check_roi_align_bwd(dev):
         tol, rule = roi_tolerance(dtype, scale)
         if not err <= tol:
             raise AssertionError(f"K2b {dtype}: max abs err {err} > {tol} ({rule})")
+        check_twice(f"K2b {dtype}", lambda: roi_align_backward(g, rois_t, (h, w)))
         log(f"K2b {str(dtype)[6:]} (dOut 8 x 128 x 7x7x1024 -> dF 8 x 38x64x1024): max abs "
-            f"err {err:.3e} <= {tol:.3e} ({rule}, max|twin| {scale:.3f})")
+            f"err {err:.3e} <= {tol:.3e} ({rule}, max|twin| {scale:.3f}); two calls bit-equal")
         out[dtype] = err
     k_ms = cuda_ms(lambda: roi_align_backward(g, rois_t, (h, w)))
     t_ms = cuda_ms(lambda: roi_align_backward_reference(g, rois_t, (h, w)), iters=5)
+    plans = time_bwd_plans(lambda plan: roi_align_backward(g, rois_t, (h, w), plan=plan), c,
+                           g.element_size())
     bound = Bound()
     bound.add(nbytes(g, rois_t, k), g.numel() * ROI_FLOPS)
-    log(f"K2b time bf16: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms, bound {bound.ms:.4f} ms")
-    return {"ms": k_ms, "plain_ms": t_ms, "max_abs_err": out[torch.bfloat16], **bound.result()}
+    log(f"K2b time bf16: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms, bound {bound.ms:.4f} ms; "
+        f"by plan (tile/chunk) {plans}")
+    return {"ms": k_ms, "plain_ms": t_ms, "max_abs_err": out[torch.bfloat16], **bound.result(),
+            "by_plan": plans}
 
 
 def check_roi_align_ml_bwd(dev):
@@ -683,37 +719,42 @@ def check_roi_align_ml_bwd(dev):
                 raise AssertionError(f"K6b {case} {dtype}: max abs err {err} > {tol} ({rule})")
             if case == "level 2 empty" and k[2].any():
                 raise AssertionError(f"K6b {case} {dtype}: the empty level's gradient is not zero")
+            check_twice(f"K6b {case} {dtype}", lambda: roi_align_multilevel_backward(
+                g, rois_t, levels, hws, FPN_STRIDES))
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
             log(f"K6b {case} {str(dtype)[6:]} (dOut 8 x 128 x 7x7x256 -> dF P2-P5 of 608x1024): "
-                f"max abs err {err:.3e} <= {tol:.3e} ({rule}, max|twin| {scale:.3f})")
+                f"max abs err {err:.3e} <= {tol:.3e} ({rule}, max|twin| {scale:.3f}); two calls "
+                "bit-equal")
             del k, t
-    # every roi on P4: K6b and K2b share the geometry and the scatter; the
-    # atomics' order differs, so the two agree within K2b's own tolerance
+    # every roi on P4: K6b and K2b add the same values in the same order
     on_p4 = torch.full_like(every, 2)
     for dtype in (torch.float32, torch.bfloat16):
         g = g32.to(dtype)
         k6b = roi_align_multilevel_backward(g, rois_t, on_p4, hws, FPN_STRIDES)
         k2b = roi_align_backward(g, rois_t, hws[2], 7, 1.0 / FPN_STRIDES[2], 2)
         torch.cuda.synchronize()
-        tol, rule = roi_tolerance(dtype, k2b.float().abs().max().item())
-        err = (k6b[2].float() - k2b.float()).abs().max().item()
-        if not err <= tol or any(k6b[i].any() for i in (0, 1, 3)):
-            raise AssertionError(f"K6b on one level {dtype}: max abs err {err} > {tol} against "
-                                 "K2b, or another level is not zero")
-        log(f"K6b with every roi on P4, {str(dtype)[6:]}: within {err:.3e} <= {tol:.3e} ({rule}) "
-            f"of K2b on P4; P2, P3, P5 all zero")
+        if not torch.equal(k6b[2].view(torch.int8), k2b.view(torch.int8)) or any(
+                k6b[i].any() for i in (0, 1, 3)):
+            raise AssertionError(f"K6b on one level {dtype}: not bit-equal to K2b, or another "
+                                 "level is not zero")
+        log(f"K6b with every roi on P4, {str(dtype)[6:]}: bit-equal to K2b on P4; P2, P3, P5 all "
+            "zero")
         del k6b, k2b
     g = g32.to(torch.bfloat16)
     k_ms = cuda_ms(lambda: roi_align_multilevel_backward(g, rois_t, every, hws, FPN_STRIDES))
     t_ms = cuda_ms(lambda: roi_align_multilevel_backward_reference(g, rois_t, every, hws,
                                                                    FPN_STRIDES), iters=5)
+    plans = time_bwd_plans(lambda plan: roi_align_multilevel_backward(
+        g, rois_t, every, hws, FPN_STRIDES, plan=plan), c, g.element_size())
     bound = Bound()
     out_bytes = sum(b * h * w * c for h, w in hws) * g.element_size()
     bound.add(nbytes(g, rois_t, every) + out_bytes, g.numel() * ROI_FLOPS)
     log(f"K6b time bf16 (every level populated): kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms, "
-        f"bound {bound.ms:.4f} ms ({out_bytes / 1e6:.1f} MB of dF written once)")
-    return {"ms": k_ms, "plain_ms": t_ms, "max_abs_err": worst, **bound.result()}
+        f"bound {bound.ms:.4f} ms ({out_bytes / 1e6:.1f} MB of dF written once); by plan "
+        f"(tile/chunk) {plans}")
+    return {"ms": k_ms, "plain_ms": t_ms, "max_abs_err": worst, **bound.result(),
+            "by_plan": plans}
 
 
 def fpn_train_anchors():
@@ -1277,6 +1318,11 @@ FPN_TRAIN_LAUNCHES = {"fused_block": 6, "overlap": 1, "select": 3, "nms": 1,
                       "roi_align_ml": 1, "roi_align_ml_bwd": 1}
 
 
+# peak device memory of the steady-state train steps (GiB) when K2b and K6b
+# accumulated into an f32 buffer the size of dF (PERF.md §5, H100 80GB HBM3)
+PEAK_WITH_F32_ACCUMULATOR_GIB = {"res50": 2.279, "res50_fpn": 3.427}
+
+
 def synthetic_roidb(rng, shapes, max_boxes=20):
     """In-memory roidb over synthetic images: each entry has 3-max_boxes gt
     boxes, painted as flat rectangles.  Returns (roidb, reader)."""
@@ -1367,7 +1413,9 @@ def train_path(dev, card, net="res50", per_step=TRAIN_LAUNCHES):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"{label} step steady state ({net}, batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, bf16 trunk): "
         f"{ms:.3f} ms per step (median of 10, CUDA events), "
-        f"{TRAIN_B * 1000.0 / ms:.2f} images/s, peak device memory {peak:.3f} GiB on {card}")
+        f"{TRAIN_B * 1000.0 / ms:.2f} images/s, peak device memory {peak:.3f} GiB on {card} "
+        f"({PEAK_WITH_F32_ACCUMULATOR_GIB[net]:.3f} GiB when the RoI backward accumulated into "
+        "an f32 scratch buffer, PERF.md)")
     return counts, solver
 
 
@@ -1618,9 +1666,10 @@ def profile_train_step(solver, card, stage_list=TRAIN_STAGES, name="profile_trai
 def profile_pool_backward(model):
     """Every device kernel of the FPN RoI pool's forward and backward alone
     (``_pool`` on seeded channels-last level maps that require grad, 128 rois
-    an image, a seeded gradient): K6, K6b with its memset and rounding, and
-    whatever autograd adds around them (a copy of a level's gradient would
-    show here) → [(kernel, ms per call, launches per call)]."""
+    an image, a seeded gradient): K6, K6b and whatever autograd adds around
+    them (a copy of a level's gradient would show here) → [(kernel, ms per
+    call, launches per call)].  Fails unless K6b is one launch a call and no
+    memset or rounding kernel runs."""
     dev = next(model.parameters()).device
     g = torch.Generator().manual_seed(13)
     levels = FPN_TRAIN_LEVELS + ((10, 16),)
@@ -1641,6 +1690,11 @@ def profile_pool_backward(model):
                                           for p in pyramid[:4]):
         raise AssertionError("FPN pool backward: P2-P5 must get a gradient of their shape, P6 none")
     _, kernels = device_profile(call)
+    backward = [(name, n) for name, _, n in kernels if "roi_align_bwd" in name]
+    extra = [name for name, _, _ in kernels if "emset" in name or "bf16_kernel" in name]
+    if [n for _, n in backward] != [1.0] or extra:
+        raise AssertionError(f"FPN pool backward: want one K6b launch and no memset or rounding "
+                             f"kernel, got {backward}, {extra}")
     return kernels
 
 

@@ -55,34 +55,43 @@
 // zeros.  What bounds it: as K2 (60 MB written in bf16 at 8 x 300 rois x 49
 // bins x 256).
 //
-// K2b, the backward (dF only; rois get no gradient, as in the TPU kernel):
-// one block per (image, roi, bin); the bin's sample geometry is computed once
-// per block into shared memory (bin_geometry, the arithmetic roi_geometry
-// repeats) and the threads run over channels, each scattering its share of a
-// bin's gradient to the 4 * sr^2 sample corners with f32 atomicAdd into a
-// zeroed f32 buffer; a second pass rounds it once to the feature dtype, as
-// the TPU kernel's f32 scratch accumulator does.  The order of the atomic
-// adds varies from run to run, so the result is not bit-deterministic.
-// What bounds it on the H100: the atomics - 16 reductions per channel per
-// bin (822 million at 8 x 128 rois x 49 bins x 1024), served by L2; where C
-// is even a thread takes two adjacent channels and adds them with one
-// float2 atomic (two scalar atomics a thread took 1.79 ms against 0.91 at
-// that shape, and 1.08 against 0.74 for K6b, on an H100 at 700 W).
-//
-// K6b, the FPN backward (dF of every level; rois and levels get none): K2b's
-// scatter over all pyramid levels in ONE launch.  Each block reads its roi's
-// level and scatters into that level's slice of one f32 accumulator (the
-// levels laid end to end, cleared by one memset); a roi whose level is
-// outside [0, L) contributes nothing, as K6 pools zeros there.  One pass then
-// rounds the whole accumulator to the feature dtype.  The TPU kernel sorted
-// rois by level, launched once per level and ran dense interpolation matmuls
-// into a VMEM accumulator; none of that is needed here.  It shares
-// bin_geometry and scatter_channels with K2b, so on one level the two add
-// the same values (their order differs: not bit-deterministic either).
-// What bounds it on the H100: memory traffic, and not the scatter's - the
-// accumulator of P2-P5 at 8 x 608x1024 x 256 is 424 MB of f32 that is
-// cleared, read back and rounded to 212 MB of bf16, against 26 MB of
-// gradient read; the least the card must move is the 212 MB written once.
+// K2b, the backward (dF only; rois get no gradient, as in the TPU kernel),
+// and K6b, the FPN backward (dF of every level; rois and levels get none):
+// ONE kernel, the gather form of the adjoint.  The TPU kernel kept its output
+// block resident in VMEM and ran the roi tiles as the inner, sequential grid
+// axis; here a loop inside the block takes the place of that axis.  A block
+// owns a tile of dF (tile_h x tile_w pixels of one level of one image, a
+// chunk of channels) and walks the image's rois in index order, keeping
+// those on its level that may reach the tile (a division-free test; a
+// ballot compacts the list).  Its threads hold the tile's f32 sums in
+// registers, each thread V channels (16 bytes of dOut where C allows, else
+// one) of up to kBackwardPairs pixels.  A round computes the samples of the
+// next kept rois (roi_sample, the forward's arithmetic, so the weights keep
+// their bits), per tile row and bin row the sum of the weights of the bin
+// row's samples whose low or high index is that row (Ay), the same per
+// column (Ax), a bit mask of the bins that reach each row and column, and
+// stages with cp.async the rectangle of dOut bins that reach the tile for as
+// many rois as the stage holds; then each thread adds Ay * (sum over the bin
+// columns of Ax * dOut) over the bins that reach its pixel: contract x, then
+// y, as the TPU kernel's two matmuls do.  No two threads share a sum, so
+// there is no atomic; the order of the adds (roi, bin row, bin column) is
+// fixed, so dF is bit-deterministic, and no tile, chunk or round changes it,
+// so K6b with every roi on one level equals K2b there bit for bit.  After
+// the last roi each thread scales its sums by 1 / sr^2 and rounds them once
+// to the dF dtype with 16-byte stores; a tile that no roi reaches writes
+// zeros.  Nothing is allocated but dF: no f32 scratch, no memset, no rounding
+// pass.  K6b runs the tiles of every level in one launch, the coarsest
+// level's first (each level's size, scale, tiles and output pointer in a
+// struct passed by value; the levels' dF lie end to end in one buffer); a
+// roi whose level is outside [0, L) adds nothing.
+// What bounds it on the H100: by the count, memory traffic - dF written once
+// (50 MB in bf16 for K2b at 8 x 38x64x1024, 212 MB for K6b over P2-P5 of
+// 608x1024 x 256) and dOut read once (103 MB and 26 MB).  In fact the
+// latency of a round (four barriers, the samples' divisions, a cp.async
+// round trip) times the rounds of the busiest tiles: a tile that many small
+// rois reach takes one round for every few of them.  roi_bwd_plan
+// (ops/cuda/roi_align_kernel.py) gives the tile, the chunk, the threads, the
+// kept rois whose geometry a block holds and the bins a round stages.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,6 +103,12 @@ namespace {
 constexpr int kMaxSr = 8;
 constexpr int kMaxLevels = 8;
 constexpr int kMaxForwardThreads = 512;
+constexpr int kMaxBackwardThreads = 256;
+constexpr int kBackwardPairs = 4;    // (pixel, V channels) sums a backward thread holds
+// Blocks of kMaxBackwardThreads the backward kernel is compiled to fit on an
+// SM (at most 64 registers a thread): with the compiler's own choice (104
+// for bf16) two fit, and the rounds' latency is hidden half as well.
+constexpr int kBackwardBlocksPerSM = 4;
 constexpr int kMaxSamples = 32;   // p * sr, the samples of a roi along one axis (forward)
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -155,13 +170,8 @@ __device__ __forceinline__ void store_v(__nv_bfloat16* p, const float* v) {
   }
 }
 
-// The sr x sr sample geometry of one bin, per axis: low/high index and their
-// weights (both zero for an empty sample).
-struct BinGeometry {
-  int y_lo[kMaxSr], y_hi[kMaxSr], x_lo[kMaxSr], x_hi[kMaxSr];
-  float wy_lo[kMaxSr], wy_hi[kMaxSr], wx_lo[kMaxSr], wx_hi[kMaxSr];
-};
-
+// One sample of one axis: its low/high index and their weights (both zero
+// for an empty sample).
 __device__ __forceinline__ void sample_axis(float lo, float bin, int k, int sr,
                                             int size, int* i_lo, int* i_hi,
                                             float* w_lo, float* w_hi) {
@@ -180,25 +190,6 @@ __device__ __forceinline__ void sample_axis(float lo, float bin, int k, int sr,
   *w_hi = frac;
 }
 
-// Thread t < 2 * sr of a block fills sample t of bin (py, px) of the roi
-// (x1, y1, x2, y2 in image coordinates) on an h x w map: x samples for
-// t < sr, y samples for the rest.
-__device__ __forceinline__ void bin_geometry(const float* roi, float scale, int p,
-                                             int sr, int py, int px, int h, int w,
-                                             int t, BinGeometry* g) {
-  const bool is_y = t >= sr;
-  const int s = is_y ? t - sr : t;
-  const float lo = __fmul_rn(roi[is_y ? 1 : 0], scale);
-  const float hi = __fmul_rn(roi[is_y ? 3 : 2], scale);
-  const float bin_sz = __fdiv_rn(fmaxf(__fsub_rn(hi, lo), 1.0f), (float)p);
-  const int k = (is_y ? py : px) * sr + s;
-  if (is_y) {
-    sample_axis(lo, bin_sz, k, sr, h, &g->y_lo[s], &g->y_hi[s], &g->wy_lo[s], &g->wy_hi[s]);
-  } else {
-    sample_axis(lo, bin_sz, k, sr, w, &g->x_lo[s], &g->x_hi[s], &g->wx_lo[s], &g->wx_hi[s]);
-  }
-}
-
 // The sample geometry of a whole roi, per axis, for the forward kernels: for
 // each of the p * sr samples the (low, high) index pair and their weights
 // (both zero for an empty sample).  After roi_stage_list the indices are
@@ -211,7 +202,8 @@ struct RoiGeometry {
   int n_rows, n_cols;
 };
 
-// Sample k of one axis of the roi (bin_geometry's arithmetic): y for is_y.
+// Sample k of one axis of the roi (sample_axis after the roi's scaled edges
+// and bin size): y for is_y.
 __device__ __forceinline__ void roi_sample(const float* roi, float scale, int p, int sr,
                                            int size, bool is_y, int k, int2* idx, float2* wgt) {
   const float lo = __fmul_rn(roi[is_y ? 1 : 0], scale);
@@ -503,142 +495,289 @@ __global__ void __launch_bounds__(kMaxForwardThreads) roi_align_ml_fwd_kernel(Le
                      reinterpret_cast<T*>(stage_raw), stage_elems);
 }
 
-// Adds v[j] * wgt to V adjacent f32 values at a V-aligned address: one float2
-// atomic for V = 2 (sm_90), one scalar atomic for V = 1.
-template <int V>
-__device__ __forceinline__ void atomic_add_v(float* p, const float* v, float wgt) {
-  if constexpr (V == 2) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0] * wgt, v[1] * wgt));
-  } else {
-    atomicAdd(p, v[0] * wgt);
-  }
-}
-
-// One bin's gradient gd (c channels) scattered to its 4 * sr^2 sample corners
-// of the channels-last f32 (h, w, c) accumulator df: the adjoint of
-// pool_bin.  Empty samples (both weights zero) and zero gradients add
-// nothing.
-template <int V, typename T>
-__device__ __forceinline__ void scatter_channels(const T* gd, float* df, int w, int c,
-                                                 int sr, const BinGeometry& g) {
-  const float inv_count = 1.0f / (float)(sr * sr);
-  for (int ch = (int)threadIdx.x * V; ch < c; ch += (int)blockDim.x * V) {
-    float gv[V];
-    load_v<V>(gd + ch, gv);
-    bool any = false;
-    for (int j = 0; j < V; ++j) {
-      gv[j] *= inv_count;
-      any = any || gv[j] != 0.0f;
-    }
-    if (!any) continue;
-    for (int iy = 0; iy < sr; ++iy) {
-      if (g.wy_lo[iy] == 0.0f && g.wy_hi[iy] == 0.0f) continue;  // empty sample
-      float* row_lo = df + (size_t)g.y_lo[iy] * w * c + ch;
-      float* row_hi = df + (size_t)g.y_hi[iy] * w * c + ch;
-      float gy_lo[V], gy_hi[V];
-      for (int j = 0; j < V; ++j) {
-        gy_lo[j] = gv[j] * g.wy_lo[iy];
-        gy_hi[j] = gv[j] * g.wy_hi[iy];
-      }
-      for (int ix = 0; ix < sr; ++ix) {
-        if (g.wx_lo[ix] == 0.0f && g.wx_hi[ix] == 0.0f) continue;
-        const size_t xl = (size_t)g.x_lo[ix] * c, xh = (size_t)g.x_hi[ix] * c;
-        atomic_add_v<V>(row_lo + xl, gy_lo, g.wx_lo[ix]);
-        atomic_add_v<V>(row_lo + xh, gy_lo, g.wx_hi[ix]);
-        atomic_add_v<V>(row_hi + xl, gy_hi, g.wx_lo[ix]);
-        atomic_add_v<V>(row_hi + xh, gy_hi, g.wx_hi[ix]);
-      }
-    }
-  }
-}
-
-template <typename T, int V>
-__global__ void roi_align_bwd_kernel(const T* __restrict__ dout,
-                                     const float* __restrict__ rois, int h,
-                                     int w, int c, int r, int p, int sr,
-                                     float scale, float* __restrict__ dfeat) {
-  const int bin = blockIdx.x;
-  const int ri = blockIdx.y;
-  const int bi = blockIdx.z;
-  const size_t roi = (size_t)bi * r + ri;
-  __shared__ BinGeometry g;
-  if ((int)threadIdx.x < 2 * sr) {
-    bin_geometry(rois + roi * 4, scale, p, sr, bin / p, bin % p, h, w, threadIdx.x, &g);
-  }
-  __syncthreads();
-  scatter_channels<V>(dout + (roi * p * p + bin) * c, dfeat + (size_t)bi * h * w * c, w, c,
-                      sr, g);
-}
-
-// The pyramid levels of K6b: per level the f32 accumulator of its
-// (B, H, W, C) gradient, its size and its spatial scale.
-struct LevelGrads {
-  float* acc[kMaxLevels];
+// The dF tiles of K2b / K6b: per level (one for K2b) its (B, H, W, C)
+// gradient, its size and spatial scale, its tiles across and in all (per
+// image), and the first block of its tiles: the blocks run the coarsest
+// level's tiles of every image first, then the next finer level's, so the
+// tiles that most rois reach start early.
+struct GradLevels {
+  void* grad[kMaxLevels];
   int h[kMaxLevels];
   int w[kMaxLevels];
   float scale[kMaxLevels];
+  int tiles_w[kMaxLevels];
+  int tiles[kMaxLevels];
+  int first[kMaxLevels];
   int n;
 };
 
+// Byte offsets of the backward block's shared memory, each region 16-byte
+// aligned: the staged dOut bins (stage_bins x chunk values of the gradient
+// dtype, from offset 0); for a batch of kept rois their samples (index pair,
+// weight pair), the weight of
+// each bin row on each tile row and of each bin column on each tile column,
+// the bins with a non-zero weight there (a bit mask), and the rectangle of
+// bins each roi stages (first bin row and column, width, first slot); then
+// the kept roi list (indices, then coordinates), one count a warp, and the
+// rois and slots a round stages.
+// roi_bwd_smem_bytes (ops/cuda/roi_align_kernel.py) repeats it.
+struct BwdLayout {
+  long long samples_idx, samples_w, weights, masks, rects, kept, kept_roi, counts, total;
+};
+
+__host__ __device__ inline long long align16(long long n) { return (n + 15) / 16 * 16; }
+
+__host__ __device__ inline BwdLayout bwd_layout(int elem_bytes, int tile_h, int tile_w, int chunk,
+                                                int p, int sr, int batch, int stage_bins,
+                                                int threads) {
+  const long long ns = (long long)p * sr, edge = tile_h + tile_w;
+  BwdLayout l;
+  l.samples_idx = align16((long long)stage_bins * chunk * elem_bytes);   // the stage from 0
+  l.samples_w = l.samples_idx + align16(batch * 2 * ns * 8);
+  l.weights = l.samples_w + align16(batch * 2 * ns * 8);
+  l.masks = l.weights + align16(batch * edge * p * 4);
+  l.rects = l.masks + align16(batch * edge * 4);
+  l.kept = l.rects + align16((long long)batch * 16);
+  l.kept_roi = l.kept + align16((long long)threads * 4);
+  l.counts = l.kept_roi + (long long)threads * 16;
+  l.total = l.counts + align16(34 * 4);
+  return l;
+}
+
+// Whether the samples of one axis of the roi may touch an index in
+// [lo_b, hi_b], without a division: every sample coordinate lies within
+// (lo, lo + max(hi - lo, 1)), a live one within [-1, size], and its two
+// indices within one of its floor.  A margin of one index each way covers
+// the rounding; a roi is kept too often, never too rarely.
+__device__ __forceinline__ bool roi_axis_may_touch(const float* roi, float scale, int size,
+                                                   bool is_y, int lo_b, int hi_b) {
+  const float lo = __fmul_rn(roi[is_y ? 1 : 0], scale);
+  const float hi = __fmul_rn(roi[is_y ? 3 : 2], scale);
+  const float end = __fadd_rn(lo, fmaxf(__fsub_rn(hi, lo), 1.0f));
+  if (!(end >= -2.0f && lo <= (float)size + 1.0f)) return false;
+  const float a = fminf(fmaxf(lo, -1.0f), (float)size);
+  const float e = fminf(fmaxf(end, -1.0f), (float)size);
+  return (int)floorf(a) - 1 <= hi_b && (int)floorf(e) + 2 >= lo_b;
+}
+
+// K2b and K6b: one block owns a tile_h x tile_w tile of one level's dF for
+// one image and `chunk` channels (blockIdx: x the level, image and tile, as
+// GradLevels orders them, y the chunk).  It walks the image's rois in index
+// order and keeps those on its level that may touch the tile (a ballot
+// compacts the list and their coordinates).  Then, a round at a time, it
+// computes for the next kept rois (up to `batch` computed and not yet
+// staged) the samples
+// (roi_sample), per tile row and bin row Ay = the sum of the weights of the
+// bin row's samples whose low or high index is that row (in sample order,
+// low before high), the same Ax per tile column and bin column, and a mask of
+// the bins with a non-zero weight on each row and column; it stages with
+// 16-byte cp.async the rectangle of dOut bins that reach the tile, for as
+// many of those rois as `stage_bins` holds (at least one: a roi has p * p
+// bins); and each thread adds, for each of its (pixel, V channels) pairs and
+// every staged roi, Ay * (the sum over bin columns of Ax * dOut) over the
+// bins that reach the pixel into that pair's f32 sums, in its registers.
+// The order (roi, bin row, bin column) is fixed and no tile, chunk or round
+// changes it.  The sums are scaled by 1 / sr^2 and rounded once into dF; a
+// tile that no roi touches writes zeros.
 template <typename T, int V>
-__global__ void roi_align_ml_bwd_kernel(LevelGrads lv, const T* __restrict__ dout,
-                                        const float* __restrict__ rois,
-                                        const int* __restrict__ levels, int c, int r,
-                                        int p, int sr) {
-  const int bin = blockIdx.x;
-  const int ri = blockIdx.y;
-  const int bi = blockIdx.z;
-  const size_t roi = (size_t)bi * r + ri;
-  const int l = levels[roi];
-  if (l < 0 || l >= lv.n) return;  // the whole block leaves: no barrier is skipped
+__global__ void __launch_bounds__(kMaxBackwardThreads, kBackwardBlocksPerSM)
+roi_align_bwd_tile_kernel(GradLevels lv, const T* __restrict__ dout,
+                          const float* __restrict__ rois, const int* __restrict__ levels, int c,
+                          int r, int p, int sr, int tile_h, int tile_w, int chunk, int batch,
+                          int stage_bins) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x, nthreads = blockDim.x;
+  const BwdLayout lay = bwd_layout(sizeof(T), tile_h, tile_w, chunk, p, sr, batch, stage_bins,
+                                   nthreads);
+  T* stage = reinterpret_cast<T*>(smem);
+  int2* s_idx = reinterpret_cast<int2*>(smem + lay.samples_idx);
+  float2* s_w = reinterpret_cast<float2*>(smem + lay.samples_w);
+  float* wts = reinterpret_cast<float*>(smem + lay.weights);
+  unsigned* masks = reinterpret_cast<unsigned*>(smem + lay.masks);
+  int4* rects = reinterpret_cast<int4*>(smem + lay.rects);
+  int* kept = reinterpret_cast<int*>(smem + lay.kept);
+  float4* kept_roi = reinterpret_cast<float4*>(smem + lay.kept_roi);
+  int* counts = reinterpret_cast<int*>(smem + lay.counts);   // 32 warp counts, the round's rois
+
+  int l = lv.n - 1;
+  while (l > 0 && (int)blockIdx.x >= lv.first[l - 1]) --l;
   const int h = lv.h[l], w = lv.w[l];
-  __shared__ BinGeometry g;
-  if ((int)threadIdx.x < 2 * sr) {
-    bin_geometry(rois + roi * 4, lv.scale[l], p, sr, bin / p, bin % p, h, w, threadIdx.x, &g);
+  const int bi = ((int)blockIdx.x - lv.first[l]) / lv.tiles[l];
+  const int tile = (int)blockIdx.x - lv.first[l] - bi * lv.tiles[l];
+  const int y0 = tile / lv.tiles_w[l] * tile_h, x0 = tile % lv.tiles_w[l] * tile_w;
+  const int th = min(tile_h, h - y0), tw = min(tile_w, w - x0);
+  const int c0 = blockIdx.y * chunk, groups = min(chunk, c - c0) / V;
+  const float scale = lv.scale[l];
+  const int ns = p * sr, edge = tile_h + tile_w, pairs = tile_h * tile_w * groups;
+  const float* img_rois = rois + (size_t)bi * r * 4;
+  const T* img_dout = dout + (size_t)bi * r * p * p * c + c0;
+
+  // the f32 sums of this thread's (pixel, V channels) pairs t + k * nthreads
+  float a[kBackwardPairs][V];
+#pragma unroll
+  for (int k = 0; k < kBackwardPairs; ++k) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) a[k][j] = 0.0f;
   }
-  __syncthreads();
-  scatter_channels<V>(dout + (roi * p * p + bin) * c, lv.acc[l] + (size_t)bi * h * w * c, w, c,
-                      sr, g);
+  for (int base = 0; base < r; base += nthreads) {
+    const int ri = base + t;
+    bool keep = false;
+    float4 roi = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (ri < r && (levels == nullptr || levels[(size_t)bi * r + ri] == l)) {
+      roi = *reinterpret_cast<const float4*>(img_rois + (size_t)ri * 4);
+      const float e[4] = {roi.x, roi.y, roi.z, roi.w};
+      keep = roi_axis_may_touch(e, scale, h, true, y0, y0 + th - 1) &&
+             roi_axis_may_touch(e, scale, w, false, x0, x0 + tw - 1);
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, keep);
+    if ((t & 31) == 0) counts[t >> 5] = __popc(m);
+    __syncthreads();
+    int before = 0, nk = 0;
+    for (int i = 0; i < nthreads / 32; ++i) {
+      before += i < (t >> 5) ? counts[i] : 0;
+      nk += counts[i];
+    }
+    if (keep) {
+      const int at = before + __popc(m & ((1u << (t & 31)) - 1u));
+      kept[at] = ri;
+      kept_roi[at] = roi;
+    }
+    __syncthreads();
+    // kept roi k keeps its geometry in slot k % batch from the round that
+    // computes it until the round that stages it: each is computed once
+    for (int k0 = 0, k_done = 0; k0 < nk;) {
+      const int k_end = min(k0 + batch, nk), nb = k_end - k0, fresh = k_end - k_done;
+      for (int e = t; e < fresh * 2 * ns; e += nthreads) {   // the samples, x then y
+        const int kk = k_done + e / (2 * ns), s = e % (2 * ns), at = kk % batch * 2 * ns + s;
+        const bool is_y = s >= ns;
+        roi_sample(reinterpret_cast<const float*>(&kept_roi[kk]), scale, p, sr, is_y ? h : w,
+                   is_y, is_y ? s - ns : s, &s_idx[at], &s_w[at]);
+      }
+      __syncthreads();
+      for (int e = t; e < fresh * edge; e += nthreads) {  // rows, then columns, of each roi
+        const int slot = (k_done + e / edge) % batch, i = e % edge;
+        const bool is_y = i < tile_h;
+        const int at = is_y ? y0 + i : x0 + i - tile_h;
+        const int s0 = slot * 2 * ns + (is_y ? ns : 0), row = slot * edge + i;
+        unsigned mask = 0;
+        for (int pb = 0; pb < p; ++pb) {
+          float wsum = 0.0f;
+          for (int s = s0 + pb * sr; s < s0 + (pb + 1) * sr; ++s) {
+            if (s_idx[s].x == at) wsum = __fadd_rn(wsum, s_w[s].x);
+            if (s_idx[s].y == at) wsum = __fadd_rn(wsum, s_w[s].y);
+          }
+          wts[row * p + pb] = wsum;
+          if (wsum != 0.0f) mask |= 1u << pb;
+        }
+        masks[row] = mask;
+      }
+      k_done = k_end;
+      __syncthreads();
+      if (t < 32) {                                  // each roi's rectangle of bins
+        unsigned ym = 0, xm = 0;
+        if (t < nb) {
+          const unsigned* mk = masks + (k0 + t) % batch * edge;
+          for (int i = 0; i < tile_h; ++i) ym |= mk[i];
+          for (int i = tile_h; i < edge; ++i) xm |= mk[i];
+        }
+        const bool any = ym != 0 && xm != 0;
+        const int py0 = any ? __ffs(ym) - 1 : 0, px0 = any ? __ffs(xm) - 1 : 0;
+        const int pw = any ? 32 - __clz(xm) - px0 : 0;
+        const int area = any ? (32 - __clz(ym) - py0) * pw : 0;
+        int incl = area;                             // the slots up to and with this roi
+        for (int d = 1; d < 32; d <<= 1) {
+          const int o = __shfl_up_sync(0xffffffffu, incl, d);
+          if (t >= d) incl += o;
+        }
+        // incl grows with t, so the rois that fit are a prefix; the first
+        // always fits (stage_bins >= p * p)
+        const int n_staged = __popc(__ballot_sync(0xffffffffu, t < nb && incl <= stage_bins));
+        const int slots = __shfl_sync(0xffffffffu, incl, n_staged - 1);
+        if (t < nb) rects[t] = make_int4(py0, px0, pw, incl - area);
+        if (t == 0) {
+          counts[32] = n_staged;
+          counts[33] = slots;
+        }
+      }
+      __syncthreads();
+      const int n_staged = counts[32], slots = counts[33];
+      for (int e = t; e < slots * groups; e += nthreads) {   // stage the bins
+        const int slot = e / groups, q = e - slot * groups;
+        int kk = 0;
+        while (kk + 1 < n_staged && rects[kk + 1].w <= slot) ++kk;
+        const int4 rc = rects[kk];
+        const int i = slot - rc.w, py = rc.x + i / rc.z, px = rc.y + i % rc.z;
+        const T* src = img_dout + ((size_t)kept[k0 + kk] * p * p + py * p + px) * c + q * V;
+        T* dst = stage + (size_t)slot * chunk + q * V;
+        if constexpr (V * sizeof(T) == 16) {
+          cp_async16(dst, src);
+        } else {
+          for (int j = 0; j < V; ++j) dst[j] = src[j];
+        }
+      }
+      if constexpr (V * sizeof(T) == 16) cp_async_wait_all();
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kBackwardPairs; ++k) {
+        const int i = t + k * nthreads, pix = i / groups, q = i - pix * groups;
+        const int y = pix / tile_w, x = pix - y * tile_w;
+        if (i >= pairs || y >= th || x >= tw) continue;
+        for (int kk = 0; kk < n_staged; ++kk) {
+          const int row = (k0 + kk) % batch * edge;
+          const unsigned my = masks[row + y], mx = masks[row + tile_h + x];
+          if (my == 0 || mx == 0) continue;
+          const int4 rc = rects[kk];                 // (py0, px0, width, first slot)
+          const T* d = stage + q * V;
+          const float* wy = wts + (row + y) * p;
+          const float* wx = wts + (row + tile_h + x) * p;
+          for (unsigned ym = my; ym; ym &= ym - 1) {
+            const int py = __ffs(ym) - 1;
+            float rowsum[V];
+#pragma unroll
+            for (int j = 0; j < V; ++j) rowsum[j] = 0.0f;
+            for (unsigned xm = mx; xm; xm &= xm - 1) {
+              const int px = __ffs(xm) - 1;
+              float dv[V];
+              load_v<V>(d + (rc.w + (py - rc.x) * rc.z + px - rc.y) * chunk, dv);
+#pragma unroll
+              for (int j = 0; j < V; ++j) {
+                rowsum[j] = __fadd_rn(rowsum[j], __fmul_rn(wx[px], dv[j]));
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < V; ++j) a[k][j] = __fadd_rn(a[k][j], __fmul_rn(wy[py], rowsum[j]));
+          }
+        }
+      }
+      __syncthreads();                               // geometry and stage are refilled
+      k0 += n_staged;
+    }
+  }
+  const float inv_count = __fdiv_rn(1.0f, (float)(sr * sr));
+  T* out = static_cast<T*>(lv.grad[l]) + (size_t)bi * h * w * c + c0;
+#pragma unroll
+  for (int k = 0; k < kBackwardPairs; ++k) {
+    const int i = t + k * nthreads, pix = i / groups, q = i - pix * groups;
+    const int y = pix / tile_w, x = pix - y * tile_w;
+    if (i >= pairs || y >= th || x >= tw) continue;
+#pragma unroll
+    for (int j = 0; j < V; ++j) a[k][j] = __fmul_rn(a[k][j], inv_count);
+    store_v<V>(out + ((size_t)(y0 + y) * w + x0 + x) * c + q * V, a[k]);
+  }
 }
 
-__global__ void f32_to_bf16_kernel(const float* __restrict__ src, size_t n,
-                                   __nv_bfloat16* __restrict__ dst) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    dst[i] = __float2bfloat16_rn(src[i]);
-  }
-}
-
-// Calls launch(T*, std::integral_constant<int, V>, threads) for the gradient
-// dtype T and V, the channels a thread (2 where C is even: bf16x2 / float2
-// loads, float2 atomics); threads: one per V channels, whole warps, at most
-// 256.
-template <typename Launch>
-void dispatch_bwd(int is_bf16, int c, Launch&& launch) {
-  const auto go = [&](auto* tag, auto v) {
-    launch(tag, v, min(256, ((c + v.value - 1) / v.value + 31) / 32 * 32));
-  };
-  if (is_bf16) {
-    if (c % 2 == 0) go((__nv_bfloat16*)nullptr, std::integral_constant<int, 2>());
-    else go((__nv_bfloat16*)nullptr, std::integral_constant<int, 1>());
-  } else {
-    if (c % 2 == 0) go((float*)nullptr, std::integral_constant<int, 2>());
-    else go((float*)nullptr, std::integral_constant<int, 1>());
-  }
-}
-
-// The forward kernels' V: 16 bytes of channels a thread (8 bf16, 4 f32), in
-// the staging copies, the pooling and the stores, where a pixel's C channels
-// are a multiple of 16 bytes; else one channel.
+// The RoIAlign kernels' V: 16 bytes of channels a thread (8 bf16, 4 f32), in
+// the staging copies, the pooling or adds and the stores, where a pixel's C
+// channels are a multiple of 16 bytes; else one channel.
 int forward_vec(int is_bf16, int c) {
   const int per16 = is_bf16 ? 8 : 4;
   return c % per16 == 0 ? per16 : 1;
 }
 
-// Calls launch(T*, std::integral_constant<int, V>) for the feature dtype T
-// and the forward kernels' V.
+// Calls launch(T*, std::integral_constant<int, V>) for the feature or
+// gradient dtype T and the kernels' V.
 template <typename Launch>
-void dispatch_fwd(int is_bf16, int c, Launch&& launch) {
+void dispatch_vec(int is_bf16, int c, Launch&& launch) {
   const bool vec = forward_vec(is_bf16, c) > 1;
   if (is_bf16) {
     if (vec) launch((__nv_bfloat16*)nullptr, std::integral_constant<int, 8>());
@@ -669,13 +808,57 @@ cudaError_t allow_smem(Kernel kernel, int smem_bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
-// Rounds the n f32 values of src to bf16 into dst, on stream.
-cudaError_t round_to_bf16(const float* src, size_t n, void* dst, cudaStream_t stream) {
-  size_t blocks = (n + 255) / 256;
-  if (blocks > ((size_t)1 << 20)) blocks = (size_t)1 << 20;
-  f32_to_bf16_kernel<<<(unsigned)blocks, 256, 0, stream>>>(
-      src, n, static_cast<__nv_bfloat16*>(dst));
-  return cudaGetLastError();
+// The backward launch geometry the caller chose (roi_bwd_plan): the tile, the
+// channel chunk, the threads, the kept rois a round's geometry holds (one
+// warp's worth at most), the dOut bins a round stages (a whole roi's at
+// least), and the shared memory, which must be bwd_layout's.
+bool backward_plan_ok(int is_bf16, int c, int p, int sr, int tile_h, int tile_w, int chunk,
+                      int threads, int batch, int stage_bins, int smem_bytes) {
+  const int v = forward_vec(is_bf16, c);
+  return p * sr <= kMaxSamples && tile_h >= 1 && tile_w >= 1 && tile_h + tile_w <= 256 &&
+         chunk >= v && chunk % v == 0 && threads >= 32 && threads <= kMaxBackwardThreads &&
+         threads % 32 == 0 && tile_h * tile_w * (chunk / v) <= kBackwardPairs * threads &&
+         batch >= 1 && batch <= 32 && stage_bins >= p * p &&
+         (c + chunk - 1) / chunk <= 65535 && smem_bytes <= 232448 &&
+         smem_bytes == bwd_layout(is_bf16 ? 2 : 4, tile_h, tile_w, chunk, p, sr, batch,
+                                  stage_bins, threads).total;
+}
+
+// One launch of roi_align_bwd_tile_kernel over every tile of the levels in
+// lv (grad, h, w and scale filled in); levels is null for one level.
+int launch_backward(GradLevels& lv, const void* dout, int is_bf16, const float* rois,
+                    const int* levels, int b, int c, int r, int p, int sr, int tile_h,
+                    int tile_w, int chunk, int threads, int batch, int stage_bins,
+                    int smem_bytes, cudaStream_t stream) {
+  if (b <= 0 || c <= 0) return 0;
+  if (sr < 1 || sr > kMaxSr || p < 1 || r < 0 || b > 65535 ||
+      !backward_plan_ok(is_bf16, c, p, sr, tile_h, tile_w, chunk, threads, batch, stage_bins,
+                        smem_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  long long blocks = 0;
+  for (int l = lv.n - 1; l >= 0; --l) {
+    if (lv.h[l] < 1 || lv.w[l] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    lv.tiles_w[l] = (lv.w[l] + tile_w - 1) / tile_w;
+    const long long tiles = (long long)(lv.h[l] + tile_h - 1) / tile_h * lv.tiles_w[l];
+    if (blocks + tiles * b > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    lv.tiles[l] = (int)tiles;
+    lv.first[l] = (int)blocks;
+    blocks += tiles * b;
+  }
+  const dim3 grid((unsigned)blocks, (c + chunk - 1) / chunk, 1);
+  cudaError_t err = cudaSuccess;
+  dispatch_vec(is_bf16, c, [&](auto* tag, auto v) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    auto kernel = roi_align_bwd_tile_kernel<T, decltype(v)::value>;
+    err = allow_smem(kernel, smem_bytes);
+    if (err != cudaSuccess) return;
+    kernel<<<grid, threads, smem_bytes, stream>>>(lv, static_cast<const T*>(dout), rois, levels,
+                                                  c, r, p, sr, tile_h, tile_w, chunk, batch,
+                                                  stage_bins);
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -696,7 +879,7 @@ extern "C" int frcnn_roi_align_fwd(const void* feat, int is_bf16,
   }
   const dim3 grid((c + chunk - 1) / chunk, r, b);
   cudaError_t err = cudaSuccess;
-  dispatch_fwd(is_bf16, c, [&](auto* tag, auto v) {
+  dispatch_vec(is_bf16, c, [&](auto* tag, auto v) {
     using T = std::remove_pointer_t<decltype(tag)>;
     auto kernel = roi_align_fwd_kernel<T, decltype(v)::value>;
     err = allow_smem(kernel, smem_bytes);
@@ -736,7 +919,7 @@ extern "C" int frcnn_roi_align_ml_fwd(const void* const* feats, const int* dims,
   }
   const dim3 grid((c + chunk - 1) / chunk, r, b);
   cudaError_t err = cudaSuccess;
-  dispatch_fwd(is_bf16, c, [&](auto* tag, auto v) {
+  dispatch_vec(is_bf16, c, [&](auto* tag, auto v) {
     using T = std::remove_pointer_t<decltype(tag)>;
     auto kernel = roi_align_ml_fwd_kernel<T, decltype(v)::value>;
     err = allow_smem(kernel, smem_bytes);
@@ -749,79 +932,49 @@ extern "C" int frcnn_roi_align_ml_fwd(const void* const* feats, const int* dims,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dout (B, R, p, p, C) f32 or bf16, rois (B, R, 4) f32; dfeat32 (B, H, W, C)
-// f32 scratch; dfeat (B, H, W, C) in the dout dtype (for f32 it may be
-// dfeat32 itself).
-extern "C" int frcnn_roi_align_bwd(const void* dout, int is_bf16,
-                                   const float* rois, int b, int h, int w,
-                                   int c, int r, int p, int sr, float scale,
-                                   float* dfeat32, void* dfeat,
+// dout (B, R, p, p, C) f32 or bf16 (16-byte aligned), rois (B, R, 4) f32
+// image coordinates; dfeat (B, H, W, C) in the dout dtype, every value
+// written.  tile_h, tile_w, chunk, threads, batch, stage_bins and
+// smem_bytes: the plan (roi_bwd_plan).
+extern "C" int frcnn_roi_align_bwd(const void* dout, int is_bf16, const float* rois, int b,
+                                   int h, int w, int c, int r, int p, int sr, float scale,
+                                   int tile_h, int tile_w, int chunk, int threads, int batch,
+                                   int stage_bins, int smem_bytes, void* dfeat,
                                    cudaStream_t stream) {
-  if (b <= 0 || h <= 0 || w <= 0 || c <= 0) return 0;
-  if (sr < 1 || sr > kMaxSr || p < 1 || r > 65535 || b > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t n = (size_t)b * h * w * c;
-  cudaError_t err = cudaMemsetAsync(dfeat32, 0, n * sizeof(float), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (r > 0) {
-    const dim3 grid(p * p, r, b);
-    dispatch_bwd(is_bf16, c, [&](auto* tag, auto v, int threads) {
-      using T = std::remove_pointer_t<decltype(tag)>;
-      roi_align_bwd_kernel<T, decltype(v)::value><<<grid, threads, 0, stream>>>(
-          static_cast<const T*>(dout), rois, h, w, c, r, p, sr, scale, dfeat32);
-    });
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (is_bf16) {
-    err = round_to_bf16(dfeat32, n, dfeat, stream);
-  } else if (dfeat != dfeat32) {
-    err = cudaMemcpyAsync(dfeat, dfeat32, n * sizeof(float),
-                          cudaMemcpyDeviceToDevice, stream);
-  }
-  return static_cast<int>(err);
+  GradLevels lv;
+  lv.n = 1;
+  lv.grad[0] = dfeat;
+  lv.h[0] = h;
+  lv.w[0] = w;
+  lv.scale[0] = scale;
+  if (h <= 0 || w <= 0) return 0;
+  return launch_backward(lv, dout, is_bf16, rois, nullptr, b, c, r, p, sr, tile_h, tile_w,
+                         chunk, threads, batch, stage_bins, smem_bytes, stream);
 }
 
-// dout (B, R, p, p, C) f32 or bf16; rois (B, R, 4) f32; levels (B, R) int32;
-// dims: (H_l, W_l) pairs and scales: 1 / stride_l (host arrays).  acc32: one
-// f32 buffer that holds the levels' (B, H_l, W_l, C) gradients end to end, in
-// level order; it is cleared here and is the result for f32.  For bf16,
-// dfeats is a bf16 buffer of the same layout that takes the rounded result
-// (for f32 it is not read).
+// dout (B, R, p, p, C) f32 or bf16; rois (B, R, 4) f32; levels (B, R) int32
+// (a level outside [0, n_levels) adds nothing); dims: (H_l, W_l) pairs and
+// scales: 1 / stride_l (host arrays).  dfeats: one buffer in the dout dtype
+// that takes the levels' (B, H_l, W_l, C) gradients end to end, in level
+// order, every value written.  The plan as for frcnn_roi_align_bwd.
 extern "C" int frcnn_roi_align_ml_bwd(const void* dout, int is_bf16, const float* rois,
                                       const int* levels, const int* dims,
                                       const float* scales, int n_levels, int b, int c,
-                                      int r, int p, int sr, float* acc32, void* dfeats,
-                                      cudaStream_t stream) {
-  if (b <= 0 || c <= 0) return 0;
-  if (n_levels < 1 || n_levels > kMaxLevels || sr < 1 || sr > kMaxSr || p < 1 ||
-      r > 65535 || b > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  LevelGrads lv;
+                                      int r, int p, int sr, int tile_h, int tile_w, int chunk,
+                                      int threads, int batch, int stage_bins, int smem_bytes,
+                                      void* dfeats, cudaStream_t stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+  GradLevels lv;
   lv.n = n_levels;
-  size_t total = 0;
+  size_t offset = 0;
+  const size_t elem = is_bf16 ? 2 : 4;
   for (int l = 0; l < n_levels; ++l) {
     lv.h[l] = dims[2 * l];
     lv.w[l] = dims[2 * l + 1];
     lv.scale[l] = scales[l];
-    if (lv.h[l] < 1 || lv.w[l] < 1) return static_cast<int>(cudaErrorInvalidValue);
-    lv.acc[l] = acc32 + total;
-    total += (size_t)b * lv.h[l] * lv.w[l] * c;
+    lv.grad[l] = static_cast<unsigned char*>(dfeats) + offset * elem;
+    offset += (size_t)b * lv.h[l] * lv.w[l] * c;
   }
-  cudaError_t err = cudaMemsetAsync(acc32, 0, total * sizeof(float), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (r > 0) {
-    const dim3 grid(p * p, r, b);
-    dispatch_bwd(is_bf16, c, [&](auto* tag, auto v, int threads) {
-      using T = std::remove_pointer_t<decltype(tag)>;
-      roi_align_ml_bwd_kernel<T, decltype(v)::value><<<grid, threads, 0, stream>>>(
-          lv, static_cast<const T*>(dout), rois, levels, c, r, p, sr);
-    });
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (is_bf16) err = round_to_bf16(acc32, total, dfeats, stream);
-  return static_cast<int>(err);
+  return launch_backward(lv, dout, is_bf16, rois, levels, b, c, r, p, sr, tile_h, tile_w,
+                         chunk, threads, batch, stage_bins, smem_bytes, stream);
 }

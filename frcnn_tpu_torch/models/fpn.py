@@ -160,10 +160,12 @@ class FasterRCNNFPN(nn.Module):
         a = self._A
         self.neck = FPNNeck(tuple(256 * 2 ** i for i in range(4)), c)
         self.rpn_net = nn.Conv2d(c, 256, 3, padding=1)
-        self.rpn_cls_w = nn.Parameter(torch.zeros(256, 2 * a))
-        self.rpn_cls_b = nn.Parameter(torch.zeros(2 * a))
-        self.rpn_box_w = nn.Parameter(torch.zeros(256, 4 * a))
-        self.rpn_box_b = nn.Parameter(torch.zeros(4 * a))
+        # in the compute dtype, as the reference's: under bf16 these weights,
+        # their momentum and their updates are bf16
+        self.rpn_cls_w = nn.Parameter(torch.zeros(256, 2 * a, dtype=dtype))
+        self.rpn_cls_b = nn.Parameter(torch.zeros(2 * a, dtype=dtype))
+        self.rpn_box_w = nn.Parameter(torch.zeros(256, 4 * a, dtype=dtype))
+        self.rpn_box_b = nn.Parameter(torch.zeros(4 * a, dtype=dtype))
         p = config.POOLING_SIZE
         self.box_head = FPNBoxHead(p * p * c)
         self.cls_score = nn.Linear(1024, num_classes)

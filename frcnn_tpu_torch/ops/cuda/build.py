@@ -37,9 +37,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "frcnn_nms_batched": (_P, _P, _I, _I, _F, _I, _I, _I, _I, _P, _P),
     "frcnn_roi_align_fwd": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P),
-    "frcnn_roi_align_bwd": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P),
+    "frcnn_roi_align_bwd": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
+                            _I, _P, _P),
     "frcnn_roi_align_ml_fwd": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
-    "frcnn_roi_align_ml_bwd": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "frcnn_roi_align_ml_bwd": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _P, _P),
     "frcnn_fused_bottleneck": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P),
     "frcnn_anchor_overlap_stats": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),

@@ -23,10 +23,18 @@ bits).
 ``roi_plan`` is the launch geometry: channels a block, threads, staging
 bytes; ``staged_pixels`` counts the pixels a run's rois stage.
 
-K2b (same source) scatters each bin's gradient to its sample corners with
-f32 atomics, then rounds once to the feature dtype, as the TPU kernel's f32
-scratch accumulator; rois get no gradient.  The atomics make its sum order
-vary from run to run: the result is not bit-deterministic.
+K2b (same source) is the gather form of the adjoint: a block owns a tile of
+dF (pixels of one level of one image, a chunk of channels), walks the
+image's rois in index order, keeps those whose samples may reach the tile,
+stages their dOut bins that reach it in shared memory, and each thread adds,
+for its own channels of its own pixels, Ay * (sum over bin columns of Ax *
+dOut) over the bins that reach the pixel into f32 sums in its registers,
+then rounds once to the gradient dtype.  No atomics, no f32
+scratch, no memset or rounding pass: one launch writes dF, and the fixed
+order of the adds makes it bit-deterministic.  Rois get no gradient.
+``roi_bwd_plan`` is its launch geometry: tile, channel chunk, threads, kept
+rois whose geometry a block holds, staged bins, and the shared memory they
+take.
 
 K6 (same source) pools every roi from its own pyramid level in one launch
 over all levels, in roi order; the levels' base pointers, sizes and scales
@@ -34,13 +42,14 @@ are launch arguments, so the maps are never concatenated.  It shares K2's
 sample geometry, staging and interpolation code, so on one level the two
 agree bit for bit.
 
-K6b (same source) is K2b's scatter over all levels in one launch: each
-roi's bin gradients go to its own level's slice of one f32 accumulator (one
-memset clears it), which one pass rounds to the gradient dtype; every level
-gets a dense gradient, all zeros where no roi was assigned to it; rois and
-levels get none.  It shares K2b's scatter code, so on one level the two add
-the same values.  As K2b it is not bit-deterministic (f32 atomics).  Bound
-on the H100: memory traffic, the levels' gradients written once.
+K6b (same source) is K2b's kernel over the tiles of every level in one
+launch, each tile keeping only the rois of its own level; the levels' dF lie
+end to end in one buffer; every level gets a dense gradient, all zeros where
+no roi was assigned to it; rois and levels get none.  The sum order does not
+depend on the tile, so on one level K6b equals K2b bit for bit.  Bound on
+the H100, by the count: memory traffic, dF written once and dOut read once;
+in fact K2b and K6b are bound by the latency of their rounds on the tiles
+that the most rois reach.
 
 ``roi_align_reference`` is the plain twin of K2: the same gather in PyTorch
 ops, f32 accumulation (f64 for f64 features), result in the feature dtype.
@@ -90,6 +99,73 @@ CHUNK_CHANNELS = 256         # channels of a roi that one block pools
 FORWARD_THREADS = 128
 MAX_SAMPLES = 32             # p * sr an axis, at most
 GEOMETRY_SMEM_BYTES = 4 * MAX_SAMPLES * 8 + 2 * 2 * MAX_SAMPLES * 4 + 8   # RoiGeometry
+
+
+BWD_TILE = (8, 8)            # dF pixels (rows, columns) that one backward block owns
+BWD_CHUNK_CHANNELS = 128     # channels of them
+BWD_THREADS = 256
+BWD_BATCH = 8                # kept rois whose geometry a backward block holds at once
+BWD_STAGE_BINS = 168         # dOut bins a backward round stages (a roi has p * p)
+BWD_PAIRS = 4                # (pixel, vec channels) sums a backward thread holds
+MAX_BLOCK_SMEM = 232448      # shared memory a block may take on the H100
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def roi_bwd_smem_bytes(element_size: int, tile_h: int, tile_w: int, chunk: int,
+                       output_size: int, sampling_ratio: int, batch: int, stage_bins: int,
+                       threads: int) -> int:
+    """Shared memory of a K2b/K6b block (``bwd_layout`` in the source): the
+    staged dOut bins, then for a round's kept rois their
+    samples (two ints and two floats an axis sample), a weight a bin and
+    tile row or column, a bit mask a tile row or column and a rectangle of
+    staged bins a roi, then the kept list (an index and four coordinates a
+    roi), a count a warp and two more."""
+    ns, edge = output_size * sampling_ratio, tile_h + tile_w
+    return (_align16(stage_bins * chunk * element_size)
+            + 2 * _align16(batch * 2 * ns * 8) + _align16(batch * edge * output_size * 4)
+            + _align16(batch * edge * 4) + _align16(batch * 16) + _align16(threads * 4)
+            + threads * 16 + _align16(34 * 4))
+
+
+def roi_bwd_plan(c: int, element_size: int, output_size: int = 7, sampling_ratio: int = 2,
+                 tile=BWD_TILE, chunk: int = BWD_CHUNK_CHANNELS, threads: int = BWD_THREADS,
+                 batch: int = BWD_BATCH, stage_bins: int = BWD_STAGE_BINS) -> dict:
+    """Launch geometry of the backward kernels (K2b, K6b) for gradients of
+    ``c`` channels of ``element_size`` bytes: ``vec`` channels a thread (16
+    bytes' worth where a pixel's channels are a multiple of 16 bytes, else
+    1), the dF ``tile_h`` x ``tile_w`` pixels and ``chunk`` channels a block
+    owns (at most ``chunk``, and at most what BWD_PAIRS sums a thread hold),
+    ``threads`` a block, ``batch`` kept rois whose geometry a block holds at
+    once (at most 32), ``stage_bins`` dOut bins a round stages (at least
+    p * p), and ``smem_bytes``, which the launcher requires to be its
+    layout's."""
+    vec = 16 // element_size
+    if c % vec:
+        vec = 1
+    ns = output_size * sampling_ratio
+    if ns > MAX_SAMPLES:
+        raise ValueError(f"roi_align backward: {ns} samples an axis, the kernel takes "
+                         f"{MAX_SAMPLES}")
+    tile_h, tile_w = tile
+    most = BWD_PAIRS * threads // (tile_h * tile_w) * vec   # channels the threads' sums hold
+    if most < vec:
+        raise ValueError(f"roi_align backward: {tile_h}x{tile_w} pixels for {threads} threads")
+    chunk = max(vec, min(c, chunk, most) // vec * vec)
+    stage_bins = max(stage_bins, output_size * output_size)
+    smem = roi_bwd_smem_bytes(element_size, tile_h, tile_w, chunk, output_size, sampling_ratio,
+                              batch, stage_bins, threads)
+    if smem > MAX_BLOCK_SMEM:
+        raise ValueError(f"roi_align backward: a plan of {smem} bytes of shared memory")
+    return {"vec": vec, "tile_h": tile_h, "tile_w": tile_w, "chunk": chunk, "threads": threads,
+            "batch": batch, "stage_bins": stage_bins, "smem_bytes": smem}
+
+
+def _bwd_plan_args(plan: dict):
+    return tuple(plan[k] for k in ("tile_h", "tile_w", "chunk", "threads", "batch",
+                                   "stage_bins", "smem_bytes"))
 
 
 def _acc_dtype(dtype):
@@ -281,10 +357,12 @@ def roi_align_backward_reference(dout, rois, feat_hw, output_size: int = 7,
 
 
 def roi_align_backward(dout, rois, feat_hw, output_size: int = 7,
-                       spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2):
+                       spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2,
+                       plan: dict | None = None):
     """dF of RoIAlign over a batch: dout (B, R, p, p, C) f32/bf16, rois
     (B, R, 4) → (B, H, W, C) in dout's dtype.  CPU tensors run the plain
-    twin; CUDA tensors launch K2b (one launch for the whole batch)."""
+    twin; CUDA tensors launch K2b (one launch for the whole batch) with the
+    geometry of ``roi_bwd_plan`` (or ``plan``)."""
     if not dout.is_cuda:
         return roi_align_backward_reference(dout, rois, feat_hw, output_size,
                                             spatial_scale, sampling_ratio)
@@ -296,11 +374,12 @@ def roi_align_backward(dout, rois, feat_hw, output_size: int = 7,
     rois = rois.float().contiguous()
     build.check_cuda("roi_align_backward dout", dout, dout.dtype, (b, r, p, p, c))
     build.check_cuda("roi_align_backward rois", rois, torch.float32, (b, r, 4))
-    dfeat32 = torch.empty((b, h, w, c), dtype=torch.float32, device=dout.device)
-    dfeat = dfeat32 if dout.dtype == torch.float32 else torch.empty_like(dfeat32, dtype=dout.dtype)
+    if plan is None:
+        plan = roi_bwd_plan(c, dout.element_size(), p, int(sampling_ratio))
+    dfeat = torch.empty((b, h, w, c), dtype=dout.dtype, device=dout.device)
     build.launch("frcnn_roi_align_bwd", dout.data_ptr(), int(dout.dtype == torch.bfloat16),
-                 rois.data_ptr(), b, h, w, c, r, p, int(sampling_ratio),
-                 float(spatial_scale), dfeat32.data_ptr(), dfeat.data_ptr())
+                 rois.data_ptr(), b, h, w, c, r, p, int(sampling_ratio), float(spatial_scale),
+                 *_bwd_plan_args(plan), dfeat.data_ptr())
     build.LAUNCH_COUNTS["roi_align_bwd"] += 1
     return dfeat
 
@@ -343,12 +422,14 @@ def roi_align_multilevel_backward_reference(dout, rois, levels, level_hws, strid
 
 
 def roi_align_multilevel_backward(dout, rois, levels, level_hws, strides,
-                                  output_size: int = 7, sampling_ratio: int = 2):
+                                  output_size: int = 7, sampling_ratio: int = 2,
+                                  plan: dict | None = None):
     """dF of the multilevel RoIAlign over a batch, as
     ``roi_align_multilevel_backward_reference``: a list of L dense tensors
     (B, H_l, W_l, C) in dout's dtype.  CPU tensors run the plain twin; CUDA
-    tensors launch K6b (one launch for every level and image).  On the card
-    the L results are views of one buffer, the levels end to end."""
+    tensors launch K6b (one launch for every level and image) with the
+    geometry of ``roi_bwd_plan`` (or ``plan``).  On the card the L results
+    are views of one buffer, the levels end to end."""
     if not dout.is_cuda:
         return roi_align_multilevel_backward_reference(dout, rois, levels, level_hws, strides,
                                                        output_size, sampling_ratio)
@@ -368,14 +449,15 @@ def roi_align_multilevel_backward(dout, rois, levels, level_hws, strides,
     build.check_cuda("roi_align_multilevel_backward dout", dout, dout.dtype, (b, r, p, p, c))
     build.check_cuda("roi_align_multilevel_backward rois", rois, torch.float32, (b, r, 4))
     build.check_cuda("roi_align_multilevel_backward levels", levels, torch.int32, (b, r))
+    if plan is None:
+        plan = roi_bwd_plan(c, dout.element_size(), p, int(sampling_ratio))
     sizes = [b * h * w * c for h, w in level_hws]
-    acc32 = torch.empty(sum(sizes), dtype=torch.float32, device=dout.device)
-    flat = acc32 if dout.dtype == torch.float32 else torch.empty_like(acc32, dtype=dout.dtype)
+    flat = torch.empty(sum(sizes), dtype=dout.dtype, device=dout.device)
     dims = (ctypes.c_int * (2 * n))(*[int(s) for hw in level_hws for s in hw])
     scales = (ctypes.c_float * n)(*[1.0 / s for s in strides])
     build.launch("frcnn_roi_align_ml_bwd", dout.data_ptr(), int(dout.dtype == torch.bfloat16),
                  rois.data_ptr(), levels.data_ptr(), dims, scales, n, b, c, r, p,
-                 int(sampling_ratio), acc32.data_ptr(), flat.data_ptr())
+                 int(sampling_ratio), *_bwd_plan_args(plan), flat.data_ptr())
     build.LAUNCH_COUNTS["roi_align_ml_bwd"] += 1
     return [part.view(b, h, w, c) for part, (h, w) in zip(flat.split(sizes), level_hws)]
 

@@ -111,7 +111,9 @@ def convert_fpn_from_jax(params, net: str):
         _conv_bias(sd, f"neck.{name}", p)
     _conv_bias(sd, "rpn_net", params["rpn_net"])
     for name in ("rpn_cls_w", "rpn_cls_b", "rpn_box_w", "rpn_box_b"):
-        sd[name] = _t(params[name])
+        # the reference keeps these in the compute dtype: bf16 stays bf16
+        bf16 = np.asarray(params[name]).dtype.name == "bfloat16"
+        sd[name] = _t(params[name]).to(torch.bfloat16) if bf16 else _t(params[name])
     for name in ("fc1", "fc2"):
         _dense(sd, f"box_head.{name}", params["box_head"][name])
     for name in ("cls_score", "bbox_pred"):

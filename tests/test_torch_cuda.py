@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain twins on a card (marker ``cuda``),
 gradients through the autograd Functions of K2, K3 and K6 (backward K6b),
-and K6 (the multilevel RoIAlign) bit-equal to K2 on one level.
+K6 (the multilevel RoIAlign) bit-equal to K2 on one level, and K2b / K6b
+bit-deterministic, whatever their plan.
 
 Run on a machine with an NVIDIA H100 (which has no jax, so without the
 suite's conftest):  pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -26,7 +27,8 @@ from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (roi_align_backward,
                                                        roi_align_multilevel_backward_reference,
                                                        roi_align_multilevel_forward,
                                                        roi_align_multilevel_reference,
-                                                       roi_align_reference, roi_plan)
+                                                       roi_align_reference, roi_bwd_plan,
+                                                       roi_plan)
 from frcnn_tpu_torch.ops.cuda.select_kernel import topk_threshold, topk_threshold_reference
 from frcnn_tpu_torch.ops.roi_align import extract_multilevel_features, extract_roi_features
 
@@ -220,8 +222,8 @@ def test_roi_align_multilevel_on_one_level_equals_k2(dev, rng, c):
 @pytest.mark.parametrize("dtype,c", [(torch.float32, 96), (torch.bfloat16, 96),
                                      (torch.float32, 33), (torch.bfloat16, 33)])
 def test_roi_align_multilevel_backward_kernel_matches_twin(dev, rng, dtype, c):
-    """K6b: even C adds two channels with one float2 atomic, odd C one; level
-    2 is empty (dense zeros); a level outside [0, 4) adds nothing."""
+    """K6b: C = 96 reads 16 bytes of dOut a thread, C = 33 one channel;
+    level 2 is empty (dense zeros); a level outside [0, 4) adds nothing."""
     feats, rois = _pyramid(rng, dev, c, dtype)
     hws = [tuple(f.shape[1:3]) for f in feats]
     levels = torch.from_numpy(rng.choice([0, 1, 3, 4, -1], (2, 50), p=[.3, .3, .3, .05, .05])
@@ -231,6 +233,8 @@ def test_roi_align_multilevel_backward_kernel_matches_twin(dev, rng, dtype, c):
     got = roi_align_multilevel_backward(dout, rois, levels, hws, [4, 8, 16, 32])
     want = roi_align_multilevel_backward_reference(dout, rois, levels, hws, [4, 8, 16, 32])
     assert build.LAUNCH_COUNTS["roi_align_ml_bwd"] == 1 and len(got) == 4
+    again = roi_align_multilevel_backward(dout, rois, levels, hws, [4, 8, 16, 32])
+    assert all(_same_bits(a, g) for a, g in zip(again, got))
     scale = max(w.float().abs().max().item() for w in want)
     tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(scale)) - 7)
     for g, w, f in zip(got, want, feats):
@@ -321,6 +325,47 @@ def test_roi_align_backward_kernel_matches_twin(dev, rng, dtype):
     scale = want.float().abs().max().item()
     tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(scale)) - 7)
     assert (got.float() - want.float()).abs().max().item() <= tol
+    assert _same_bits(got, roi_align_backward(dout, rois, (20, 30)))
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int8), b.view(torch.int8))
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 96), (torch.bfloat16, 96),
+                                     (torch.bfloat16, 33)])
+def test_roi_align_backward_bits_do_not_depend_on_the_plan(dev, rng, dtype, c):
+    """K2b's sums run in a fixed order (roi, bin row, bin column) that no
+    tile, chunk or round size changes: every plan, ragged tiles, one-roi
+    rounds and a stage that holds one roi's bins included, gives the same
+    bits, and K6b with every roi on one level gives K2b's bits there."""
+    feats, rois = _pyramid(rng, dev, c, dtype)
+    hws = [tuple(f.shape[1:3]) for f in feats]
+    dout = torch.from_numpy(rng.randn(2, 50, 7, 7, c).astype(np.float32)).to(dev, dtype)
+    rois[:, :3] = torch.tensor([[-900.0, -900.0, -700.0, -800.0], [5.0, 5.0, 5.0, 5.0],
+                                [0.0, 0.0, 0.0, 0.0]], device=dev)   # outside, zero size, padding
+    want = roi_align_backward(dout, rois, hws[1], 7, 1.0 / 8, 2)
+    for tile, chunk, batch, bins in (((16, 16), 32, 16, 56), ((3, 5), 8, 1, 49),
+                                     ((1, 1), 128, 32, 200), ((8, 8), 16, 3, 49)):
+        plan = roi_bwd_plan(c, dout.element_size(), tile=tile, chunk=chunk, batch=batch,
+                            stage_bins=bins)
+        assert _same_bits(roi_align_backward(dout, rois, hws[1], 7, 1.0 / 8, 2, plan=plan), want)
+    on_one = roi_align_multilevel_backward(dout, rois, torch.ones(2, 50, dtype=torch.int32,
+                                                                  device=dev), hws, [4, 8, 16, 32])
+    assert _same_bits(on_one[1], want)
+    assert not any(on_one[i].any() for i in (0, 2, 3))
+
+
+def test_roi_align_backward_launcher_refuses_a_plan_not_its_own(dev, rng):
+    dout = torch.zeros(1, 2, 7, 7, 64, device=dev)
+    rois = torch.zeros(1, 2, 4, device=dev)
+    plan = roi_bwd_plan(64, 4)
+    with pytest.raises(RuntimeError):              # shared memory not the layout's
+        roi_align_backward(dout, rois, (8, 8), plan={**plan, "smem_bytes": plan["smem_bytes"] + 16})
+    with pytest.raises(RuntimeError):              # 48 threads: not whole warps
+        roi_align_backward(dout, rois, (8, 8), plan={**plan, "threads": 48})
+    with pytest.raises(RuntimeError):              # 33 kept rois: over one warp's prefix
+        roi_align_backward(dout, rois, (8, 8), plan=roi_bwd_plan(64, 4, batch=33))
 
 
 def test_overlap_kernel_bit_equal(dev, rng):

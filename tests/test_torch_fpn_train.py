@@ -173,6 +173,25 @@ def _jax_train_parts(mdl, images, im_info):
     return prob, cells, mdl._propose(pyr, prob, cells, anchors, im_info, train=True)
 
 
+def _jax_train_step(jmodel, tx, labels):
+    """The body of the JAX SolverWrapper.construct_graph's train_step, jitted."""
+
+    def train_step(params, opt_state, data, im_info, gt_boxes, gt_labels, gt_valid, key):
+        dkey, skey = jax.random.split(key)
+
+        def loss_fn(p):
+            losses, aux = jmodel.apply({"params": stop_frozen_gradients(labels, p)}, data,
+                                       im_info, gt_boxes, gt_labels, gt_valid, skey,
+                                       method="train_forward", rngs={"dropout": dkey})
+            return losses["total_loss"], (losses, aux)
+
+        (_, (losses, aux)), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, losses, aux
+
+    return jax.jit(train_step)
+
+
 @pytest.fixture(scope="module")
 def stepped():
     """Two jitted JAX train steps and the port's two steps from the same
@@ -192,21 +211,7 @@ def stepped():
     tx, _ = jax_make_optimizer(jmodel, params, jcfg)
     labels = _param_labels(jmodel, params)
 
-    def train_step(params, opt_state, data, im_info, gt_boxes, gt_labels, gt_valid, key):
-        # the body of SolverWrapper.construct_graph's train_step
-        dkey, skey = jax.random.split(key)
-
-        def loss_fn(p):
-            losses, aux = jmodel.apply({"params": stop_frozen_gradients(labels, p)}, data,
-                                       im_info, gt_boxes, gt_labels, gt_valid, skey,
-                                       method="train_forward", rngs={"dropout": dkey})
-            return losses["total_loss"], (losses, aux)
-
-        (_, (losses, aux)), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
-        updates, opt_state = tx.update(grads, opt_state, params)
-        return optax.apply_updates(params, updates), opt_state, losses, aux
-
-    step = jax.jit(train_step)
+    step = _jax_train_step(jmodel, tx, labels)
     feed = [jnp.asarray(blobs[k]) for k in FEED]
     keys = (jax.random.PRNGKey(5), jax.random.PRNGKey(6))
     new_params, opt_state, jlosses, jaux = step(params, tx.init(params), *feed, keys[0])
@@ -334,3 +339,44 @@ def test_fpn_frozen_tensors_and_optimizer_groups(stepped):
     assert set(weights) | set(biases) == set(params) - frozen
     groups = stepped["solver"].optimizer.param_groups
     assert [len(g["params"]) for g in groups] == [len(weights), len(biases)]
+
+
+RPN_HEAD = ("rpn_cls_w", "rpn_cls_b", "rpn_box_w", "rpn_box_b")
+
+
+def test_bf16_sgd_step_keeps_the_rpn_head_in_the_compute_dtype():
+    """The reference creates ``rpn_cls_w/b`` and ``rpn_box_w/b`` in the
+    compute dtype, so under bf16 they, their momentum and their updates are
+    bf16.  One bf16 SGD step from the same JAX parameters (carried over by
+    ``convert_fpn_from_jax``) on each side: the four tensors are bf16 on both
+    and agree within one bf16 ulp of max|reference|."""
+    overrides = OVERRIDES + ["TRAIN.LEARNING_RATE", "0.01"]
+    jcfg = jax_cfg_from_list(jax_default_config(), overrides)
+    cfg = cfg_from_list(default_config(), overrides)
+    roidb, reader = _roidb(np.random.RandomState(1), shapes=((H, W), (H, W - 40)))
+    blobs = get_minibatch(roidb, cfg, np.random.RandomState(0), reader=reader)
+    jmodel = jax_build_model("res50_fpn", NUM_CLASSES, jcfg, dtype=jnp.bfloat16)
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jnp.zeros((B, H, W, 3)),
+                            jnp.zeros((B, 3)))["params"]
+    params = jax.tree.map(lambda a, s: np.asarray(jnp.asarray(a, s.dtype)),
+                          _numpy_params(shapes), shapes)
+    assert all(params[n].dtype == jnp.bfloat16 for n in RPN_HEAD)
+    tx, _ = jax_make_optimizer(jmodel, params, jcfg)
+    step = _jax_train_step(jmodel, tx, _param_labels(jmodel, params))
+    key = jax.random.PRNGKey(5)
+    new_params = step(params, tx.init(params), *[jnp.asarray(blobs[k]) for k in FEED], key)[0]
+
+    model = build_model("res50_fpn", NUM_CLASSES, cfg, dtype=torch.bfloat16)
+    model.load_state_dict(convert_fpn_from_jax(params, "res50_fpn"), strict=True)
+    solver = SolverWrapper(model, roidb, cfg, reader=reader, device="cpu")
+    solver.train_step(blobs, _jax_draws(jax.random.split(key)[1], K, POST + MAX_GT))
+    moved = 0
+    for name in RPN_HEAD:
+        got, old = getattr(model, name).detach(), params[name]
+        want = np.asarray(new_params[name])
+        assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16, name
+        want, got = want.astype(np.float32), got.float().numpy()
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        assert np.abs(got - want).max() <= ulp, name
+        moved += int((want != old.astype(np.float32)).any())
+    assert moved == len(RPN_HEAD)                     # the step moved every tensor
