@@ -33,8 +33,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      level empty (exactly zero), and with every roi on one level bit-equal to
      K2b on that level; each called twice with bit-equal results; both timed
      under a few tile and chunk plans beside the default;
-  7. K4 (anchor-overlap stats) bit-equal to its twin at the train shape
-     (21888 anchors, 8 x 64 padded gt);
+  7. K4 (anchor-overlap stats) bit-equal to its twin at the C4 and FPN
+     train shapes (21888 and 155520 anchors, 8 x 64 padded gt), with an
+     image with no valid gt, one with every anchor outside and gts whose
+     edge touches a chunk's box exactly; a device profile of one call lists
+     one kernel and no memset; the bound counts the pairs with inter > 0;
   8. K5 (threshold top-k) indices equal to its twin at (8, 21888), k 128
      and 256, on rows of ties, NaN and +-inf, and k = S, on rows whose ties
      at the cut fall in several segments of the kernel's cluster (8 and 1 x
@@ -79,10 +82,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
  19. one f32 FPN train step on the card and on a CPU copy, as 17;
  20. (with ``--profile``) CUDA events around each stage of a steady-state
      train step and torch.profiler over 3 steps: stage times, the device's
-     idle share and the top kernels, also in chiprun_out/profile_train.json;
+     idle share, the top kernels and K4's device time (one launch a step),
+     also in chiprun_out/profile_train.json;
  21. (with ``--profile``) the same for a steady-state FPN detect batch,
      into chiprun_out/profile_fpn.json;
- 22. (with ``--profile``) the same for a steady-state FPN train step, into
+ 22. (with ``--profile``) the same (K4 too) for a steady-state FPN train step, into
      chiprun_out/profile_fpn_train.json, with every device kernel of the RoI
      pool's forward and backward alone (K6b one launch, no memset or
      rounding kernel).
@@ -769,7 +773,10 @@ def fpn_train_anchors():
 def overlap_inputs(rng, dev, anchors):
     """Train-shape anchors and padded gt: 3-64 valid gt per image, exact
     anchor copies, duplicated gt (argmax ties), a gt overlapping nothing,
-    and images smaller than the bucket (anchors outside)."""
+    images smaller than the bucket (anchors outside), an image with no valid
+    gt (1), one with every anchor outside (2), and in image 3 gts whose edge
+    touches the box of one chunk's inside anchors exactly (iw = 0 or ih = 0:
+    the kernel culls them for that chunk) or overlaps it by one pixel."""
     k = len(anchors)
     b, g = TRAIN_B, 64
     xy = rng.uniform(0, 900, (b, g, 2))
@@ -780,14 +787,47 @@ def overlap_inputs(rng, dev, anchors):
     gt[:, 4] = gt[:, 5]                                             # duplicate gt
     gt[:, 6] = [5000.0, 5000.0, 5010.0, 5010.0]                     # overlaps nothing
     n_valid = rng.randint(3, g + 1, b)
-    n_valid[0] = g
+    n_valid[0], n_valid[1], n_valid[3] = g, 0, max(n_valid[3], 10)
     valid = np.arange(g)[None, :] < n_valid[:, None]
     hw = np.stack([rng.randint(400, TRAIN_H + 1, b), rng.randint(600, TRAIN_W + 1, b)], 1)
     hw[0] = (TRAIN_H, TRAIN_W)
     inside = ((anchors[None, :, 0] >= 0) & (anchors[None, :, 1] >= 0)
               & (anchors[None, :, 2] < hw[:, 1:2]) & (anchors[None, :, 3] < hw[:, 0:1]))
+    inside[2] = False
+    chunks = np.flatnonzero(inside[3, :k // 32 * 32].reshape(-1, 32).sum(1) >= 16)
+    c = chunks[len(chunks) // 2]
+    box = anchors[32 * c:32 * c + 32][inside[3, 32 * c:32 * c + 32]]
+    x1, y1 = box[:, :2].min(0)
+    x2, y2 = box[:, 2:].max(0)
+    gt[3, 7] = [x2 + 1, y1, x2 + 60, y2]                            # iw = 0 exactly
+    gt[3, 8] = [x2, y1, x2 + 60, y2]                                # iw = 1
+    gt[3, 9] = [x1, y2 + 1, x2, y2 + 60]                            # ih = 0 exactly
     return tuple(torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                  for v in (anchors, gt, valid, inside))
+
+
+def overlap_pairs(anchors, gt, valid, inside):
+    """(image, inside anchor, valid gt) pairs with inter > 0: the IoUs the
+    data needs (the twin's dense IoU, computed in slices)."""
+    from frcnn_tpu_torch.ops.boxes import bbox_overlaps
+
+    n = 0
+    for i in range(gt.shape[0]):
+        live = (bbox_overlaps(anchors[inside[i]], gt[i, valid[i]]) > 0)
+        n += int(live.sum().item())
+    return n
+
+
+def overlap_device_ms(args):
+    """The device time of one K4 call (torch.profiler); fails unless the
+    call's only device operation is one K4 kernel: no memset."""
+    from frcnn_tpu_torch.ops.cuda.overlap_kernel import anchor_overlap_stats
+
+    _, kernels = device_profile(lambda: anchor_overlap_stats(*args), n_steps=5)
+    # (the profiler may drop an interval at the window's edge: at most one launch a call)
+    if len(kernels) != 1 or not 0.0 < kernels[0][2] <= 1.0 or "overlap" not in kernels[0][0]:
+        raise AssertionError(f"K4: want one kernel a call and no memset, got {kernels}")
+    return kernels[0][1] / kernels[0][2]
 
 
 def check_overlap(dev):
@@ -808,17 +848,25 @@ def check_overlap(dev):
             if k.dtype != t.dtype or not torch.equal(k, t):
                 raise AssertionError(f"K4 {name} {out}: not bit-equal to the twin "
                                      f"({(k != t).sum().item()} differ)")
+        device_ms = overlap_device_ms(args)
         k_ms = cuda_ms(lambda: anchor_overlap_stats(*args))
         t_ms = cuda_ms(lambda: anchor_overlap_stats_reference(*args))
+        pairs = overlap_pairs(*args)
         bound = Bound()
-        bound.add(nbytes(*args, *got), len(anchors) * int(args[2].sum().item()) * IOU_FLOPS)
-        log(f"K4 {name} ({len(anchors)} anchors, 8 x 64 padded gt): max_overlaps, argmax, "
-            f"is_gt_argmax bit-equal to the twin ({got[2].sum().item()} gt-argmax anchors, "
-            f"{(got[0] == 1.0).sum().item()} at IoU 1); kernel {k_ms:.4f} ms, "
-            f"plain twin {t_ms:.4f} ms, bound {bound.ms:.4f} ms")
+        bound.add(nbytes(*args, *got), pairs * IOU_FLOPS)
+        log(f"K4 {name} ({len(anchors)} anchors, 8 x 64 padded gt, {int(args[2].sum())} valid; "
+            "image 1 no valid gt, image 2 every anchor outside, image 3 gts touching a chunk's "
+            "box): max_overlaps, argmax, is_gt_argmax bit-equal to the twin "
+            f"({got[2].sum().item()} gt-argmax anchors, {(got[0] == 1.0).sum().item()} at IoU "
+            f"1); kernel {k_ms:.4f} ms a call, on the device {device_ms:.4f} ms in one "
+            f"kernel and no memset; plain twin {t_ms:.4f} ms; bound {bound.ms:.4f} ms "
+            f"({pairs} pairs with inter > 0)")
         parts.append({"ms": k_ms, "plain_ms": t_ms, **bound.result(),
-                      "max_abs_err": (got[0] - want[0]).abs().max().item()})
-    return merge_results(*parts)
+                      "max_abs_err": (got[0] - want[0]).abs().max().item(),
+                      "device_ms": device_ms})
+    out = merge_results(*parts)
+    out["device_ms"] = sum(p["device_ms"] for p in parts)
+    return out
 
 
 def check_select(dev):
@@ -1424,9 +1472,9 @@ def train_path(dev, card, net="res50", per_step=TRAIN_LAUNCHES):
 CARD_VS_CPU = {
     "res50": (["TRAIN.RPN_PRE_NMS_TOP_N", "400", "TRAIN.RPN_POST_NMS_TOP_N", "64"],
               (320 // 16) * (480 // 16) * 9, 64,
-              {"nms": 1, "roi_align": 1, "roi_align_bwd": 1},
+              {"nms": 1, "roi_align": 1, "roi_align_bwd": 1, "overlap": 1},
               ("rpn_net.weight", "cls_score.weight", "layer2.1.conv2.weight")),
-    # 38370 anchors over P2-P6: K4 and K5 pass their gates, as does P2's top-k
+    # 38370 anchors over P2-P6: the fg/bg subsampling and P2's top-k pass K5's gate
     "res50_fpn": (["FPN.PRE_NMS_PER_LEVEL_TRAIN", "200", "TRAIN.RPN_POST_NMS_TOP_N", "64"],
                   3 * (80 * 120 + 40 * 60 + 20 * 30 + 10 * 15 + 5 * 8), 64,
                   {"overlap": 1, "select": 3, "nms": 1, "roi_align_ml": 1, "roi_align_ml_bwd": 1},
@@ -1654,10 +1702,14 @@ def profile_train_step(solver, card, stage_list=TRAIN_STAGES, name="profile_trai
     torch.cuda.reset_peak_memory_stats()
     prof, top = device_profile(lambda: solver.train_step(blobs))
     prof["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    extra = None
+    k4 = [(kname, ms, n) for kname, ms, n in top if "overlap" in kname]
+    if len(k4) != 1 or not 0.0 < k4[0][2] <= 1.0:
+        raise AssertionError(f"K4: want one kernel launch a step, got {k4}")
+    log(f"K4 in the step: {k4[0][1] / k4[0][2]:.4f} ms on the device, one launch a step")
+    extra = {"k4_device_ms_per_step": k4[0][1] / k4[0][2]}
     if hasattr(model, "neck"):
         pool = profile_pool_backward(model)
-        extra = {"pool_forward_backward_kernels_ms_per_call": pool}
+        extra["pool_forward_backward_kernels_ms_per_call"] = pool
         log("FPN RoI pool forward + backward alone, every device kernel (ms per call, launches): "
             + "; ".join(f"{kname.split('(')[0][-60:]} {ms:.4f} x{n:.0f}" for kname, ms, n in pool))
     write_profile(name, "step", card, stages, prof, top, extra)

@@ -11,8 +11,8 @@ sort is stable, so ties keep the lowest index first, as ``lax.top_k`` and
 ``jnp.argsort`` do.
 
 Kernels: the anchor IoU reductions run K4 (``ops/cuda/overlap_kernel.py``)
-and the fg/bg subsampling K5 (``ops/cuda/select_kernel.py``) on CUDA
-tensors, behind the JAX package's gates.
+at every K and the fg/bg subsampling K5 (``ops/cuda/select_kernel.py``)
+behind the JAX package's gate, on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -26,9 +26,6 @@ from frcnn_tpu_torch.ops.boxes import bbox_overlaps, bbox_transform
 from frcnn_tpu_torch.ops.cuda.overlap_kernel import (MAX_GT, anchor_overlap_stats,
                                                      anchor_overlap_stats_reference)
 from frcnn_tpu_torch.ops.cuda.select_kernel import topk_threshold, use_threshold_select
-
-# K4 runs from this many anchors on (the JAX gate, targets.py:130-131)
-OVERLAP_KERNEL_MIN_K = 8192
 
 
 def _f32(value, device):
@@ -85,10 +82,11 @@ def _anchor_pre_labels(anchors, gt_boxes, gt_valid, im_info, cfg):
     """Inside-image filtering, IoU stats and threshold/argmax-per-gt labels
     before subsampling: (labels (B, K) in {1, 0, -1}, argmax (B, K))."""
     t = cfg.TRAIN
-    k, g = anchors.shape[0], gt_boxes.shape[1]
     inside = ((anchors[:, 0] >= 0) & (anchors[:, 1] >= 0)
               & (anchors[:, 2] < im_info[:, 1:2]) & (anchors[:, 3] < im_info[:, 0:1]))
-    use_kernel = cfg.DEVICE.USE_KERNELS and k >= OVERLAP_KERNEL_MIN_K and g <= MAX_GT
+    # K4 beats the twin on the H100 at every K from 864 anchors up (PERF.md):
+    # no gate on K, unlike the TPU's (frcnn_tpu/models/targets.py:130-131)
+    use_kernel = cfg.DEVICE.USE_KERNELS and gt_boxes.shape[1] <= MAX_GT
     stats = anchor_overlap_stats if use_kernel else anchor_overlap_stats_reference
     max_overlaps, argmax, is_gt_argmax = stats(anchors, gt_boxes, gt_valid, inside)
 

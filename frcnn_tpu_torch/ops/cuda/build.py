@@ -44,7 +44,7 @@ _SIGNATURES = {
                                _I, _I, _I, _P, _P),
     "frcnn_fused_bottleneck": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P),
-    "frcnn_anchor_overlap_stats": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
+    "frcnn_anchor_overlap_stats": (_P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "frcnn_topk_threshold": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 

@@ -19,7 +19,7 @@ from frcnn_tpu_torch.ops.cuda.fused_block import bottleneck_reference, fused_bot
 from frcnn_tpu_torch.ops.cuda.nms_kernel import (nms_mask_batched, nms_mask_reference,
                                                  nms_plan)
 from frcnn_tpu_torch.ops.cuda.overlap_kernel import (anchor_overlap_stats,
-                                                     anchor_overlap_stats_reference)
+                                                     anchor_overlap_stats_reference, overlap_plan)
 from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (roi_align_backward,
                                                        roi_align_backward_reference,
                                                        roi_align_forward,
@@ -368,7 +368,10 @@ def test_roi_align_backward_launcher_refuses_a_plan_not_its_own(dev, rng):
         roi_align_backward(dout, rois, (8, 8), plan=roi_bwd_plan(64, 4, batch=33))
 
 
-def test_overlap_kernel_bit_equal(dev, rng):
+def _overlap_args(rng, case):
+    """(anchors, gt, valid, inside) of one K4 case: C4 anchors of a 320x480
+    bucket, 3 images of 20 gt slots (image 2 with no valid gt), anchor
+    copies and a duplicated gt, and per case the cull's boundaries."""
     from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
 
     anchors, k = generate_anchors_pre(20, 30, 16)
@@ -377,13 +380,42 @@ def test_overlap_kernel_bit_equal(dev, rng):
     gt[1, 1] = gt[1, 0]
     valid = np.arange(20)[None, :] < np.array([[20], [7], [0]])
     inside = rng.uniform(0, 1, (3, k)) > 0.3
-    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (anchors, gt, valid, inside)]
-    build.reset_launch_counts()
-    got = anchor_overlap_stats(*args)
+    if case == "touching":           # iw = 0 / ih = 0 exactly against chunk 40's box, iw = 1
+        box = anchors[1280:1312][inside[0, 1280:1312]]
+        x1, y1 = box[:, :2].min(0)
+        x2, y2 = box[:, 2:].max(0)
+        gt[0, 2:5] = [[x2 + 1, y1, x2 + 50, y2], [x1, y2 + 1, x2, y2 + 50], [x2, y1, x2 + 50, y2]]
+    elif case == "all_outside":      # image 0 has valid gts and no inside anchor
+        inside[0] = False
+    elif case == "ragged":           # K no multiple of 32, a gt covering everything
+        anchors, inside = anchors[:5003], inside[:, :5003]
+        gt[1, 3] = [-50.0, -50.0, 600.0, 400.0]
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in (anchors, gt, valid, inside)]
+
+
+@pytest.mark.parametrize("case", ["mixed", "touching", "all_outside", "ragged"])
+def test_overlap_kernel_bit_equal(dev, rng, case):
+    args = [a.to(dev) for a in _overlap_args(rng, case)]
     want = anchor_overlap_stats_reference(*args)
-    assert build.LAUNCH_COUNTS["overlap"] == 1
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    b, k = args[1].shape[0], args[0].shape[0]
+    for plan in (None, overlap_plan(b, k, cluster=1, threads=32),
+                 overlap_plan(b, k, cluster=4, threads=256), overlap_plan(b, k, cluster=16)):
+        build.reset_launch_counts()
+        got = anchor_overlap_stats(*args, plan=plan)
+        assert build.LAUNCH_COUNTS["overlap"] == 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), plan
+
+
+def test_overlap_launcher_refuses_a_plan_not_its_own(dev, rng):
+    args = [a.to(dev) for a in _overlap_args(rng, "mixed")]
+    plan = overlap_plan(3, args[0].shape[0], cluster=4)
+    for bad in ({**plan, "smem_bytes": plan["smem_bytes"] + 8},     # not the masks' size
+                {**plan, "segment": plan["segment"] - 32,           # does not cover K
+                 "smem_bytes": plan["smem_bytes"] - 8},
+                {**plan, "threads": 48}):                           # not whole warps
+        with pytest.raises(RuntimeError):
+            anchor_overlap_stats(*args, plan=bad)
 
 
 def _select_rows(rng, case):
