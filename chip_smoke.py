@@ -4,7 +4,7 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only kernels   # stop after the kernel phases (1-11)
     python3 chip_smoke.py --profile        # and stage breakdowns of the two train
-                                           # steps and of FPN detect (20-22)
+                                           # steps and of FPN detect (23-25)
 
 Phases, each of which raises on failure (the script then exits non-zero):
   0. the card: name and power limit from nvidia-smi, torch/CUDA versions;
@@ -80,18 +80,47 @@ Phases, each of which raises on failure (the script then exits non-zero):
      device memory (as in 16, beside the figure of the f32-accumulator
      backward);
  19. one f32 FPN train step on the card and on a CPU copy, as 17;
- 20. (with ``--profile``) CUDA events around each stage of a steady-state
+ 20. (a) ``train_net`` at full width: res50 C4, batch 8, 608x1024, bf16 trunk,
+     over a synthetic VOC devkit written into a temporary directory
+     (Annotations XML and ImageSets on disk, the pixels from a seeded numpy
+     reader, so that no image codec is needed), 16 images and their
+     flips.  Run A: 6 iterations straight (SNAPSHOT_ITERS 100: the final
+     snapshot only), with its launch counts per step (those of 16), every
+     parameter and buffer on cuda:0 and finite losses in train_log.jsonl;
+     the median iteration time (prefetch thread on) beside 16's step time.
+     A again: if the two straight runs differ, both again under
+     ``cudnn.deterministic``, and if they still differ, the ops PyTorch names
+     as nondeterministic are printed and the spread is the tolerance below.
+     Run B: 3 iterations (SNAPSHOT_ITERS 3), then a new ``train_net`` on the
+     same directory to 6, which must resume at 3; B's final state_dict
+     equals A's bit for bit; the .pth/.pkl pairs on disk, pruned to
+     SNAPSHOT_KEPT 1;
+ 21. (b) ``test_net`` at full width over the devkit's test split (16 images
+     at 800x1216, batch 8, bf16, TEST.SCORE_THRESH 0.0): 20's model loaded
+     from its final snapshot, and a seeded res50_fpn; detections.pkl read
+     back, the per-class APs and the mAP finite in [0, 1], the launch
+     counts per batch those of 12 and 14; images/s of each beside
+     ``Detector``'s;
+ 22. (c) ``test_net`` in f32 over the devkit's 4 val images (320x480) on the
+     card and on a CPU copy of the same model: detections matched one to
+     one per image and class (the tolerances of 13); then ``im_detect`` of
+     the first image on each (K1 once, K2 once on the card, the model moved
+     there by default): its valid rois, rows of per-class scores and boxes,
+     matched one to one;
+ 23. (with ``--profile``) CUDA events around each stage of a steady-state
      train step and torch.profiler over 3 steps: stage times, the device's
      idle share, the top kernels and K4's device time (one launch a step),
      also in chiprun_out/profile_train.json;
- 21. (with ``--profile``) the same for a steady-state FPN detect batch,
+ 24. (with ``--profile``) the same for a steady-state FPN detect batch,
      into chiprun_out/profile_fpn.json;
- 22. (with ``--profile``) the same (K4 too) for a steady-state FPN train step, into
+ 25. (with ``--profile``) the same (K4 too) for a steady-state FPN train step, into
      chiprun_out/profile_fpn_train.json, with every device kernel of the RoI
      pool's forward and backward alone (K6b one launch, no memset or
      rounding kernel).
 Then one JSON line of per-kernel results, the card line, and, last, the
-JSON ok line.  Each kernel's line carries its launches on the four paths,
+JSON ok line.  Each kernel's line carries its launches on the four paths of
+12-19 (``launches``; ``launches_by_path`` adds the driven runs of 20 (A) and
+21), each counted from zero,
 its error against the twin, its time, the twin's, the time of the one
 library call that computes the same function where there is one, and its
 bound: the least time the card could take for the timed launches, from the
@@ -106,9 +135,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -1131,7 +1162,7 @@ def build_seeded(cfg, dtype, seed=0, net="res50"):
 
 
 def main_path(dev, card):
-    from frcnn_tpu_torch.engine.serve import Detector
+    from frcnn_tpu_torch.engine.serve import Detector, iter_bucket_batches
     from frcnn_tpu_torch.ops.cuda import build
 
     cfg = smoke_config()
@@ -1146,7 +1177,7 @@ def main_path(dev, card):
                 for _ in range(3)]
 
     # finite trunk activations at full size (outside the counted window)
-    blob = np.stack([item[1] for item in detector._prep_groups(requests[0])[(bh, bw)]])
+    (_, blob, _), = iter_bucket_batches(requests[0], cfg, keep_uint8=True)
     with torch.inference_mode():
         from frcnn_tpu_torch.models.backbones import preprocess_images
 
@@ -1185,7 +1216,7 @@ def main_path(dev, card):
     ms = cuda_ms(lambda: detector.detect_blobs(data, im_info), iters=10, warmup=2)
     log(f"serving path steady state (batch 8, {bh}x{bw}, bf16 trunk): {ms:.3f} ms per batch "
         f"(median of 10, CUDA events), {8000.0 / ms:.2f} images/s on {card}")
-    return counts
+    return counts, ms
 
 
 def match_dets(want, got, label, score_atol=1e-3, box_atol=5e-2):
@@ -1201,6 +1232,23 @@ def match_dets(want, got, label, score_atol=1e-3, box_atol=5e-2):
         if not len(cand):
             raise AssertionError(f"{label}: no card detection matches CPU row {row}")
         used[cand[0]] = True
+
+
+def match_im_detect(want, got, label, score_atol=1e-3, box_atol=5e-2):
+    """One-to-one match of ``im_detect``'s valid rois, each a row of per-class
+    scores and boxes; the order of the rois may differ."""
+    ws, wb, gs, gb = want[0][want[2]], want[1][want[2]], got[0][got[2]], got[1][got[2]]
+    if len(ws) != len(gs) or len(ws) == 0:
+        raise AssertionError(f"{label}: CPU kept {len(ws)} rois, card kept {len(gs)}")
+    used = np.zeros(len(gs), bool)
+    for s, b in zip(ws, wb):
+        cand = np.where(~used & (np.abs(gs - s).max(axis=1) <= score_atol)
+                        & (np.abs(gb - b).max(axis=1) <= box_atol))[0]
+        if not len(cand):
+            raise AssertionError(f"{label}: no card roi matches a CPU roi (best score gap "
+                                 f"{np.abs(gs - s).max(axis=1).min():.3g})")
+        used[cand[0]] = True
+    return len(ws)
 
 
 def end_to_end(dev):
@@ -1224,6 +1272,9 @@ def end_to_end(dev):
         f"copy (twins): {len(want)} detections, score atol 1e-3, box atol 5e-2")
 
 
+# per C4 detect batch at 800x1216: the proposal NMS and the per-class NMS, one
+# RoIAlign, the 6 stride-1 blocks of layer1-2
+SERVE_LAUNCHES = {"nms": 2, "roi_align": 1, "fused_block": 6}
 # per FPN detect batch at 800x1216: the 6 stride-1 blocks of layer1-2, K5 on
 # the P2 and P3 rows, the proposal NMS and the per-class NMS, one K6 launch
 FPN_LAUNCHES = {"fused_block": 6, "select": 2, "nms": 2, "roi_align_ml": 1}
@@ -1273,7 +1324,7 @@ def check_rpn_logits(model, pyramid):
 
 
 def fpn_path(dev, card):
-    from frcnn_tpu_torch.engine.serve import Detector
+    from frcnn_tpu_torch.engine.serve import Detector, iter_bucket_batches
     from frcnn_tpu_torch.ops.cuda import build
 
     cfg = smoke_config()
@@ -1285,7 +1336,7 @@ def fpn_path(dev, card):
                 for _ in range(3)]
 
     # finite pyramid activations at full size (outside the counted window)
-    blob = np.stack([item[1] for item in detector._prep_groups(requests[0])[(bh, bw)]])
+    (_, blob, _), = iter_bucket_batches(requests[0], cfg, keep_uint8=True)
     with torch.inference_mode():
         pyramid = model._pyramid(torch.from_numpy(blob).to(dev))
     for level, p in enumerate(pyramid, start=2):
@@ -1323,7 +1374,7 @@ def fpn_path(dev, card):
     ms = cuda_ms(lambda: detector.detect_blobs(data, im_info), iters=10, warmup=2)
     log(f"FPN serving path steady state (res50_fpn, batch 8, {bh}x{bw}, bf16 trunk): {ms:.3f} ms "
         f"per batch (median of 10, CUDA events), {8000.0 / ms:.2f} images/s on {card}")
-    return counts, detector, data, im_info
+    return counts, detector, data, im_info, ms
 
 
 def fpn_end_to_end(dev):
@@ -1464,7 +1515,7 @@ def train_path(dev, card, net="res50", per_step=TRAIN_LAUNCHES):
         f"{TRAIN_B * 1000.0 / ms:.2f} images/s, peak device memory {peak:.3f} GiB on {card} "
         f"({PEAK_WITH_F32_ACCUMULATOR_GIB[net]:.3f} GiB when the RoI backward accumulated into "
         "an f32 scratch buffer, PERF.md)")
-    return counts, solver
+    return counts, solver, ms
 
 
 # (net, config cuts, anchors at 320x480, proposals, launches on the card,
@@ -1535,6 +1586,305 @@ def train_card_vs_cpu(dev, net="res50"):
     log(f"f32 {net} train step, card ({card_ran}) vs CPU copy (twins), 320x480, batch 2: losses "
         f"{cpu_l} within 1e-4 relative; updates within 1e-3 of max|delta| "
         f"({ {k_: f'{v:.2e}' for k_, v in worst.items()} })")
+
+
+# ---------------------------------------------------------------------------
+# The train -> snapshot -> resume -> test -> evaluate path
+# ---------------------------------------------------------------------------
+
+def devkit_shapes(rng):
+    """Image shapes of the synthetic devkit's splits, each image's short side
+    at its split's scale so that nothing is resized: trainval at the train
+    path's 600 (16 images, 32 entries with the flips: 4 batches of 8 an
+    epoch), test at the serving bucket's 800 (two batches of 8), val at 320
+    for the card-vs-CPU comparison."""
+    return {"trainval": [(600, int(w)) for w in rng.randint(800, 1001, 16)],
+            "test": [(800, int(w)) for w in rng.randint(1000, 1217, 16)],
+            "val": [(320, 480)] * 4}
+
+
+def write_voc_devkit(root, splits, rng):
+    """A VOCdevkit2007 under ``root`` for a machine without an image codec:
+    Annotations XML and ImageSets written with the standard library, an
+    empty placeholder for each JPEGImages path, and a reader (image path →
+    BGR uint8 array) that serves the pixels: ``synthetic_images`` with each
+    annotated box painted flat.  ``splits``: {split: [(h, w), ...]}, each
+    split with images of its own."""
+    import xml.etree.ElementTree as ET
+
+    from frcnn_tpu_torch.data.pascal_voc import VOC_CLASSES
+
+    voc = os.path.join(root, "VOCdevkit2007", "VOC2007")
+    for sub in ("Annotations", os.path.join("ImageSets", "Main"), "JPEGImages"):
+        os.makedirs(os.path.join(voc, sub), exist_ok=True)
+    pixels = {}
+    for split, shapes in splits.items():
+        names = []
+        for im, (h, w) in zip(synthetic_images(rng, shapes), shapes):
+            name = f"{len(pixels):06d}"
+            ann = ET.Element("annotation")
+            size = ET.SubElement(ann, "size")
+            for tag, v in (("width", w), ("height", h), ("depth", 3)):
+                ET.SubElement(size, tag).text = str(v)
+            for _ in range(rng.randint(3, 13)):
+                bw, bh = rng.randint(w // 10, w // 2), rng.randint(h // 10, h // 2)
+                x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+                im[y1:y1 + bh, x1:x1 + bw] = rng.randint(0, 255, 3)
+                obj = ET.SubElement(ann, "object")
+                ET.SubElement(obj, "name").text = VOC_CLASSES[rng.randint(1, len(VOC_CLASSES))]
+                ET.SubElement(obj, "difficult").text = "0"
+                box = ET.SubElement(obj, "bndbox")
+                for tag, v in (("xmin", x1), ("ymin", y1), ("xmax", x1 + bw - 1),
+                               ("ymax", y1 + bh - 1)):
+                    ET.SubElement(box, tag).text = str(v + 1)          # VOC pixels are 1-based
+            ET.ElementTree(ann).write(os.path.join(voc, "Annotations", name + ".xml"))
+            path = os.path.join(voc, "JPEGImages", name + ".jpg")
+            open(path, "wb").close()
+            pixels[path] = im
+            names.append(name)
+        with open(os.path.join(voc, "ImageSets", "Main", split + ".txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return pixels.__getitem__
+
+
+def state_spread(a, b):
+    """(bit-equal, max |a - b|) over the tensors of two state_dicts."""
+    equal, worst = True, 0.0
+    for name, x in a.items():
+        if not torch.equal(x, b[name]):
+            equal = False
+            worst = max(worst, (x.float() - b[name].float()).abs().max().item())
+    return equal, worst
+
+
+def nondeterministic_ops(step):
+    """The ops PyTorch names as having no deterministic CUDA implementation,
+    from the warnings of one call of ``step`` under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have a deterministic")[0]
+                   for w in caught if "deterministic" in str(w.message)})
+
+
+def read_train_log(out):
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_net_path(dev, card, step_ms, workdir, reader):
+    """``train_net`` at full width over the synthetic devkit: A straight to 6
+    iterations (twice, to see whether the card's step is deterministic), B
+    to 3 with a snapshot, then a new ``train_net`` on B's directory to 6;
+    B's final state_dict against A's.  Returns (A's final snapshot, A's
+    launch counts, the median iteration time in ms)."""
+    import dataclasses
+
+    from frcnn_tpu_torch.engine.train import combined_roidb, train_net
+    from frcnn_tpu_torch.ops.cuda import build
+
+    base = train_config(["DATA_DIR", workdir, "TRAIN.SNAPSHOT_KEPT", "1"])
+    imdb, roidb = combined_roidb("voc_2007_trainval", base, reader=reader)
+    if len(roidb) != 32:
+        raise AssertionError(f"train_net: {len(roidb)} roidb entries, not 16 images + flips")
+
+    def run(name, iters, snapshot_iters):
+        cfg = dataclasses.replace(base, TRAIN=dataclasses.replace(
+            base.TRAIN, SNAPSHOT_ITERS=snapshot_iters))
+        out = os.path.join(workdir, name)
+        solver = train_net(build_seeded(cfg, torch.bfloat16), imdb, roidb, None, out, cfg=cfg,
+                           max_iters=iters, reader=reader)      # no device given: the card
+        torch.cuda.synchronize()
+        return solver, out
+
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        sw_a, out_a = run("a", 6, 100)
+        counts = dict(build.LAUNCH_COUNTS)
+        want = {name: 6 * n for name, n in TRAIN_LAUNCHES.items()}
+        if counts != want:
+            raise AssertionError(f"train_net launch counts {counts} != {want} "
+                                 f"({TRAIN_LAUNCHES} per step, as the train path)")
+        off = [n for n, t in list(sw_a.model.named_parameters()) + list(sw_a.model.named_buffers())
+               if t.device != dev]
+        if sw_a.device != dev or off:
+            raise AssertionError(f"train_net: solver on {sw_a.device}, tensors off {dev}: {off}")
+        log_a = read_train_log(out_a)
+        if [r["iter"] for r in log_a] != list(range(1, 7)) or not all(
+                np.isfinite(v) for r in log_a for k, v in r.items() if k not in ("iter", "ts")):
+            raise AssertionError(f"train_net: train_log.jsonl {log_a}")
+        iter_ms = statistics.median(1000.0 * (log_a[k]["ts"] - log_a[k - 1]["ts"])
+                                    for k in range(2, 6))
+        log(f"train_net path (res50 C4, batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, bf16 trunk, "
+            f"{len(roidb)}-entry devkit roidb): 6 iterations, launches per step "
+            f"{ {k: v // 6 for k, v in counts.items()} } (the train path's), every parameter and "
+            f"buffer on {dev}, losses finite ({log_a[0]['total_loss']:.4f} -> "
+            f"{log_a[-1]['total_loss']:.4f})")
+        log(f"train_net iteration (prefetch thread on; the batch's host prep, host-to-device copy, "
+            f"step and loss readback): {iter_ms:.3f} ms, median of iterations 3-6 from "
+            f"train_log.jsonl, against the train path's train_step {step_ms:.3f} ms on a "
+            f"device-resident batch; on {card}")
+
+        sw_a2, _ = run("a_again", 6, 100)
+        equal, spread = state_spread(sw_a.model.state_dict(), sw_a2.model.state_dict())
+        culprits = []
+        if not equal:
+            log(f"train_net: two straight runs differ (max |delta| {spread:.3e}); again with "
+                "torch.backends.cudnn.deterministic = True")
+            torch.backends.cudnn.deterministic = True
+            sw_a, out_a = run("a_det", 6, 100)
+            sw_a2, _ = run("a_det_again", 6, 100)
+            equal, spread = state_spread(sw_a.model.state_dict(), sw_a2.model.state_dict())
+            if not equal:
+                blobs = sw_a2.data_layer.forward()
+                culprits = nondeterministic_ops(lambda: sw_a2.train_step(blobs))
+                log(f"train_net: straight runs still differ under deterministic cuDNN: max "
+                    f"|delta| {spread:.3e}; ops without a deterministic CUDA implementation: "
+                    f"{culprits or 'none named'}")
+        log(f"train_net: two straight runs {'bit-equal' if equal else f'spread {spread:.3e}'} "
+            f"(cudnn.deterministic {torch.backends.cudnn.deterministic})")
+
+        sw_b, out_b = run("b", 3, 3)
+        files = sorted(os.listdir(out_b))
+        if files != ["default_iter_3.pkl", "default_iter_3.pth", "train_log.jsonl"]:
+            raise AssertionError(f"train_net B to 3: files {files}")
+        sw_b, _ = run("b", 6, 100)                          # resumes from iter 3
+        files = sorted(os.listdir(out_b))
+        if files != ["default_iter_6.pkl", "default_iter_6.pth", "train_log.jsonl"]:
+            raise AssertionError(f"train_net B resumed to 6: files {files} (SNAPSHOT_KEPT 1)")
+        log_b = read_train_log(out_b)
+        if [r["iter"] for r in log_b] != list(range(1, 7)):
+            raise AssertionError(f"train_net B did not resume at iteration 3: logged "
+                                 f"{[r['iter'] for r in log_b]}")
+        b_equal, b_spread = state_spread(sw_a.model.state_dict(), sw_b.model.state_dict())
+        if equal and not b_equal:
+            raise AssertionError(f"train_net: resumed run differs from the straight run, "
+                                 f"max |delta| {b_spread:.3e}, where two straight runs are "
+                                 "bit-equal")
+        if not equal and not b_spread <= spread:
+            raise AssertionError(f"train_net: resumed run off by {b_spread:.3e}, beyond the "
+                                 f"spread of two straight runs {spread:.3e} ({culprits})")
+        log(f"train_net resume: 3 iterations, snapshot, a new train_net on the same directory "
+            f"to 6 (resumed at 3; SNAPSHOT_KEPT 1 pruned iter 3): final state_dict "
+            + ("bit-equal to the straight run's" if b_equal else
+               f"within {b_spread:.3e} of the straight run's (straight runs' spread "
+               f"{spread:.3e})"))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return os.path.join(out_a, "default_iter_6.pth"), counts, iter_ms
+
+
+def test_net_path(dev, card, workdir, reader, snapshot, serve_ms):
+    """``test_net`` at full width over the devkit's test split (16 images at
+    800x1216, batch 8): phase (a)'s C4 model from its snapshot and a seeded
+    res50_fpn.  Returns the launch counts of each run."""
+    import pickle
+
+    from frcnn_tpu_torch.data.factory import get_imdb
+    from frcnn_tpu_torch.engine.checkpoint import load_params
+    from frcnn_tpu_torch.engine.test import test_net
+    from frcnn_tpu_torch.models.network import build_model
+    from frcnn_tpu_torch.ops.cuda import build
+
+    cfg = smoke_config(["DATA_DIR", workdir])
+    imdb = get_imdb("voc_2007_test", data_dir=workdir)
+    c4 = build_model("res50", 21, cfg, dtype=torch.bfloat16)
+    c4.load_state_dict(load_params(snapshot))
+    nets = (("res50", c4.eval(), SERVE_LAUNCHES, serve_ms[0]),
+            ("res50_fpn", build_seeded(cfg, torch.bfloat16, net="res50_fpn"), FPN_LAUNCHES,
+             serve_ms[1]))
+    all_counts = []
+    for net, model, per_batch, batch_ms in nets:
+        out = os.path.join(workdir, "test_" + net)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        aps = test_net(model, imdb, cfg, out, max_per_image=100, batch=8, reader=reader)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(build.LAUNCH_COUNTS)
+        want = {name: 2 * n for name, n in per_batch.items()}
+        if counts != want or next(model.parameters()).device != dev:
+            raise AssertionError(f"test_net {net}: launch counts {counts} != {want} ({per_batch} "
+                                 f"per batch), model on {next(model.parameters()).device}")
+        with open(os.path.join(out, "detections.pkl"), "rb") as f:
+            all_boxes = pickle.load(f)
+        if len(all_boxes) != 21 or any(len(c) != 16 for c in all_boxes) or not all(
+                b.ndim == 2 and b.shape[1] == 5 and np.isfinite(b).all()
+                for c in all_boxes for b in c):
+            raise AssertionError(f"test_net {net}: malformed detections.pkl")
+        n_det = sum(len(b) for c in all_boxes for b in c)
+        if n_det == 0 or not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in aps.values()) \
+                or len(aps) != 21:
+            raise AssertionError(f"test_net {net}: {n_det} detections, APs {aps}")
+        log(f"test_net {net} (16 images at 800x1216, batch 8, bf16 trunk, SCORE_THRESH 0.0): "
+            f"detections.pkl read back ({n_det} detections), 20 per-class APs and mAP "
+            f"{aps['mAP']:.4f} finite in [0, 1]; launches per batch "
+            f"{ {k: v // 2 for k, v in counts.items()} }; {16 / seconds:.2f} images/s end to end "
+            f"(reader, prep thread, detect, readback, VOC eval; {seconds:.3f} s) against "
+            f"Detector.detect_blobs' {8000.0 / batch_ms:.2f} on a device-resident batch; on {card}")
+        all_counts.append(counts)
+    return all_counts
+
+
+def test_net_card_vs_cpu(dev, workdir, reader):
+    """``test_net`` in f32 over the devkit's 4 val images (320x480) on the
+    card and on a CPU copy of the same model: detections matched one to one
+    per image and class; then ``im_detect`` of the first image on each,
+    its rois matched one to one."""
+    import pickle
+
+    from frcnn_tpu_torch.data.factory import get_imdb
+    from frcnn_tpu_torch.engine.test import im_detect, test_net
+    from frcnn_tpu_torch.ops.cuda import build
+
+    cfg = smoke_config(["TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480", "DATA_DIR", workdir,
+                        "DEVICE.BUCKETS", "((320, 480),)", "TEST.SCORE_THRESH", "0.05"])
+    imdb = get_imdb("voc_2007_val", data_dir=workdir)
+    dets, ran, single, single_ran = [], [], [], []
+    for device in (None, "cpu"):                              # None: the card
+        out = os.path.join(workdir, f"val_{device or 'card'}")
+        model = build_seeded(cfg, torch.float32, seed=1)
+        before = dict(build.LAUNCH_COUNTS)
+        test_net(model, imdb, cfg, out, batch=4, reader=reader, device=device)
+        ran.append({k: v - before.get(k, 0) for k, v in build.LAUNCH_COUNTS.items()
+                    if v != before.get(k, 0)})
+        before = dict(build.LAUNCH_COUNTS)
+        single.append(im_detect(model, reader(imdb.image_path_at(0)), cfg, device=device))
+        single_ran.append({k: v - before.get(k, 0) for k, v in build.LAUNCH_COUNTS.items()
+                           if v != before.get(k, 0)})
+        if device is None and next(model.parameters()).device != dev:
+            raise AssertionError(f"im_detect left the model on {next(model.parameters()).device}")
+        with open(os.path.join(out, "detections.pkl"), "rb") as f:
+            all_boxes = pickle.load(f)
+        dets.append([np.concatenate([np.concatenate([c[i], np.full((len(c[i]), 1), float(k))], 1)
+                                     for k, c in enumerate(all_boxes)]) for i in range(4)])
+    if ran != [{"nms": 2, "roi_align": 1}, {}]:
+        raise AssertionError(f"f32 test_net launches: card {ran[0]} (want K1 x2, K2 x1), CPU {ran[1]}")
+    total = 0
+    for i, (got, want) in enumerate(zip(*dets)):
+        match_dets(want, got, f"f32 test_net image {i}, card vs CPU")
+        total += len(want)
+    if total == 0:
+        raise AssertionError("f32 test_net: no detections to compare")
+    if single_ran != [{"nms": 1, "roi_align": 1}, {}]:
+        raise AssertionError(f"f32 im_detect launches: card {single_ran[0]} (want K1 x1, K2 x1), "
+                             f"CPU {single_ran[1]}")
+    rois = match_im_detect(single[1], single[0], "f32 im_detect, card vs CPU")
+    log(f"test_net end to end (f32, TF32 off, 4 images at 320x480, batch 4): card (K1 x2, K2 x1) "
+        f"matches the CPU copy per image and class: {total} detections, score atol 1e-3, "
+        f"box atol 5e-2; im_detect of image 0 on the card (K1 x1, K2 x1, model on {dev}): "
+        f"{rois} rois of per-class scores and boxes matched to the CPU copy's, the same "
+        "tolerances")
 
 
 # (owner, attribute, stage) of the calls train_forward makes, in order; the
@@ -1839,14 +2189,24 @@ def main(argv=None) -> int:
         print(card)
         return 0
 
-    serve_counts = main_path(dev, card)
+    serve_counts, serve_ms = main_path(dev, card)
     end_to_end(dev)
-    fpn_counts, fpn_detector, fpn_data, fpn_info = fpn_path(dev, card)
+    fpn_counts, fpn_detector, fpn_data, fpn_info, fpn_ms = fpn_path(dev, card)
     fpn_end_to_end(dev)
-    train_counts, solver = train_path(dev, card)
+    train_counts, solver, train_ms = train_path(dev, card)
     train_card_vs_cpu(dev)
-    fpn_train_counts, fpn_solver = train_path(dev, card, "res50_fpn", FPN_TRAIN_LAUNCHES)
+    fpn_train_counts, fpn_solver, _ = train_path(dev, card, "res50_fpn", FPN_TRAIN_LAUNCHES)
     train_card_vs_cpu(dev, "res50_fpn")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_voc_")
+    try:
+        reader = write_voc_devkit(workdir, devkit_shapes(np.random.RandomState(6)),
+                                  np.random.RandomState(7))
+        snapshot, train_net_counts, _ = train_net_path(dev, card, train_ms, workdir, reader)
+        c4_test_counts, fpn_test_counts = test_net_path(dev, card, workdir, reader, snapshot,
+                                                        (serve_ms, fpn_ms))
+        test_net_card_vs_cpu(dev, workdir, reader)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     if args.profile:
         profile_train_step(solver, card)
         profile_fpn_detect(fpn_detector, fpn_data, fpn_info, card)
@@ -1855,12 +2215,16 @@ def main(argv=None) -> int:
     # the TPU kernels served by a kernel that stands for another one
     also = {"nms": ("frcnn_tpu/ops/pallas/nms_kernel.py:128", k1b),
             "roi_align_ml": ("frcnn_tpu/ops/pallas/roi_align_kernel.py:609", None)}
+    # launches: the four paths of 12-19, as before the driven runs existed;
+    # the driven runs of 20 (A) and 21 are reported beside them by path
     paths = {"c4_serve": serve_counts, "fpn_serve": fpn_counts, "c4_train": train_counts,
              "fpn_train": fpn_train_counts}
+    driven = {"c4_train_net": train_net_counts, "c4_test_net": c4_test_counts,
+              "fpn_test_net": fpn_test_counts}
     kernels = []
     for name, src, rep in KERNELS:
-        by_path = {path: c.get(name, 0) for path, c in paths.items()}
-        launches = sum(by_path.values())
+        by_path = {path: c.get(name, 0) for path, c in {**paths, **driven}.items()}
+        launches = sum(by_path[path] for path in paths)
         if launches == 0:
             raise AssertionError(f"kernel {name} was not launched on a main path")
         missing = [key for key in RESULTS_KEYS if key not in results[name]]

@@ -16,6 +16,7 @@ Differences from the JAX package:
 from __future__ import annotations
 
 import dataclasses
+import os
 import os.path as osp
 from dataclasses import dataclass, field
 from typing import Any, Tuple
@@ -277,3 +278,18 @@ def cfg_from_file(config: Config, filename: str) -> Config:
         return config
 
     return rec(config, "", data)
+
+
+def get_output_dir(config: Config, imdb_name: str, tag: str | None = None) -> str:
+    """ROOT_DIR/output/EXP_DIR/<imdb>/<tag or default>, created (reference
+    ``get_output_dir``): snapshots, the train log and test detections."""
+    out = osp.join(config.ROOT_DIR, "output", config.EXP_DIR, imdb_name, tag or "default")
+    os.makedirs(out, exist_ok=True)
+    return out
+
+
+def get_output_tb_dir(config: Config, imdb_name: str, tag: str | None = None) -> str:
+    """ROOT_DIR/tensorboard/EXP_DIR/<imdb>/<tag or default>, created."""
+    out = osp.join(config.ROOT_DIR, "tensorboard", config.EXP_DIR, imdb_name, tag or "default")
+    os.makedirs(out, exist_ok=True)
+    return out

@@ -1,9 +1,10 @@
-"""Image preparation and training minibatches (``frcnn_tpu/data/loader.py``),
-without cv2: ``pick_scale_and_bucket``, ``prep_im_for_blob``,
-``snap_to_bucket``, ``im_list_to_blob``, ``get_minibatch`` and
-``RoIDataLayer``.  Images come from a ``reader`` callable (image path →
-BGR uint8 array); the JAX package's native C++ prep and image caches are
-not ported.
+"""Image preparation and training minibatches (``frcnn_tpu/data/loader.py``):
+``pick_scale_and_bucket``, ``prep_im_for_blob``, ``snap_to_bucket``,
+``im_list_to_blob``, ``get_minibatch`` and ``RoIDataLayer``.  Images come
+from a ``reader`` callable (image path → BGR uint8 array); the default,
+``read_image``, is ``cv2.imread``, and cv2 is imported only there, so a
+machine without cv2 passes its own reader.  The JAX package's native C++
+prep and image caches are not ported.
 
 The resize is bilinear in numpy with the sampling of
 ``cv2.resize(im, None, fx=scale, fy=scale, interpolation=INTER_LINEAR)``:
@@ -15,6 +16,19 @@ tests bound the difference from cv2.
 from __future__ import annotations
 
 import numpy as np
+
+
+def read_image(path: str):
+    """The default reader: ``cv2.imread`` → (H, W, 3) BGR uint8."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("reading image files needs cv2 (OpenCV), which is not installed; "
+                          "pass reader= (image path -> BGR uint8 array)") from e
+    im = cv2.imread(path)
+    if im is None:
+        raise ValueError(f"failed to read {path}")
+    return im
 
 
 def pick_scale_and_bucket(h: int, w: int, target_size: int, max_size: int, buckets):
@@ -104,9 +118,8 @@ def get_minibatch(roidb, cfg, rng=None, reader=None):
     raw BGR float32, im_info (B, 3) [h, w, scale] of the scaled unpadded
     image, gt_boxes (B, MAX_GT, 4) scaled, gt_labels (B, MAX_GT) int32,
     gt_valid (B, MAX_GT) bool.  ``reader`` maps ``entry["image"]`` to a BGR
-    uint8 array."""
-    if reader is None:
-        raise ValueError("get_minibatch needs a reader callable (image path -> BGR array)")
+    uint8 array (default ``read_image``)."""
+    reader = reader or read_image
     rng = rng or np.random
     t = cfg.TRAIN
     buckets = cfg.DEVICE.BUCKETS
@@ -160,17 +173,24 @@ class RoIDataLayer:
     """Epoch-less minibatch iterator over a shuffled permutation (reference
     lib/roi_data_layer/layer.py), seeded with RNG_SEED.  With batches of
     several images and both bucket orientations configured, each batch is
-    orientation-pure, as in the JAX package."""
+    orientation-pure, as in the JAX package.  ``random=True`` (the
+    validation layer) reseeds each epoch from the global numpy RNG.
+    ``get_state``/``set_state`` carry the cursor, the permutation and the
+    RNG for an exact resume."""
 
-    def __init__(self, roidb, cfg, reader=None):
+    def __init__(self, roidb, cfg, random: bool = False, batch_size: int | None = None,
+                 reader=None):
         self._roidb = roidb
         self._cfg = cfg
-        self._batch = cfg.TRAIN.IMS_PER_BATCH
+        self._random = random
+        self._batch = batch_size or cfg.TRAIN.IMS_PER_BATCH
         self._reader = reader
         self._rng = np.random.RandomState(cfg.RNG_SEED)
         self._shuffle_roidb_inds()
 
     def _shuffle_roidb_inds(self):
+        if self._random:
+            self._rng = np.random.RandomState(np.random.randint(0, 2**31 - 1))
         group = self._cfg.TRAIN.ASPECT_GROUPING or (
             self._batch > 1 and len(self._cfg.DEVICE.BUCKETS) > 1)
         if group and len(self._roidb) > 0:
@@ -210,3 +230,11 @@ class RoIDataLayer:
         inds = self._get_next_minibatch_inds()
         return get_minibatch([self._roidb[i] for i in inds], self._cfg, self._rng,
                              reader=self._reader)
+
+    def get_state(self):
+        return {"cur": self._cur, "perm": np.array(self._perm), "rng": self._rng.get_state()}
+
+    def set_state(self, state):
+        self._cur = int(state["cur"])
+        self._perm = np.asarray(state["perm"])
+        self._rng.set_state(state["rng"])

@@ -5,21 +5,32 @@ from __future__ import annotations
 
 import numpy as np
 
+from frcnn_tpu_torch.data import loader
+
+
+def _image_sizes(imdb, image_size=None):
+    """(height, width) of every roidb entry: the entry's own when it has
+    both, else ``image_size(path)`` (default: the image read by
+    ``loader.read_image``), read once per path."""
+    image_size = image_size or (lambda path: loader.read_image(path).shape[:2])
+    cache, sizes = {}, []
+    for i, entry in enumerate(imdb.roidb):
+        if "height" in entry and "width" in entry:
+            sizes.append((entry["height"], entry["width"]))
+            continue
+        path = imdb.image_path_at(i)
+        if path not in cache:
+            cache[path] = tuple(image_size(path))
+        sizes.append(cache[path])
+    return sizes
+
 
 def prepare_roidb(imdb, image_size=None):
-    """Enrich ``imdb.roidb`` in place.  An entry's (height, width) comes from
-    the entry when it has both, else from ``image_size(path)``; a flipped
-    entry has its original's size."""
-    sizes = {}
-    for i, entry in enumerate(imdb.roidb):
-        path = imdb.image_path_at(i)
-        entry["image"] = path
-        if "height" not in entry or "width" not in entry:
-            if path not in sizes:
-                if image_size is None:
-                    raise ValueError(f"no size for {path}: pass image_size=")
-                sizes[path] = image_size(path)
-            entry["height"], entry["width"] = sizes[path]
+    """Enrich ``imdb.roidb`` in place with each entry's image path, its
+    (height, width) from ``_image_sizes``, and max_overlaps / max_classes."""
+    for i, (entry, (h, w)) in enumerate(zip(imdb.roidb, _image_sizes(imdb, image_size))):
+        entry["image"] = imdb.image_path_at(i)
+        entry["height"], entry["width"] = h, w
         gt_overlaps = np.asarray(entry["gt_overlaps"])
         if len(gt_overlaps):
             entry["max_overlaps"] = gt_overlaps.max(axis=1)

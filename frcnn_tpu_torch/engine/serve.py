@@ -14,6 +14,41 @@ from frcnn_tpu_torch.data.loader import prep_im_for_blob
 from frcnn_tpu_torch.engine import resolve_device
 
 
+def prep_image(im, cfg: Config, keep_uint8: bool = False):
+    """One BGR image → (blob (bh, bw, 3) resized to TEST.SCALES[0] and padded
+    into its bucket, im_info (3,) float32 [h, w, scale] of the scaled
+    image)."""
+    blob, scale = prep_im_for_blob(im, cfg.TEST.SCALES[0], cfg.TEST.MAX_SIZE,
+                                   cfg.DEVICE.BUCKETS, keep_uint8=keep_uint8)
+    h, w = im.shape[:2]
+    return blob, np.array([np.round(h * scale), np.round(w * scale), scale], np.float32)
+
+
+def iter_bucket_batches(images, cfg: Config, batch: int | None = None,
+                        keep_uint8: bool = False):
+    """Resize/pad each image of the iterable ``images`` into its bucket and
+    yield (indices, data (b, bh, bw, 3), im_info (b, 3)): a batch never
+    mixes bucket shapes.  A bucket's batch is yielded once it holds
+    ``batch`` images (None: no cap), the part-filled ones at the end in
+    the order their buckets first appeared."""
+    pending: dict = {}
+    for i, im in enumerate(images):
+        blob, info = prep_image(im, cfg, keep_uint8=keep_uint8)
+        group = pending.setdefault(blob.shape[:2], [])
+        group.append((i, blob, info))
+        if len(group) == batch:
+            yield _stack(group)
+            pending[blob.shape[:2]] = []
+    for group in pending.values():
+        if group:
+            yield _stack(group)
+
+
+def _stack(group):
+    return ([i for i, _, _ in group], np.stack([blob for _, blob, _ in group]),
+            np.stack([info for _, _, info in group]))
+
+
 class Detector:
     """Batched detection service.  The model is moved to ``device``:
     ``cuda:0`` by default (a ``RuntimeError`` when there is no card),
@@ -35,20 +70,6 @@ class Detector:
         # the cast and mean subtraction run on the device either way
         self.uint8_input = uint8_input
 
-    def _prep_groups(self, images):
-        """Resize/pad each image and group by bucket: a batch never mixes
-        bucket shapes.  Returns {bucket_hw: [(orig_idx, blob, info), ...]}."""
-        groups: dict = {}
-        for i, im in enumerate(images):
-            blob, scale = prep_im_for_blob(im, self.cfg.TEST.SCALES[0],
-                                           self.cfg.TEST.MAX_SIZE,
-                                           self.cfg.DEVICE.BUCKETS,
-                                           keep_uint8=self.uint8_input)
-            h, w = im.shape[:2]
-            info = [np.round(h * scale), np.round(w * scale), scale]
-            groups.setdefault(blob.shape[:2], []).append((i, blob, info))
-        return groups
-
     @torch.inference_mode()
     def detect_blobs(self, data, im_info):
         """Fixed-shape entry: data (B, bh, bw, 3), im_info (B, 3), numpy or
@@ -64,13 +85,10 @@ class Detector:
         # launch every bucket group first, keep its detections on the device,
         # then read back: the host never waits on one group before it has
         # handed the device the next
-        pending = []
-        for items in self._prep_groups(images).values():
-            data = np.stack([blob for _, blob, _ in items])
-            im_info = np.asarray([info for _, _, info in items], np.float32)
-            pending.append((items, *self.detect_blobs(data, im_info)))
-        for items, dets, valid in pending:
+        pending = [(indices, *self.detect_blobs(data, im_info)) for indices, data, im_info
+                   in iter_bucket_batches(images, self.cfg, keep_uint8=self.uint8_input)]
+        for indices, dets, valid in pending:
             dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
-            for bi, (i, _, _) in enumerate(items):
+            for bi, i in enumerate(indices):
                 results[i] = dets[bi][valid[bi]]
         return results

@@ -1,6 +1,7 @@
 """Training on one device (``frcnn_tpu/engine/train.py``): roidb
 assembly, the SGD + momentum optimizer with the reference's parameter
-groups, and ``SolverWrapper`` with ``train_step`` and ``train_model``.
+groups, ``SolverWrapper`` with ``train_step``, ``train_model``, snapshots
+and exact resume, and the ``train_net`` driver.
 
 The optimizer equals the JAX package's optax chains: weights get weight
 decay, then momentum, then the learning rate; biases get momentum and
@@ -11,25 +12,51 @@ left out.  The schedule is read at the step count before it increments.
 
 The solver runs on the card (``cuda:0``) unless the caller passes
 ``device``.  Sampling draws come from a ``torch.Generator`` on that device,
-seeded with ``RNG_SEED + 1``.  Snapshots and resume are not ported yet.
+seeded with ``RNG_SEED + 1``.  ``train_model`` takes its batches from a
+thread that runs the data layer one batch ahead of the step.
+
+With an ``output_dir``, ``train_model`` resumes from the latest snapshot
+there, logs the losses to ``train_log.jsonl`` every DISPLAY steps and
+snapshots every SNAPSHOT_ITERS steps and at the end, keeping the last
+SNAPSHOT_KEPT.  A snapshot is ``<SNAPSHOT_PREFIX>_iter_N.pth`` (the model's
+and the optimizer's state_dicts, the step) and a ``.pkl`` beside it: the
+step, the global numpy RNG, the data layers' states as of the last batch
+the step consumed, and the state of the sampling generator.  The JAX run
+derives each step's key from the step; here the draws come from a
+stateful generator, so its state is part of the snapshot, and a run
+stopped at a snapshot and resumed equals the straight run bit for bit.
 """
 
 from __future__ import annotations
 
+import glob
+import importlib.util
+import json
+import os
+import os.path as osp
+import pickle
+import queue
+import threading
 import time
 
+import numpy as np
 import torch
 
 from frcnn_tpu_torch.data.loader import RoIDataLayer
 from frcnn_tpu_torch.data.roidb import prepare_roidb
 from frcnn_tpu_torch.engine import resolve_device
+from frcnn_tpu_torch.utils.timer import Timer
 
 
 def get_training_roidb(imdb, cfg, image_size=None):
-    """Flip augmentation + metadata prep (reference get_training_roidb)."""
+    """Metadata prep + flip augmentation (reference get_training_roidb).
+    The entries are prepared first, so the flip takes each image's width
+    from its entry and the flipped entries carry the metadata with them;
+    ``image_size`` maps an image path to (height, width) where an entry has
+    no size (default: the image read by ``read_image``)."""
+    prepare_roidb(imdb, image_size)
     if cfg.TRAIN.USE_FLIPPED:
         imdb.append_flipped_images()
-    prepare_roidb(imdb, image_size)
     return imdb.roidb
 
 
@@ -44,6 +71,27 @@ def filter_roidb(roidb, cfg):
         return bool(fg.any() or bg.any())
 
     return [entry for entry in roidb if is_valid(entry)]
+
+
+def combined_roidb(imdb_names: str, cfg, reader=None):
+    """(imdb of the first name, training roidb of every '+'-joined name)
+    (reference trainval_net.combined_roidb); datasets under cfg.DATA_DIR,
+    image sizes read through ``reader`` (default: ``read_image``)."""
+    from frcnn_tpu_torch.data.factory import get_imdb
+
+    image_size = None if reader is None else (lambda path: reader(path).shape[:2])
+
+    def get_roidb(name):
+        imdb = get_imdb(name, data_dir=cfg.DATA_DIR)
+        print(f"Loaded dataset `{imdb.name}`")
+        imdb.set_proposal_method(cfg.TRAIN.PROPOSAL_METHOD)
+        return imdb, get_training_roidb(imdb, cfg, image_size)
+
+    names = imdb_names.split("+")
+    imdb, roidb = get_roidb(names[0])
+    for name in names[1:]:
+        roidb.extend(get_roidb(name)[1])
+    return imdb, roidb
 
 
 def make_lr_schedule(cfg):
@@ -95,23 +143,86 @@ def _to_device(blobs, device):
             "gt_valid": torch.as_tensor(blobs["gt_valid"]).to(device)}
 
 
+
+
+class _Prefetcher:
+    """A thread that runs the data layer one batch ahead of the training
+    loop.  Each item is a batch and the layer's state after it, so a
+    snapshot taken after batch k resumes with batch k + 1 however far the
+    thread has run ahead.  The layer belongs to the thread until ``close``."""
+
+    def __init__(self, layer, n: int):
+        self._queue: queue.Queue = queue.Queue(maxsize=1)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(layer, n), daemon=True)
+        self._thread.start()
+
+    def _run(self, layer, n):
+        try:
+            for _ in range(n):
+                if self._stop.is_set():
+                    return
+                blobs = layer.forward()
+                self._queue.put((blobs, layer.get_state()))
+        except Exception as e:  # raised again in the consumer
+            self._queue.put(e)
+
+    def get(self):
+        item = self._queue.get()
+        if isinstance(item, Exception):
+            raise RuntimeError("data prefetch thread failed") from item
+        return item
+
+    def close(self):
+        self._stop.set()
+        while self._thread.is_alive():  # unblock a put the loop will never take
+            try:
+                self._queue.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        self._thread.join()
+
+
 class SolverWrapper:
     """Training orchestrator (reference SolverWrapper) for a model on one
     device.  The model is moved to ``device`` before the optimizer is made:
     ``cuda:0`` by default (a ``RuntimeError`` when there is no card),
     ``"cpu"`` on request.  ``reader`` maps a roidb entry's ``image`` to a
-    BGR array.  ``aux`` holds the last step's auxiliary outputs of
-    ``train_forward`` (detached)."""
+    BGR array (default ``read_image``).  ``aux`` holds the last step's
+    auxiliary outputs of ``train_forward`` (detached).
 
-    def __init__(self, model, roidb, cfg=None, reader=None, device=None):
-        self.device = resolve_device(device)
-        self.model = model.to(self.device)
+    Keyword-only: ``imdb`` (class names for the image summary),
+    ``valroidb`` (validation losses every SUMMARY_INTERVAL seconds),
+    ``output_dir`` (snapshots, resume, ``train_log.jsonl``), ``tb_dir``
+    (summaries) and ``pretrained`` (a state_dict whose tensors of matching
+    name and shape replace the model's)."""
+
+    def __init__(self, model, roidb, cfg=None, reader=None, device=None, *, imdb=None,
+                 valroidb=None, output_dir=None, tb_dir=None, pretrained=None):
         self.cfg = cfg or model.config
+        if self.cfg.TRAIN.IMAGE_CACHE:
+            raise NotImplementedError("TRAIN.IMAGE_CACHE (the decoded/resized image caches) "
+                                      "is not ported")
+        if self.cfg.DEVICE.REMAT:
+            raise NotImplementedError("DEVICE.REMAT (recomputing the trunk in the backward) "
+                                      "is not ported")
+        self.device = resolve_device(device)
+        if pretrained is not None:
+            model.load_state_dict(_merge_pretrained(model.state_dict(), pretrained))
+        self.model = model.to(self.device)
+        self.imdb = imdb
+        self.output_dir = output_dir
+        self.tb_dir = tb_dir
         self.data_layer = RoIDataLayer(roidb, self.cfg, reader=reader)
+        self.data_layer_val = (RoIDataLayer(valroidb, self.cfg, random=True, reader=reader)
+                               if valroidb is not None else None)
         self.optimizer, self.schedule = make_optimizer(model, self.cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(self.cfg.RNG_SEED + 1)
         self.step = 0
         self.aux = {}
+        self._layer_state_consumed = None
+        if output_dir:
+            os.makedirs(output_dir, exist_ok=True)
 
     def train_step(self, blobs, draws=None):
         """One SGD step on a minibatch (numpy or tensors).  ``draws``: the
@@ -134,22 +245,222 @@ class SolverWrapper:
         self.aux = {name: v.detach() if torch.is_tensor(v) else v for name, v in aux.items()}
         return {name: v.detach() for name, v in losses.items()}
 
+    @torch.no_grad()
+    def val_losses(self, blobs):
+        """``train_forward``'s losses on a validation batch, as floats.  The
+        draws come from a generator of their own seeded from the step, so
+        validation leaves the training draws alone."""
+        feed = _to_device(blobs, self.device)
+        draws = torch.Generator(device=self.device).manual_seed(
+            self.cfg.RNG_SEED + 10**9 + self.step)
+        losses, _ = self.model.train_forward(feed["data"], feed["im_info"], feed["gt_boxes"],
+                                             feed["gt_labels"], feed["gt_valid"], draws)
+        return {name: float(v) for name, v in losses.items()}
+
+    # -- snapshots (reference snapshot / find_previous / from_snapshot) -----
+    def _snapshots(self):
+        """The snapshots' .pkl paths in ``output_dir``, oldest first."""
+        pkls = glob.glob(osp.join(self.output_dir, f"{self.cfg.TRAIN.SNAPSHOT_PREFIX}_iter_*.pkl"))
+        return sorted(pkls, key=lambda p: int(p.rsplit("_", 1)[1][:-4]))
+
+    def snapshot(self, step: int) -> str:
+        """Write ``<prefix>_iter_<step>.pth`` and its ``.pkl``; prune."""
+        path = osp.join(self.output_dir, f"{self.cfg.TRAIN.SNAPSHOT_PREFIX}_iter_{step}")
+        torch.save({"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                    "step": step}, path + ".pth")
+        layer_state = self._layer_state_consumed
+        if layer_state is None:
+            layer_state = self.data_layer.get_state()
+        with open(path + ".pkl", "wb") as f:
+            pickle.dump({"iter": step, "np_rng": np.random.get_state(),
+                         "layer_state": layer_state,
+                         "val_layer_state": (self.data_layer_val.get_state()
+                                             if self.data_layer_val is not None else None),
+                         "generator": self.generator.get_state()}, f)
+        print(f"Wrote snapshot to: {path}.pth")
+        self._prune_snapshots()
+        return path + ".pth"
+
+    def _prune_snapshots(self):
+        kept = self.cfg.TRAIN.SNAPSHOT_KEPT
+        if not kept:
+            return
+        for pkl in self._snapshots()[:-kept]:
+            os.remove(pkl)
+            pth = pkl[:-4] + ".pth"
+            if osp.exists(pth):
+                os.remove(pth)
+
+    def find_previous(self):
+        """The latest snapshot's .pkl in ``output_dir``, or None."""
+        pkls = self._snapshots()
+        return pkls[-1] if pkls else None
+
+    def from_snapshot(self, pkl_path: str) -> int:
+        """Restore the model, the optimizer, the step, the numpy RNG, the
+        data layers and the sampling generator; returns the step."""
+        with open(pkl_path, "rb") as f:
+            meta = pickle.load(f)
+        state = torch.load(pkl_path[:-4] + ".pth", map_location=self.device, weights_only=True)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        np.random.set_state(meta["np_rng"])
+        self.data_layer.set_state(meta["layer_state"])
+        self._layer_state_consumed = meta["layer_state"]
+        if self.data_layer_val is not None and meta.get("val_layer_state") is not None:
+            self.data_layer_val.set_state(meta["val_layer_state"])
+        self.generator.set_state(meta["generator"])
+        print(f"Restored from {pkl_path} (iter {meta['iter']})")
+        return self.step
+
+    # -- the loop -------------------------------------------------------------
+    def _gt_overlay(self, blobs):
+        """The batch's first image with its gt boxes drawn (uint8 RGB)."""
+        from frcnn_tpu_torch.utils.visualization import draw_bounding_boxes
+
+        im = np.clip(np.asarray(blobs["data"][0])[:, :, ::-1], 0, 255).astype(np.uint8)
+        v = np.asarray(blobs["gt_valid"][0])
+        names = list(getattr(self.imdb, "classes", [])) or None
+        return draw_bounding_boxes(im, np.asarray(blobs["gt_boxes"][0])[v],
+                                   labels=np.asarray(blobs["gt_labels"][0])[v], class_names=names)
+
+    def _profile_window(self, profiler):
+        """Open torch.profiler at DEVICE.PROFILE_START for PROFILE_STEPS
+        steps; the trace goes to PROFILE_DIR/trace_iter_<start>.json."""
+        d = self.cfg.DEVICE
+        if profiler is None and d.PROFILE_DIR and self.step == d.PROFILE_START:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.start()
+        elif profiler is not None and self.step == d.PROFILE_START + d.PROFILE_STEPS:
+            self._close_profile(profiler)
+            profiler = None
+        return profiler
+
+    def _close_profile(self, profiler):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(self.cfg.DEVICE.PROFILE_DIR, exist_ok=True)
+        path = osp.join(self.cfg.DEVICE.PROFILE_DIR,
+                        f"trace_iter_{self.cfg.DEVICE.PROFILE_START}.json")
+        profiler.export_chrome_trace(path)
+        print(f"wrote profiler trace to {path}")
+
     def train_model(self, max_iters: int):
-        """Train until ``max_iters`` steps; returns each step's losses
-        (floats).  Prints them every TRAIN.DISPLAY steps."""
-        history = []
-        t0 = time.perf_counter()
-        while self.step < max_iters:
-            losses = self.train_step(self.data_layer.forward())
-            values = {name: float(v) for name, v in losses.items()}
-            history.append(values)
-            if self.step % self.cfg.TRAIN.DISPLAY == 0:
-                speed = (time.perf_counter() - t0) / len(history)
-                print(f"iter: {self.step} / {max_iters}, total loss: {values['total_loss']:.6f}\n"
-                      f" >>> rpn_loss_cls: {values['rpn_cross_entropy']:.6f}\n"
-                      f" >>> rpn_loss_box: {values['rpn_loss_box']:.6f}\n"
-                      f" >>> loss_cls: {values['cross_entropy']:.6f}\n"
-                      f" >>> loss_box: {values['loss_box']:.6f}\n"
-                      f" >>> lr: {self.schedule(self.step):f}\n"
-                      f"speed: {speed:.3f}s / iter")
+        """Train until ``max_iters`` steps; returns the losses (floats) of
+        each step this call ran.  Prints them every TRAIN.DISPLAY steps."""
+        cfg = self.cfg
+        t = cfg.TRAIN
+        if self.output_dir:
+            last = self.find_previous()
+            if last:
+                self.from_snapshot(last)
+        start = self.step
+        log_f = open(osp.join(self.output_dir, "train_log.jsonl"), "a") if self.output_dir else None
+        writer = None
+        if self.tb_dir:
+            from frcnn_tpu_torch.utils.summary import SummaryWriter
+
+            writer = SummaryWriter(self.tb_dir)
+        batches = _Prefetcher(self.data_layer, max_iters - start)
+        history, timer, profiler = [], Timer(), None
+        last_summary = time.time()
+        try:
+            with torch.autograd.set_detect_anomaly(cfg.DEVICE.DEBUG_NANS):
+                while self.step < max_iters:
+                    profiler = self._profile_window(profiler)
+                    timer.tic()
+                    blobs, self._layer_state_consumed = batches.get()
+                    values = {name: float(v) for name, v in self.train_step(blobs).items()}
+                    timer.toc()
+                    history.append(values)
+                    step = self.step
+                    if step % t.DISPLAY == 0:
+                        lr = self.schedule(step)
+                        print(f"iter: {step} / {max_iters}, total loss: {values['total_loss']:.6f}\n"
+                              f" >>> rpn_loss_cls: {values['rpn_cross_entropy']:.6f}\n"
+                              f" >>> rpn_loss_box: {values['rpn_loss_box']:.6f}\n"
+                              f" >>> loss_cls: {values['cross_entropy']:.6f}\n"
+                              f" >>> loss_box: {values['loss_box']:.6f}\n"
+                              f" >>> lr: {lr:f}\n"
+                              f"speed: {timer.average_time:.3f}s / iter")
+                        if log_f is not None:
+                            log_f.write(json.dumps({"iter": step, "ts": time.time(), "lr": lr,
+                                                    **values}) + "\n")
+                            log_f.flush()
+                        if writer is not None:
+                            writer.scalars({**values, "lr": lr,
+                                            "speed_s_per_iter": timer.average_time}, step)
+                    if self.output_dir and step % t.SNAPSHOT_ITERS == 0:
+                        self.snapshot(step)
+                    if ((self.data_layer_val is not None or writer is not None)
+                            and time.time() - last_summary > t.SUMMARY_INTERVAL):
+                        self._summarize(blobs, writer, log_f)
+                        last_summary = time.time()
+            if self.output_dir and self.step > start and self.step % t.SNAPSHOT_ITERS != 0:
+                self.snapshot(self.step)
+        finally:
+            batches.close()
+            if profiler is not None:
+                self._close_profile(profiler)
+            if writer is not None:
+                writer.close()
+            if log_f is not None:
+                log_f.close()
         return history
+
+    def _summarize(self, blobs, writer, log_f):
+        """The validation losses (to the log and the writer) and, where PIL
+        is installed, the gt overlay of the last batch (to the writer)."""
+        step = self.step
+        if writer is not None and importlib.util.find_spec("PIL") is not None:
+            writer.image("ground_truth", self._gt_overlay(blobs), step)
+        if self.data_layer_val is None:
+            return
+        vloss = self.val_losses(self.data_layer_val.forward())
+        if writer is not None:
+            writer.scalars({f"val/{k}": v for k, v in vloss.items()}, step)
+        if log_f is not None:
+            log_f.write(json.dumps({"iter": step, **{f"val_{k}": v for k, v in vloss.items()}})
+                        + "\n")
+            log_f.flush()
+
+
+def train_net(model, imdb, roidb, valroidb, output_dir: str, tb_dir: str | None = None,
+              cfg=None, pretrained=None, max_iters: int = 40000, reader=None, device=None):
+    """Train entry point (reference train_val.train_net): filter the
+    roidbs, resume from ``output_dir`` if it holds a snapshot, train to
+    ``max_iters``.  Returns the SolverWrapper."""
+    cfg = cfg or model.config
+    if pretrained is None:
+        # every trunk the port builds is a frozen-BN ResNet, which
+        # normalizes nothing at random init
+        print("WARNING: no pretrained weights and a frozen-BN backbone — the reference design "
+              "assumes ImageNet initialization.  For training from scratch set "
+              "TRAIN.WARMUP_ITERS/GRAD_CLIP and a lower LEARNING_RATE.")
+    roidb = filter_roidb(roidb, cfg)
+    valroidb = filter_roidb(valroidb, cfg) if valroidb is not None else None
+    sw = SolverWrapper(model, roidb, cfg, reader=reader, device=device, imdb=imdb,
+                       valroidb=valroidb, output_dir=output_dir, tb_dir=tb_dir,
+                       pretrained=pretrained)
+    print("Solving...")
+    sw.train_model(max_iters)
+    print("done solving")
+    return sw
+
+
+def _merge_pretrained(state, pretrained):
+    """``state`` with every tensor of ``pretrained`` whose name and shape
+    match put in its place (both state_dicts); prints the count."""
+    merged = dict(state)
+    n = 0
+    for name, tensor in pretrained.items():
+        if name in state and tuple(state[name].shape) == tuple(tensor.shape):
+            merged[name] = tensor
+            n += 1
+    print(f"Loaded {n}/{len(pretrained)} pretrained tensors")
+    return merged

@@ -40,7 +40,8 @@ from torch import nn
 from frcnn_tpu_torch.config import Config
 from frcnn_tpu_torch.models.backbones import _conv, build_backbone, preprocess_images
 from frcnn_tpu_torch.models.losses import detection_losses_compact
-from frcnn_tpu_torch.models.network import anchor_rows, gather_anchor_rows, postprocess_detections
+from frcnn_tpu_torch.models.network import (anchor_rows, decode_boxes, gather_anchor_rows,
+                                            postprocess_detections)
 from frcnn_tpu_torch.models.proposals import _anchor_validity
 from frcnn_tpu_torch.models.targets import (anchor_target_compact, proposal_target_layer,
                                             uniform_draws)
@@ -332,6 +333,11 @@ class FasterRCNNFPN(nn.Module):
         _, cls_prob, bbox_pred = self._classify(self._pool(pyramid, rois))
         return {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid,
                 "cls_prob": cls_prob, "bbox_pred": bbox_pred}
+
+    def decode_detections(self, out, im_info):
+        """``im_detect``'s decode of ``predict``'s outputs: (B, N, 4C) boxes
+        per class in original image coordinates (``decode_boxes``)."""
+        return decode_boxes(out, im_info, self.config, self.num_classes)
 
     def detect(self, images, im_info, max_per_image: int | None = None):
         """Serving path: (detections (B, D, 6) [x1, y1, x2, y2, score, class]

@@ -211,6 +211,11 @@ class FasterRCNN(nn.Module):
         return {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid,
                 "cls_prob": cls_prob, "bbox_pred": bbox_pred}
 
+    def decode_detections(self, out, im_info):
+        """``im_detect``'s decode of ``predict``'s outputs: (B, N, 4C) boxes
+        per class in original image coordinates (``decode_boxes``)."""
+        return decode_boxes(out, im_info, self.config, self.num_classes)
+
     def detect(self, images, im_info, max_per_image: int | None = None):
         """Serving path: (detections (B, D, 6) [x1, y1, x2, y2, score, class]
         in original image coordinates, valid (B, D))."""

@@ -1,1 +1,1 @@
-"""Utilities of the PyTorch port (weight conversion)."""
+"""Utilities of the PyTorch port: weight conversion, timer, summaries, box drawing."""

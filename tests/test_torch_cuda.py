@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain twins on a card (marker ``cuda``),
 gradients through the autograd Functions of K2, K3 and K6 (backward K6b),
-K6 (the multilevel RoIAlign) bit-equal to K2 on one level, and K2b / K6b
-bit-deterministic, whatever their plan.
+K6 (the multilevel RoIAlign) bit-equal to K2 on one level, K2b / K6b
+bit-deterministic, whatever their plan, and ``test_net`` on the card
+matched to a CPU copy.
 
 Run on a machine with an NVIDIA H100 (which has no jax, so without the
 suite's conftest):  pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -527,3 +528,89 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):                 # 3 x 3 bins against output_size 7
         roi_align_multilevel_backward(torch.randn(1, 1, 3, 3, 16, device=dev), rois, levels,
                                       [(8, 8), (4, 4)], [4, 8])
+
+
+def test_test_net_on_the_card_matches_the_cpu(dev, tmp_path):
+    """``test_net`` over a 2-image synthetic devkit (no image codec: the
+    pixels come from a reader) in f32 on the card (K1 twice, K2 once) and on
+    a CPU copy of the same model: detections.pkl matched per image and
+    class, the per-class APs in [0, 1]."""
+    import pickle
+
+    import chip_smoke
+    from frcnn_tpu_torch.data.pascal_voc import pascal_voc
+    from frcnn_tpu_torch.engine.test import test_net as run_test_net
+
+    reader = chip_smoke.write_voc_devkit(str(tmp_path), {"test": [(320, 480), (320, 440)]},
+                                         np.random.RandomState(7))
+    cfg = chip_smoke.smoke_config(["TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480",
+                                   "DEVICE.BUCKETS", "((320, 480),)", "TEST.SCORE_THRESH", "0.05"])
+    dets = []
+    for device in (None, "cpu"):
+        imdb = pascal_voc("test", "2007", data_dir=str(tmp_path))
+        out = tmp_path / f"out_{device}"
+        build.reset_launch_counts()
+        aps = run_test_net(chip_smoke.build_seeded(cfg, torch.float32, seed=1), imdb, cfg,
+                           str(out), batch=2, reader=reader, device=device)
+        assert all(0.0 <= v <= 1.0 for v in aps.values())
+        assert dict(build.LAUNCH_COUNTS) == ({"nms": 2, "roi_align": 1} if device is None else {})
+        with open(out / "detections.pkl", "rb") as f:
+            all_boxes = pickle.load(f)
+        dets.append([np.concatenate([np.concatenate([c[i], np.full((len(c[i]), 1), float(k))], 1)
+                                     for k, c in enumerate(all_boxes)]) for i in range(2)])
+    for i, (got, want) in enumerate(zip(*dets)):
+        assert len(want) > 0
+        chip_smoke.match_dets(want, got, f"image {i}")
+
+
+def test_im_detect_on_the_card_matches_the_cpu(dev):
+    """``im_detect`` with no ``device`` moves the model to the card and runs
+    its proposal NMS (K1) and RoIAlign (K2) there; its valid rois, rows of
+    per-class scores and boxes, match a CPU copy's one to one."""
+    import chip_smoke
+    from frcnn_tpu_torch.engine.test import im_detect
+
+    cfg = chip_smoke.smoke_config(["TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480",
+                                   "DEVICE.BUCKETS", "((320, 480),)"])
+    im = chip_smoke.synthetic_images(np.random.RandomState(5), [(300, 450)])[0]
+    card_model = chip_smoke.build_seeded(cfg, torch.float32, seed=1)
+    build.reset_launch_counts()
+    got = im_detect(card_model, im, cfg)
+    assert dict(build.LAUNCH_COUNTS) == {"nms": 1, "roi_align": 1}
+    assert next(card_model.parameters()).device == torch.device("cuda", 0)
+    want = im_detect(chip_smoke.build_seeded(cfg, torch.float32, seed=1), im, cfg, device="cpu")
+    assert chip_smoke.match_im_detect(want, got, "im_detect, card vs CPU") > 10
+
+
+def test_clis_run_on_the_card(dev, tmp_path, monkeypatch):
+    """``trainval_net`` (2 iterations) and ``test_net --model`` on its
+    snapshot, without ``--cpu``: both run on cuda:0.  The default reader
+    (cv2) is replaced by the devkit's, so that no image codec is needed."""
+    import pickle
+
+    import chip_smoke
+    from frcnn_tpu_torch.data import loader
+    from frcnn_tpu_torch.tools import test_net as test_net_cli
+    from frcnn_tpu_torch.tools import trainval_net as trainval_net_cli
+
+    monkeypatch.setattr(loader, "read_image", chip_smoke.write_voc_devkit(
+        str(tmp_path), {"trainval": [(320, 480)] * 2, "test": [(320, 480)] * 2},
+        np.random.RandomState(8)))
+    common = ["DATA_DIR", str(tmp_path), "ROOT_DIR", str(tmp_path), "TRAIN.SCALES", "(320,)",
+              "TRAIN.MAX_SIZE", "480", "TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480",
+              "DEVICE.BUCKETS", "((320, 480),)", "TRAIN.IMS_PER_BATCH", "2",
+              "TRAIN.SNAPSHOT_ITERS", "2", "TEST.SCORE_THRESH", "0.0"]
+    build.reset_launch_counts()
+    solver = trainval_net_cli.main(["--net", "res50", "--imdb", "voc_2007_trainval",
+                                    "--imdbval", "", "--iters", "2", "--set", *common])
+    assert solver.device == torch.device("cuda", 0)
+    assert solver.model.dtype == torch.bfloat16                     # the bf16 trunk
+    assert build.LAUNCH_COUNTS["roi_align_bwd"] == 2
+    snapshot = tmp_path / "output" / "default" / "voc_2007_trainval" / "default" / "default_iter_2.pth"
+    build.reset_launch_counts()
+    results = test_net_cli.main(["--net", "res50", "--imdb", "voc_2007_test", "--model",
+                                 str(snapshot), "--batch", "2", "--set", *common])
+    assert 0.0 <= results["mAP"] <= 1.0 and build.LAUNCH_COUNTS["nms"] == 2
+    out = tmp_path / "output" / "default" / "voc_2007_test" / "default"
+    with open(out / "detections.pkl", "rb") as f:
+        assert sum(len(b) for c in pickle.load(f) for b in c) > 0

@@ -18,7 +18,7 @@ from frcnn_tpu.engine.serve import Detector as JaxDetector
 from frcnn_tpu.models import build_model as jax_build_model
 from frcnn_tpu.utils.weight_convert import convert_detector
 from frcnn_tpu_torch import cfg_from_list, default_config
-from frcnn_tpu_torch.engine.serve import Detector
+from frcnn_tpu_torch.engine.serve import Detector, iter_bucket_batches
 from frcnn_tpu_torch.models.network import build_model
 from frcnn_tpu_torch.ops.cuda import build
 from tests.test_pipeline_parity import (NUM_CLASSES, _assert_det_sets_match,
@@ -60,10 +60,8 @@ def both():
     model = build_model("res50", NUM_CLASSES, cfg_from_list(default_config(), OVERRIDES))
     model.load_state_dict(sd)
     det = Detector(model.eval(), max_per_image=MAX_PER_IMAGE, device="cpu")
-    groups = det._prep_groups(_images())
-    items = groups[(128, 192)]
-    data = np.stack([blob for _, blob, _ in items])
-    im_info = np.asarray([info for _, _, info in items], np.float32)
+    (_, data, im_info), = iter_bucket_batches(_images(), det.cfg)
+    assert data.shape[1:3] == (128, 192)
     return jdet, det, data, im_info
 
 
@@ -125,17 +123,15 @@ def test_detector_dispatches_every_group_before_reading_back():
     det = Detector(build_model("res50", 3, cfg).eval(), device="cpu")
     rng = np.random.RandomState(7)
     ims = [rng.randint(0, 255, hw + (3,)).astype(np.uint8) for hw in ((60, 96), (96, 60))]
-    groups = det._prep_groups(ims)
-    assert sorted(groups) == [(608, 1024), (1024, 608)]
+    groups = list(iter_bucket_batches(ims, det.cfg))
+    assert sorted(data.shape[1:3] for _, data, _ in groups) == [(608, 1024), (1024, 608)]
 
     # the per-group form
     want = [None] * len(ims)
-    for items in groups.values():
-        data = np.stack([blob for _, blob, _ in items])
-        info = np.asarray([i for _, _, i in items], np.float32)
+    for indices, data, info in groups:
         dets, valid = det.detect_blobs(data, info)
         dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
-        for bi, (i, _, _) in enumerate(items):
+        for bi, i in enumerate(indices):
             want[i] = dets[bi][valid[bi]]
 
     calls = []

@@ -40,7 +40,7 @@ from frcnn_tpu.models.proposals import proposal_layer as jax_proposal_layer
 from frcnn_tpu.ops.nms import nms_fixed as jax_nms_fixed
 from frcnn_tpu.ops.roi_align import roi_align_multilevel as jax_roi_align_multilevel
 from frcnn_tpu_torch import cfg_from_list, default_config
-from frcnn_tpu_torch.engine.serve import Detector
+from frcnn_tpu_torch.engine.serve import Detector, iter_bucket_batches
 from frcnn_tpu_torch.models.fpn import fg_logit_diff, select_pre_nms
 from frcnn_tpu_torch.models.network import build_model
 from frcnn_tpu_torch.models.proposals import proposal_layer
@@ -118,9 +118,8 @@ def both():
     model = build_model("res50_fpn", NUM_CLASSES, cfg_from_list(default_config(), OVERRIDES))
     model.load_state_dict(sd, strict=True)
     det = Detector(model.eval(), max_per_image=MAX_PER_IMAGE, device="cpu")
-    items = det._prep_groups(_images())[(H, W)]
-    data = np.stack([blob for _, blob, _ in items])
-    im_info = np.asarray([info for _, _, info in items], np.float32)
+    (_, data, im_info), = iter_bucket_batches(_images(), det.cfg)
+    assert data.shape[1:3] == (H, W)
     assert im_info[1, 1] < W                                           # padding
     run = jax.jit(lambda v, x, i: jmodel.apply(v, x, i, method=_jax_all))
     want = jax.tree.map(np.asarray, run({"params": params}, jnp.asarray(data),
