@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only kernels   # stop after the kernel phases (1-11)
-    python3 chip_smoke.py --profile        # and stage breakdowns of the two train
-                                           # steps and of FPN detect (23-25)
+    python3 chip_smoke.py --profile        # and stage breakdowns of the three train
+                                           # steps and of FPN detect (27-30)
 
 Phases, each of which raises on failure (the script then exits non-zero):
   0. the card: name and power limit from nvidia-smi, torch/CUDA versions;
@@ -107,20 +107,41 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the first image on each (K1 once, K2 once on the card, the model moved
      there by default): its valid rois, rows of per-class scores and boxes,
      matched one to one;
- 23. (with ``--profile``) CUDA events around each stage of a steady-state
+ 23. the GroupNorm FPN serving path: res50_fpn_gn (RESNET.FIXED_BLOCKS 0)
+     with the JAX package's from-scratch init from a seed, bf16, the bucket,
+     batch and requests of 14: the pyramid finite, the RPN's bf16 logits as
+     in 14, launch counts per batch K5 2, K1 2, K6 1 and K3 0 (it folds a
+     frozen BN), then the steady-state batch time and peak device memory;
+ 24. one image through the GroupNorm FPN's f32 ``detect`` on the card and on
+     a CPU copy, matched one to one as in 15;
+ 25. the GroupNorm FPN train path: the shape, roidb and solver of 18 under
+     the from-scratch recipe (FIXED_BLOCKS 0, GRAD_CLIP 10, warmup); on step
+     1 every tensor, conv1 and the 53 GroupNorms' scales and biases
+     included, has a non-zero gradient; launch counts per step K4 1, K5 3,
+     K1 1, K6 1, K6b 1 and K3 0; finite losses; then the steady-state step
+     time and the peak device memory;
+ 26. one f32 GroupNorm FPN train step on the card and on a CPU copy at lr
+     1.0: the losses and the RPN's, box head's and neck's updates as in 19,
+     and every tensor's update, the trunk's too, at cosine >= 0.99 with the
+     CPU's or zero on both (a relu input within rounding of zero may pass a
+     gradient on one device only, and each trunk tensor lies behind many
+     relus);
+ 27. (with ``--profile``) CUDA events around each stage of a steady-state
      train step and torch.profiler over 3 steps: stage times, the device's
      idle share, the top kernels and K4's device time (one launch a step),
      also in chiprun_out/profile_train.json;
- 24. (with ``--profile``) the same for a steady-state FPN detect batch,
+ 28. (with ``--profile``) the same for a steady-state FPN detect batch,
      into chiprun_out/profile_fpn.json;
- 25. (with ``--profile``) the same (K4 too) for a steady-state FPN train step, into
+ 29. (with ``--profile``) the same (K4 too) for a steady-state FPN train step, into
      chiprun_out/profile_fpn_train.json, with every device kernel of the RoI
      pool's forward and backward alone (K6b one launch, no memset or
-     rounding kernel).
+     rounding kernel);
+ 30. (with ``--profile``) the same for the GroupNorm FPN train step, into
+     chiprun_out/profile_fpn_gn_train.json.
 Then one JSON line of per-kernel results, the card line, and, last, the
-JSON ok line.  Each kernel's line carries its launches on the four paths of
-12-19 (``launches``; ``launches_by_path`` adds the driven runs of 20 (A) and
-21), each counted from zero,
+JSON ok line.  Each kernel's line carries its launches on the six paths of
+12-19 and 23-26 (``launches``; ``launches_by_path`` by path, with the driven
+runs of 20 (A) and 21), each counted from zero,
 its error against the twin, its time, the twin's, the time of the one
 library call that computes the same function where there is one, and its
 bound: the least time the card could take for the timed launches, from the
@@ -1154,10 +1175,15 @@ def smoke_config(extra=()):
 
 
 def build_seeded(cfg, dtype, seed=0, net="res50"):
+    """``net`` with seeded weights: a GroupNorm net the JAX package's
+    from-scratch init (``init_reference_``), a frozen-BN net
+    ``init_random_``'s (activations O(1) at full size)."""
+    from frcnn_tpu_torch.models.fpn import init_reference_
     from frcnn_tpu_torch.models.network import build_model, init_random_
 
     model = build_model(net, 21, cfg, dtype=dtype)
-    init_random_(model, torch.Generator().manual_seed(seed))
+    init = init_reference_ if net.endswith("_gn") else init_random_
+    init(model, torch.Generator().manual_seed(seed))
     return model.eval()
 
 
@@ -1278,6 +1304,10 @@ SERVE_LAUNCHES = {"nms": 2, "roi_align": 1, "fused_block": 6}
 # per FPN detect batch at 800x1216: the 6 stride-1 blocks of layer1-2, K5 on
 # the P2 and P3 rows, the proposal NMS and the per-class NMS, one K6 launch
 FPN_LAUNCHES = {"fused_block": 6, "select": 2, "nms": 2, "roi_align_ml": 1}
+# per GroupNorm FPN detect batch: the same without K3, which folds a frozen BN
+FPN_GN_LAUNCHES = {"select": 2, "nms": 2, "roi_align_ml": 1}
+# the GroupNorm FPN trained from scratch: nothing frozen (as scripts/ap_regression.py)
+GN_CONFIG = ("RESNET.FIXED_BLOCKS", "0")
 
 
 def check_rpn_logits(model, pyramid):
@@ -1323,12 +1353,12 @@ def check_rpn_logits(model, pyramid):
         f"product <= {tol:.3e} (1e-5 of max|logit| {scale:.3f})")
 
 
-def fpn_path(dev, card):
+def fpn_path(dev, card, net="res50_fpn", per_batch=FPN_LAUNCHES):
     from frcnn_tpu_torch.engine.serve import Detector, iter_bucket_batches
     from frcnn_tpu_torch.ops.cuda import build
 
-    cfg = smoke_config()
-    model = build_seeded(cfg, torch.bfloat16, net="res50_fpn")
+    cfg = smoke_config(GN_CONFIG if net.endswith("_gn") else ())
+    model = build_seeded(cfg, torch.bfloat16, net=net)
     detector = Detector(model, uint8_input=True)
     bh, bw = cfg.DEVICE.BUCKETS[0]
     rng = np.random.RandomState(3)
@@ -1342,8 +1372,8 @@ def fpn_path(dev, card):
     for level, p in enumerate(pyramid, start=2):
         p = p.float()
         if not torch.isfinite(p).all():
-            raise AssertionError(f"FPN P{level} is not finite at 800x1216")
-    log("FPN pyramid at 800x1216: " + ", ".join(
+            raise AssertionError(f"{net} P{level} is not finite at 800x1216")
+    log(f"{net} pyramid at 800x1216: " + ", ".join(
         f"P{lv} {tuple(p.shape[2:])} std {p.float().std().item():.3f}"
         for lv, p in enumerate(pyramid, start=2)))
     check_rpn_logits(model, pyramid)
@@ -1354,37 +1384,44 @@ def fpn_path(dev, card):
     results = [detector(images) for images in requests]
     torch.cuda.synchronize()
     counts = dict(build.LAUNCH_COUNTS)
-    log(f"FPN path: 3 requests x 8 images served; kernel launches {counts}")
+    log(f"{net} path: 3 requests x 8 images served; kernel launches {counts}")
     n_det = 0
     for req in results:
         for dets in req:
             if dets.ndim != 2 or dets.shape[1] != 6 or not np.isfinite(dets).all():
-                raise AssertionError(f"FPN: bad detections: shape {dets.shape}")
+                raise AssertionError(f"{net}: bad detections: shape {dets.shape}")
             n_det += len(dets)
     if n_det == 0:
-        raise AssertionError("FPN: no detections at SCORE_THRESH 0.0")
-    want = {name: 3 * n for name, n in FPN_LAUNCHES.items()}
+        raise AssertionError(f"{net}: no detections at SCORE_THRESH 0.0")
+    want = {name: 3 * n for name, n in per_batch.items()}
     if counts != want:
-        raise AssertionError(f"FPN launch counts {counts} != {want} ({FPN_LAUNCHES} per batch)")
-    log(f"FPN path: {n_det} finite detections of shape (k, 6) over 24 images; per batch "
-        + ", ".join(f"{name} {n}" for name, n in FPN_LAUNCHES.items()) + " launches")
+        raise AssertionError(f"{net} launch counts {counts} != {want} ({per_batch} per batch; "
+                             "a kernel not named launches 0 times)")
+    log(f"{net} path: {n_det} finite detections of shape (k, 6) over 24 images; per batch "
+        + ", ".join(f"{name} {per_batch.get(name, 0)}" for name in ("fused_block", "select",
+                                                                     "nms", "roi_align_ml"))
+        + " launches")
 
     data = torch.from_numpy(blob).to(dev)
     im_info = torch.tensor([[float(bh), float(bw), 1.0]] * 8, device=dev)
+    torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: detector.detect_blobs(data, im_info), iters=10, warmup=2)
-    log(f"FPN serving path steady state (res50_fpn, batch 8, {bh}x{bw}, bf16 trunk): {ms:.3f} ms "
-        f"per batch (median of 10, CUDA events), {8000.0 / ms:.2f} images/s on {card}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"FPN serving path steady state ({net}, batch 8, {bh}x{bw}, bf16 trunk): {ms:.3f} ms "
+        f"per batch (median of 10, CUDA events), {8000.0 / ms:.2f} images/s, peak device memory "
+        f"{peak:.3f} GiB on {card}")
     return counts, detector, data, im_info, ms
 
 
-def fpn_end_to_end(dev):
+def fpn_end_to_end(dev, net="res50_fpn"):
     from frcnn_tpu_torch.engine.serve import Detector
     from frcnn_tpu_torch.ops.cuda import build
 
     cfg = smoke_config(["TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480",
-                        "DEVICE.BUCKETS", "((320, 480),)", "TEST.SCORE_THRESH", "0.05"])
-    cpu_model = build_seeded(cfg, torch.float32, seed=1, net="res50_fpn")
-    card_model = build_seeded(cfg, torch.float32, seed=1, net="res50_fpn")
+                        "DEVICE.BUCKETS", "((320, 480),)", "TEST.SCORE_THRESH", "0.05",
+                        *(GN_CONFIG if net.endswith("_gn") else ())])
+    cpu_model = build_seeded(cfg, torch.float32, seed=1, net=net)
+    card_model = build_seeded(cfg, torch.float32, seed=1, net=net)
     im = synthetic_images(np.random.RandomState(5), [(320, 480)])
     before = dict(build.LAUNCH_COUNTS)
     got = Detector(card_model)(im)[0]
@@ -1393,11 +1430,11 @@ def fpn_end_to_end(dev):
     ran = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
     # P2 of 320x480 (28800 anchors) passes the K5 gate, P3 (7200) does not
     if ran != {"nms": 2, "roi_align_ml": 1, "select": 1}:
-        raise AssertionError(f"f32 FPN card detect did not run K1 x2, K6 x1, K5 x1: {ran}")
+        raise AssertionError(f"f32 {net} card detect did not run K1 x2, K6 x1, K5 x1: {ran}")
     if len(want) == 0:
-        raise AssertionError("f32 FPN detect: no detections to compare")
-    match_dets(want, got, "f32 FPN detect, card vs CPU")
-    log(f"FPN end to end (f32, TF32 off, 320x480): card detect (K1 x2, K5 x1, K6 x1) matches "
+        raise AssertionError(f"f32 {net} detect: no detections to compare")
+    match_dets(want, got, f"f32 {net} detect, card vs CPU")
+    log(f"{net} end to end (f32, TF32 off, 320x480): card detect (K1 x2, K5 x1, K6 x1) matches "
         f"the CPU copy (twins): {len(want)} detections, score atol 1e-3, box atol 5e-2")
 
 
@@ -1415,6 +1452,14 @@ TRAIN_LAUNCHES = {"nms": 1, "roi_align": 1, "roi_align_bwd": 1, "fused_block": 6
 # the K5 gate), the cross-level NMS, multilevel RoIAlign fwd + bwd
 FPN_TRAIN_LAUNCHES = {"fused_block": 6, "overlap": 1, "select": 3, "nms": 1,
                       "roi_align_ml": 1, "roi_align_ml_bwd": 1}
+# per GroupNorm FPN train step: the same without K3
+FPN_GN_TRAIN_LAUNCHES = {"overlap": 1, "select": 3, "nms": 1, "roi_align_ml": 1,
+                         "roi_align_ml_bwd": 1}
+# the from-scratch recipe's clip and warmup (scripts/ap_regression.py), at 10x its
+# learning rate: the bf16 RPN head weights (~0.01, a bf16 ulp ~6e-5) must move
+# within the path's 6 steps at the warmup's first rate
+GN_TRAIN_CONFIG = GN_CONFIG + ("TRAIN.GRAD_CLIP", "10.0", "TRAIN.WARMUP_ITERS", "500",
+                               "TRAIN.WARMUP_FACTOR", "0.1", "TRAIN.LEARNING_RATE", "0.01")
 
 
 # peak device memory of the steady-state train steps (GiB) when K2b and K6b
@@ -1449,12 +1494,12 @@ def train_config(extra=()):
         "TRAIN.DISPLAY", "1", *extra])
 
 
-def train_path(dev, card, net="res50", per_step=TRAIN_LAUNCHES):
+def train_path(dev, card, net="res50", per_step=TRAIN_LAUNCHES, extra=()):
     from frcnn_tpu_torch.engine.train import SolverWrapper, filter_roidb
     from frcnn_tpu_torch.ops.cuda import build
 
-    label = "FPN train" if "_fpn" in net else "train"
-    cfg = train_config()
+    label = f"{net} train" if "_fpn" in net else "train"
+    cfg = train_config(extra)
     model = build_seeded(cfg, torch.bfloat16, net=net)
     rng = np.random.RandomState(4)
     # landscape images whose 600-pixel rescale fits the 608x1024 bucket
@@ -1510,11 +1555,12 @@ def train_path(dev, card, net="res50", per_step=TRAIN_LAUNCHES):
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: solver.train_step(blobs), iters=10, warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    was = PEAK_WITH_F32_ACCUMULATOR_GIB.get(net)
     log(f"{label} step steady state ({net}, batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, bf16 trunk): "
         f"{ms:.3f} ms per step (median of 10, CUDA events), "
-        f"{TRAIN_B * 1000.0 / ms:.2f} images/s, peak device memory {peak:.3f} GiB on {card} "
-        f"({PEAK_WITH_F32_ACCUMULATOR_GIB[net]:.3f} GiB when the RoI backward accumulated into "
-        "an f32 scratch buffer, PERF.md)")
+        f"{TRAIN_B * 1000.0 / ms:.2f} images/s, peak device memory {peak:.3f} GiB on {card}"
+        + (f" ({was:.3f} GiB when the RoI backward accumulated into an f32 scratch buffer, "
+           "PERF.md)" if was else ""))
     return counts, solver, ms
 
 
@@ -1531,6 +1577,17 @@ CARD_VS_CPU = {
                   {"overlap": 1, "select": 3, "nms": 1, "roi_align_ml": 1, "roi_align_ml_bwd": 1},
                   ("rpn_net.weight", "rpn_cls_w", "cls_score.weight", "box_head.fc1.weight",
                    "neck.output2.weight", "neck.lateral5.weight", "layer2.1.conv2.weight")),
+    # the same under the from-scratch recipe (nothing frozen, clip, warmup) at lr 1.0:
+    # at the recipe's rates under the clip an update is a few ulps of its weight
+    # (tests/test_torch_train.py).  The trunk's tensors are held by direction only:
+    # every relu of a trunk that trains whole lies on their gradient's path
+    "res50_fpn_gn": (["FPN.PRE_NMS_PER_LEVEL_TRAIN", "200", "TRAIN.RPN_POST_NMS_TOP_N", "64",
+                      *GN_TRAIN_CONFIG, "TRAIN.LEARNING_RATE", "1.0"],
+                     3 * (80 * 120 + 40 * 60 + 20 * 30 + 10 * 15 + 5 * 8), 64,
+                     {"overlap": 1, "select": 3, "nms": 1, "roi_align_ml": 1,
+                      "roi_align_ml_bwd": 1},
+                     ("rpn_net.weight", "rpn_cls_w", "cls_score.weight", "box_head.fc1.weight",
+                      "neck.output2.weight", "neck.lateral5.weight")),
 }
 
 
@@ -1586,6 +1643,31 @@ def train_card_vs_cpu(dev, net="res50"):
     log(f"f32 {net} train step, card ({card_ran}) vs CPU copy (twins), 320x480, batch 2: losses "
         f"{cpu_l} within 1e-4 relative; updates within 1e-3 of max|delta| "
         f"({ {k_: f'{v:.2e}' for k_, v in worst.items()} })")
+    if net.endswith("_gn"):
+        # in f32 a relu whose input lies within rounding of zero may pass the
+        # gradient on one device and not on the other (the f64 comparison with
+        # the JAX package in tests/test_torch_fpn_gn.py shows it), so the
+        # trunk's updates are held by their direction: cosine >= 0.99, or
+        # exactly zero on both (a bias that no sampled anchor or roi reaches)
+        cos, rel, still = {}, {}, []
+        for name, want in cpu_d.items():
+            got, want = card_d[name].double().flatten(), want.double().flatten()
+            if not got.any() and not want.any():
+                still.append(name)
+                continue
+            denom = (got.norm() * want.norm()).item()
+            cos[name] = (got @ want).item() / denom if denom > 0 else 0.0
+            rel[name] = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        low = {name: c for name, c in cos.items() if not c >= 0.99}
+        if low or "conv1.weight" not in cos or "bn1.weight" not in cos:
+            raise AssertionError(f"f32 {net} train step: updates of {len(low)} tensors point "
+                                 f"elsewhere on the card (cosine < 0.99): {low}")
+        lowest, far = min(cos, key=cos.get), max(rel, key=rel.get)
+        log(f"f32 {net} train step: {len(cos)} tensors (conv1, the GroupNorms, ...) move on "
+            f"both, each update's cosine with the CPU's >= 0.99 (lowest {cos[lowest]:.6f}, "
+            f"{lowest}; conv1.weight {cos['conv1.weight']:.6f}, bn1.weight "
+            f"{cos['bn1.weight']:.6f}); the largest max|difference| / max|CPU update| "
+            f"{rel[far]:.3e} ({far}); {still} move on neither")
 
 
 # ---------------------------------------------------------------------------
@@ -1937,6 +2019,9 @@ FPN_TRAIN_STAGES = (
     ("model", "train_forward", "forward total"),
     ("optimizer", "step", "SGD update"),
 )
+FPN_GN_TRAIN_STAGES = tuple(
+    ("backbone", "stages", "trunk forward (stem, layer1-4; 53 GroupNorms, no K3)")
+    if stage[:2] == ("backbone", "stages") else stage for stage in FPN_TRAIN_STAGES)
 
 
 def stage_times(owners, stages, step, n_steps=12, warmup=2):
@@ -2119,9 +2204,9 @@ def parse_args(argv):
     parser.add_argument("--only", choices=("kernels",),
                         help="stop after the kernel phases (a partial run: no ok line)")
     parser.add_argument("--profile", action="store_true",
-                        help="time each stage of the C4 and FPN train steps and of an FPN "
-                             "detect batch and profile the device "
-                             "(chiprun_out/profile_{train,fpn,fpn_train}.json)")
+                        help="time each stage of the C4, FPN and GroupNorm FPN train steps "
+                             "and of an FPN detect batch and profile the device (chiprun_out/"
+                             "profile_{train,fpn,fpn_train,fpn_gn_train}.json)")
     return parser.parse_args(argv)
 
 
@@ -2207,18 +2292,25 @@ def main(argv=None) -> int:
         test_net_card_vs_cpu(dev, workdir, reader)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    gn_counts = fpn_path(dev, card, "res50_fpn_gn", FPN_GN_LAUNCHES)[0]
+    fpn_end_to_end(dev, "res50_fpn_gn")
+    gn_train_counts, gn_solver, _ = train_path(dev, card, "res50_fpn_gn", FPN_GN_TRAIN_LAUNCHES,
+                                               GN_TRAIN_CONFIG)
+    train_card_vs_cpu(dev, "res50_fpn_gn")
     if args.profile:
         profile_train_step(solver, card)
         profile_fpn_detect(fpn_detector, fpn_data, fpn_info, card)
         profile_train_step(fpn_solver, card, FPN_TRAIN_STAGES, "profile_fpn_train.json")
+        profile_train_step(gn_solver, card, FPN_GN_TRAIN_STAGES, "profile_fpn_gn_train.json")
 
     # the TPU kernels served by a kernel that stands for another one
     also = {"nms": ("frcnn_tpu/ops/pallas/nms_kernel.py:128", k1b),
             "roi_align_ml": ("frcnn_tpu/ops/pallas/roi_align_kernel.py:609", None)}
-    # launches: the four paths of 12-19, as before the driven runs existed;
-    # the driven runs of 20 (A) and 21 are reported beside them by path
+    # launches: the six paths of 12-19 and 23-26, each counted from zero; the
+    # driven runs of 20 (A) and 21 are reported beside them by path
     paths = {"c4_serve": serve_counts, "fpn_serve": fpn_counts, "c4_train": train_counts,
-             "fpn_train": fpn_train_counts}
+             "fpn_train": fpn_train_counts, "fpn_gn_detect": gn_counts,
+             "fpn_gn_train": gn_train_counts}
     driven = {"c4_train_net": train_net_counts, "c4_test_net": c4_test_counts,
               "fpn_test_net": fpn_test_counts}
     kernels = []

@@ -5,9 +5,10 @@ and exact resume, and the ``train_net`` driver.
 
 The optimizer equals the JAX package's optax chains: weights get weight
 decay, then momentum, then the learning rate; biases get momentum and
-2x the learning rate (DOUBLE_BIAS) with no decay (BIAS_DECAY off); frozen
-parameters (``requires_grad=False``: conv1, the FIXED_BLOCKS layers) are
-left out.  The schedule is read at the step count before it increments.
+2x the learning rate (DOUBLE_BIAS) with no decay (BIAS_DECAY off); a
+GroupNorm scale is a weight, its bias a bias; frozen parameters
+(``requires_grad=False``: the stem, the FIXED_BLOCKS layers) are left out.
+The schedule is read at the step count before it increments.
 ``GRAD_CLIP`` clips the global norm of the trainable gradients.
 
 The solver runs on the card (``cuda:0``) unless the caller passes
@@ -434,14 +435,20 @@ def train_net(model, imdb, roidb, valroidb, output_dir: str, tb_dir: str | None 
               cfg=None, pretrained=None, max_iters: int = 40000, reader=None, device=None):
     """Train entry point (reference train_val.train_net): filter the
     roidbs, resume from ``output_dir`` if it holds a snapshot, train to
-    ``max_iters``.  Returns the SolverWrapper."""
+    ``max_iters``.  With no ``pretrained`` weights a GroupNorm net starts
+    from ``init_reference_`` (its generator seeded with RNG_SEED).  Returns
+    the SolverWrapper."""
     cfg = cfg or model.config
-    if pretrained is None:
-        # every trunk the port builds is a frozen-BN ResNet, which
-        # normalizes nothing at random init
+    if pretrained is None and model.backbone.norm == "group":
+        # from scratch: the weights the JAX package's model.init draws
+        from frcnn_tpu_torch.models.fpn import init_reference_
+
+        init_reference_(model, torch.Generator().manual_seed(cfg.RNG_SEED))
+    elif pretrained is None:
+        # a frozen-BN ResNet normalizes nothing at random init
         print("WARNING: no pretrained weights and a frozen-BN backbone — the reference design "
-              "assumes ImageNet initialization.  For training from scratch set "
-              "TRAIN.WARMUP_ITERS/GRAD_CLIP and a lower LEARNING_RATE.")
+              "assumes ImageNet initialization.  For training from scratch use a *_fpn_gn net "
+              "(GroupNorm) or set TRAIN.WARMUP_ITERS/GRAD_CLIP and a lower LEARNING_RATE.")
     roidb = filter_roidb(roidb, cfg)
     valroidb = filter_roidb(valroidb, cfg) if valroidb is not None else None
     sw = SolverWrapper(model, roidb, cfg, reader=reader, device=device, imdb=imdb,

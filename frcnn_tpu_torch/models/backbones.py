@@ -4,21 +4,24 @@ C4 trunk and tail, and the C2-C5 stages of the FPN model
 
 Parameter names and layouts are torchvision's (``conv1``, ``bn1``,
 ``layer1.0.conv1.weight``, ``layer1.0.downsample.0.weight``, ...), so a
-lineage ``.pth`` loads directly.  All BatchNorm is frozen: y = x * mul + add
-with (mul, add) folded from the stored statistics, in the compute dtype.
+lineage ``.pth`` loads directly.  The norm is ``make_norm``'s: frozen BN
+(y = x * mul + add with (mul, add) folded from the stored statistics, in the
+compute dtype), or, for the from-scratch FPN (``res*_fpn_gn``), GroupNorm of
+32 groups under the same names, trained.
 
 Activations are NCHW tensors in ``channels_last`` memory: a permute to NHWC
 is then free, which is the layout the fused bottleneck kernel (K3) and the
 RoIAlign kernel (K2) read.  Parameters stay float32; each convolution casts
 its weight to the input's dtype (bf16 on the card), as the JAX modules do.
 
-The stem is the plain 7x7/s2 conv → BN → relu → 3x3/s2 maxpool; the JAX
+The stem is the plain 7x7/s2 conv → norm → relu → 3x3/s2 maxpool; the JAX
 package's space-to-depth stem computes the same thing for a TPU's lanes.
 
 Training: frozen BN is buffers, never parameters; ``freeze_fixed_blocks``
-sets ``requires_grad=False`` on conv1 and layer1..layer``FIXED_BLOCKS``
-(``frozen_param`` of the JAX ResNetV1), so autograd neither computes their
-gradients nor runs the backward below the first trainable layer.
+sets ``requires_grad=False`` on the stem and layer1..layer``FIXED_BLOCKS``
+(``frozen_param`` of the JAX ResNetV1 and FasterRCNNFPN), so autograd neither
+computes their gradients nor runs the backward below the first trainable
+layer.
 """
 
 from __future__ import annotations
@@ -60,6 +63,38 @@ class FrozenBatchNorm(nn.Module):
         return x * mul[:, None, None] + add[:, None, None]
 
 
+class GroupNorm(nn.Module):
+    """GroupNorm as flax's ``nn.GroupNorm`` (the JAX package's
+    ``make_norm("group")``): 32 groups, epsilon 1e-6, scale and bias trained
+    in f32; the statistics and the affine in f32 (or wider), the result cast
+    to the input's dtype.  The input is cast and made NCHW in one pass (the CUDA
+    kernel of ``F.group_norm`` reads NCHW), the output cast back into
+    channels-last memory, the trunk's layout."""
+
+    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-6):
+        super().__init__()
+        self.groups = groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        wide = torch.promote_types(x.dtype, torch.float32)
+        y = F.group_norm(x.to(wide, memory_format=torch.contiguous_format),
+                         self.groups, self.weight.to(wide), self.bias.to(wide), self.eps)
+        return y.to(x.dtype, memory_format=torch.channels_last)
+
+
+def make_norm(norm: str):
+    """The norm module of a ResNet: "frozen_bn" (eval-mode BN, never trained;
+    the pretrained path) or "group" (GroupNorm-32, trained; from scratch)."""
+    if norm == "frozen_bn":
+        return FrozenBatchNorm
+    if norm == "group":
+        return GroupNorm
+    raise ValueError(f"unknown norm: {norm}")
+
+
 def _conv(x, conv: nn.Conv2d, stride: int = 1, padding: int = 0):
     """``conv`` applied in the dtype of ``x`` (weights cast per call)."""
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
@@ -69,27 +104,31 @@ def _conv(x, conv: nn.Conv2d, stride: int = 1, padding: int = 0):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, cin: int, channels: int, stride: int = 1, fused: bool = False):
+    def __init__(self, cin: int, channels: int, stride: int = 1, fused: bool = False,
+                 norm: str = "frozen_bn"):
         super().__init__()
         cout = channels * self.expansion
+        bn = make_norm(norm)
         self.stride = stride
         self.fused = fused
+        self.norm = norm
         self.conv1 = nn.Conv2d(cin, channels, 1, bias=False)
-        self.bn1 = FrozenBatchNorm(channels)
+        self.bn1 = bn(channels)
         self.conv2 = nn.Conv2d(channels, channels, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = FrozenBatchNorm(channels)
+        self.bn2 = bn(channels)
         self.conv3 = nn.Conv2d(channels, cout, 1, bias=False)
-        self.bn3 = FrozenBatchNorm(cout)
+        self.bn3 = bn(cout)
         self.downsample = None
         if cin != cout or stride != 1:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, cout, 1, stride=stride, bias=False), FrozenBatchNorm(cout))
+                nn.Conv2d(cin, cout, 1, stride=stride, bias=False), bn(cout))
 
     def _use_fused(self, x) -> bool:
         # The TPU gate also required a row tile that fits VMEM
         # (pick_row_tile); the CUDA kernel tiles any H and W, so that
-        # condition is gone.  Frozen BN holds by construction here.
-        return (self.fused and self.stride == 1 and x.is_cuda
+        # condition is gone.  K3 folds a frozen BN into its weights: a
+        # GroupNorm block never takes it.
+        return (self.fused and self.norm == "frozen_bn" and self.stride == 1 and x.is_cuda
                 and x.dtype == torch.bfloat16)
 
     def forward(self, x):
@@ -123,9 +162,9 @@ class Bottleneck(nn.Module):
         return out.permute(0, 3, 1, 2)
 
 
-def _layer(cin: int, channels: int, blocks: int, stride: int, fused: bool):
-    layers = [Bottleneck(cin, channels, stride, fused)]
-    layers += [Bottleneck(channels * 4, channels, 1, fused) for _ in range(blocks - 1)]
+def _layer(cin: int, channels: int, blocks: int, stride: int, fused: bool, norm: str):
+    layers = [Bottleneck(cin, channels, stride, fused, norm)]
+    layers += [Bottleneck(channels * 4, channels, 1, fused, norm) for _ in range(blocks - 1)]
     return nn.Sequential(*layers)
 
 
@@ -137,17 +176,18 @@ class ResNetV1(nn.Module):
     feat_channels = 1024
     tail_dim = 2048
 
-    def __init__(self, depth: int = 50, fused: bool = True):
+    def __init__(self, depth: int = 50, fused: bool = True, norm: str = "frozen_bn"):
         super().__init__()
         blocks = _RESNET_DEPTHS[depth]
+        self.norm = norm
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm(64)
+        self.bn1 = make_norm(norm)(64)
         cin = 64
         for li, (n, ch, stride) in enumerate(zip(blocks, (64, 128, 256, 512), (1, 2, 2, 2)),
                                              start=1):
             # the tail (layer4) runs on 7x7 crops and is never fused
             use_fused = fused and li <= 3 and ch <= FUSED_MAX_CH
-            setattr(self, f"layer{li}", _layer(cin, ch, n, stride, use_fused))
+            setattr(self, f"layer{li}", _layer(cin, ch, n, stride, use_fused, norm))
             cin = ch * 4
 
     def _stem(self, x):
@@ -171,9 +211,14 @@ class ResNetV1(nn.Module):
         return self.layer4(pooled).mean(dim=(2, 3))
 
     def freeze_fixed_blocks(self, fixed_blocks: int) -> None:
-        """conv1 and layer1..layer{fixed_blocks} stop training
-        (cfg.RESNET.FIXED_BLOCKS); BN is frozen throughout."""
-        frozen = [self.conv1] + [getattr(self, f"layer{i}") for i in range(1, fixed_blocks + 1)]
+        """layer1..layer{fixed_blocks} stop training (cfg.RESNET.FIXED_BLOCKS),
+        GroupNorm included, and so does the stem (conv1, bn1): always under
+        frozen BN, which assumes pretrained weights, and under GroupNorm only
+        when fixed_blocks >= 1, so that a from-scratch run at 0 freezes
+        nothing.  Frozen BN is buffers: it never trains."""
+        frozen = [getattr(self, f"layer{i}") for i in range(1, fixed_blocks + 1)]
+        if self.norm == "frozen_bn" or fixed_blocks >= 1:
+            frozen += [self.conv1, self.bn1]
         for module in frozen:
             module.requires_grad_(False)
 
@@ -185,11 +230,11 @@ def preprocess_images(images, cfg, dtype):
     return x.to(dtype)
 
 
-def build_backbone(name: str, cfg):
+def build_backbone(name: str, cfg, norm: str = "frozen_bn"):
     """ResNet factory (reference tools/trainval_net.py --net)."""
     if name in ("res50", "res101", "res152"):
         net = ResNetV1(depth=int(name[3:]),
-                       fused=cfg.DEVICE.FUSED_RESNET_BLOCKS and cfg.DEVICE.USE_KERNELS)
+                       fused=cfg.DEVICE.FUSED_RESNET_BLOCKS and cfg.DEVICE.USE_KERNELS, norm=norm)
         net.freeze_fixed_blocks(cfg.RESNET.FIXED_BLOCKS)
         return net
     raise ValueError(f"backbone {name!r} is not ported (expected res50, res101, res152)")

@@ -23,9 +23,13 @@ as the JAX module lays it out: the per-level top-k ranks in that order, and
 ties (exact, over padding) go to the lowest A-major index.  The anchor table
 and the selected ids stay A-minor (``cell * A + a``).
 
-Frozen BN is buffers; ``conv1`` and ``layer1..layer{FIXED_BLOCKS}`` do not
-train (``ResNetV1.freeze_fixed_blocks``).  The GroupNorm variant
-(``res*_fpn_gn``) is not ported yet.
+Two trunks: ``res{50,101,152}_fpn`` with frozen BN (buffers; ``conv1`` and
+``layer1..layer{FIXED_BLOCKS}`` do not train), and ``res{50,101,152}_fpn_gn``
+with GroupNorm, the net the JAX package trains from scratch: its norms train,
+and its stem freezes only at FIXED_BLOCKS >= 1 (``ResNetV1.freeze_fixed_blocks``).
+K3 folds a frozen BN, so a GroupNorm trunk never launches it.
+``init_reference_`` draws the weights the JAX ``model.init`` draws for a run
+from scratch.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from frcnn_tpu_torch.config import Config
-from frcnn_tpu_torch.models.backbones import _conv, build_backbone, preprocess_images
+from frcnn_tpu_torch.models.backbones import GroupNorm, _conv, build_backbone, preprocess_images
 from frcnn_tpu_torch.models.losses import detection_losses_compact
 from frcnn_tpu_torch.models.network import (anchor_rows, decode_boxes, gather_anchor_rows,
                                             postprocess_detections)
@@ -313,9 +317,11 @@ class FasterRCNNFPN(nn.Module):
     def _classify(self, pooled):
         """(B, N, p, p, C) → (cls_logits, cls_prob (B, N, classes),
         bbox_pred (B, N, 4*classes)); the box head in the compute dtype, the
-        two last layers in f32."""
+        two last layers in their parameters' dtype (f32, or f64 in an f64
+        model), as the JAX Dense layers' promotion."""
         b, n = pooled.shape[:2]
-        fc = self.box_head(pooled.reshape(b * n, -1).to(self.dtype)).float()
+        fc = self.box_head(pooled.reshape(b * n, -1).to(self.dtype))
+        fc = fc.to(self.cls_score.weight.dtype)
         cls_logits = F.linear(fc, self.cls_score.weight, self.cls_score.bias)
         bbox = F.linear(fc, self.bbox_pred.weight, self.bbox_pred.bias)
         return (cls_logits.reshape(b, n, -1), torch.softmax(cls_logits, dim=-1).reshape(b, n, -1),
@@ -385,12 +391,50 @@ class FasterRCNNFPN(nn.Module):
         return losses, aux
 
 
+@torch.no_grad()
+def init_reference_(model: FasterRCNNFPN, generator: torch.Generator):
+    """The weights the JAX ``FasterRCNNFPN``'s ``model.init`` draws, for
+    training from scratch: trunk and neck convs N(0, 2/fan_out) (the JAX
+    ``conv_init``, fan_out = out channels x kernel area), conv biases 0;
+    ``rpn_net``, ``rpn_cls_w`` and ``rpn_box_w`` N(0, 0.01); the box head's
+    fcs flax's ``lecun_normal`` (a normal truncated at +-2 sigma, scaled to
+    std sqrt(1/fan_in)); ``cls_score`` N(0, 0.01), ``bbox_pred`` N(0, 0.001);
+    every other bias 0, GroupNorm scales 1.  Frozen-BN buffers keep their
+    identity values.  All draws come from ``generator`` on the CPU."""
+
+    def normal_(t, std):
+        t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+    for module in model.modules():
+        if isinstance(module, nn.Conv2d):
+            fan_out = module.out_channels * module.kernel_size[0] * module.kernel_size[1]
+            normal_(module.weight, 0.01 if module is model.rpn_net else math.sqrt(2.0 / fan_out))
+        elif isinstance(module, GroupNorm):
+            module.weight.fill_(1.0)
+    for fc in (model.box_head.fc1, model.box_head.fc2):
+        # jax's truncated normal: a unit normal cut at +-2, whose std is 0.8796
+        std = math.sqrt(1.0 / fc.in_features) / 0.87962566103423978
+        fc.weight.copy_(nn.init.trunc_normal_(torch.empty(fc.weight.shape), 0.0, 1.0, -2.0, 2.0,
+                                              generator=generator) * std)
+    for w, std in ((model.rpn_cls_w, 0.01), (model.rpn_box_w, 0.01),
+                   (model.cls_score.weight, 0.01), (model.bbox_pred.weight, 0.001)):
+        normal_(w, std)
+    for name, param in model.named_parameters():
+        if name.endswith(("bias", "_b")):
+            param.zero_()
+
+
 def build_fpn_model(net: str, num_classes: int, cfg: Config, dtype=torch.float32):
-    """net: res50_fpn | res101_fpn | res152_fpn (frozen BN)."""
-    if net.endswith("_fpn_gn"):
-        raise ValueError(f"{net}: the GroupNorm FPN variant is not ported "
-                         "(only the frozen-BN res{50,101,152}_fpn)")
-    if net not in ("res50_fpn", "res101_fpn", "res152_fpn"):
+    """net: res{50,101,152}_fpn (frozen BN: the pretrained path) or
+    res{50,101,152}_fpn_gn (GroupNorm: trainable from scratch)."""
+    trunk, _, norm = net.partition("_fpn")
+    if trunk not in ("res50", "res101", "res152") or norm not in ("", "_gn"):
         raise ValueError(f"FPN backbone {net!r} is not ported "
-                         "(expected res50_fpn, res101_fpn, res152_fpn)")
-    return FasterRCNNFPN(build_backbone(net[:-len("_fpn")], cfg), num_classes, cfg, dtype=dtype)
+                         "(expected res{50,101,152}_fpn or res{50,101,152}_fpn_gn)")
+    if norm and cfg.RESNET.FIXED_BLOCKS > 0:
+        print(f"WARNING: {net} is the from-scratch GroupNorm variant but "
+              f"RESNET.FIXED_BLOCKS={cfg.RESNET.FIXED_BLOCKS} will freeze randomly initialized "
+              f"early stages (conv1..layer{cfg.RESNET.FIXED_BLOCKS}) — set RESNET.FIXED_BLOCKS 0 "
+              "unless you are loading pretrained weights")
+    backbone = build_backbone(trunk, cfg, norm="group" if norm else "frozen_bn")
+    return FasterRCNNFPN(backbone, num_classes, cfg, dtype=dtype)

@@ -8,12 +8,13 @@ arrays) back to those names:
 
   * conv kernels HWIO → OIHW; dense kernels (in, out) → (out, in);
   * FrozenBatchNorm {scale, bias, mean, var} → {weight, bias, running_mean,
-    running_var};
+    running_var}; GroupNorm {scale, bias} → {weight, bias};
   * ``rpn_cls_score``: the JAX module orders the 2A channels per anchor
     (c = a*2 + j); the lineage orders a bg block then an fg block
     (c = j*A + a).  The channel permutation is undone.
 
-``convert_fpn_from_jax`` maps a ``FasterRCNNFPN`` tree the same way.  The
+``convert_fpn_from_jax`` maps a ``FasterRCNNFPN`` tree the same way, of
+either norm (``res*_fpn`` or ``res*_fpn_gn``).  The
 FPN model has no lineage checkpoint, so its RPN keeps the JAX layout
 (``rpn_cls_w`` (C, 2A), ``rpn_box_w`` (C, 4A)) unpermuted, and the box
 head's ``fc1`` DenseGeneral kernel (p, p, C, 1024) becomes a (1024, p*p*C)
@@ -37,10 +38,12 @@ def _conv(kernel):
 
 
 def _bn(sd, prefix, p):
+    """A norm's params: GroupNorm has no running statistics."""
     sd[f"{prefix}.weight"] = _t(p["scale"])
     sd[f"{prefix}.bias"] = _t(p["bias"])
-    sd[f"{prefix}.running_mean"] = _t(p["mean"])
-    sd[f"{prefix}.running_var"] = _t(p["var"])
+    if "mean" in p:
+        sd[f"{prefix}.running_mean"] = _t(p["mean"])
+        sd[f"{prefix}.running_var"] = _t(p["var"])
 
 
 def _resnet(stem, layer_params, depth: int):
@@ -103,10 +106,11 @@ def convert_from_jax(params, net: str, num_anchors: int = 9):
 def convert_fpn_from_jax(params, net: str):
     """JAX FasterRCNNFPN params tree (numpy leaves) → the port's
     FasterRCNNFPN state_dict (torch tensors)."""
-    if net not in ("res50_fpn", "res101_fpn", "res152_fpn"):
+    trunk, _, norm = net.partition("_fpn")
+    if trunk not in ("res50", "res101", "res152") or norm not in ("", "_gn"):
         raise ValueError(f"no FPN converter for backbone {net}")
     stages = params["stages"]
-    sd = _resnet(stages, lambda li: stages, int(net[3:-len("_fpn")]))
+    sd = _resnet(stages, lambda li: stages, int(trunk[3:]))
     for name, p in params["neck"].items():            # lateral{2..5}, output{2..5}
         _conv_bias(sd, f"neck.{name}", p)
     _conv_bias(sd, "rpn_net", params["rpn_net"])

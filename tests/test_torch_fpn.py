@@ -20,7 +20,8 @@ one leaves padding.
     CPU tensors;
   * single-problem NMS (``nms_fixed``, ``proposal_layer``: the TPU
     package's K1b path) with indices and valid equal;
-  * the GroupNorm variant raises; the converted state_dict loads with
+  * the GroupNorm variant builds (its parity is
+    ``tests/test_torch_fpn_gn.py``'s); the converted state_dict loads with
     ``strict=True``.
 """
 
@@ -331,10 +332,12 @@ def test_detector_serves_same_results(both):
     _match_per_class(want, both["det"](_images()), "Detector")
 
 
-def test_fpn_gn_raises():
-    cfg = cfg_from_list(default_config(), OVERRIDES)
-    with pytest.raises(ValueError, match="GroupNorm"):
-        build_model("res50_fpn_gn", NUM_CLASSES, cfg)
+def test_fpn_gn_builds_and_other_trunks_raise():
+    """The GroupNorm variant builds (its parity: tests/test_torch_fpn_gn.py);
+    a trunk the port does not have raises."""
+    cfg = cfg_from_list(default_config(), OVERRIDES + ["RESNET.FIXED_BLOCKS", "0"])
+    model = build_model("res50_fpn_gn", NUM_CLASSES, cfg)
+    assert model.backbone.norm == "group" and model.bn1.weight.requires_grad
     with pytest.raises(ValueError, match="not ported"):
         build_model("res18_fpn", NUM_CLASSES, cfg)
 
