@@ -4,22 +4,24 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only kernels   # stop after the kernel phases (1-11)
     python3 chip_smoke.py --profile        # and stage breakdowns of the three train
-                                           # steps and of FPN detect (27-30)
+                                           # steps and of FPN detect (38-41)
 
 Phases, each of which raises on failure (the script then exits non-zero):
   0. the card: name and power limit from nvidia-smi, torch/CUDA versions;
   1. build the hand-written kernels from frcnn_tpu_torch/csrc with nvcc;
   2. K1 (batched NMS) against its plain twin at the C4 proposal shape (8 x
      6000), the FPN proposal shape (8 x 4741, an invalid NEG_INF tail) and
-     the per-class shape (168 x 300): nms_fixed_batched indices and valid
-     masks equal; the capped keep masks (the form the main path runs)
-     bit-equal to the twin's mask cut after its first ``cap`` kept boxes,
-     also with the cap inside the first chunk of 64 and with a cap that is
-     never reached; uncapped keep masks bit-equal;
+     the per-class shape (168 x 300, and 168 x 5000 under TEST.MODE top):
+     nms_fixed_batched indices and valid masks equal; the capped keep masks
+     (the form the main path runs) bit-equal to the twin's mask cut after its
+     first ``cap`` kept boxes, also with the cap inside the first chunk of 64
+     and with a cap that is never reached; uncapped keep masks bit-equal;
   3. K2 (RoIAlign forward) against its twin, f32 and bf16, at the serving
      shape (8 x 300 rois, 50x76x1024) and the train shape (8 x 128 rois,
-     38x64x1024), with the share of corner reads that its staging leaves;
-     then at C = 1024, 256 and 1023 (an odd C: one channel a thread) with
+     38x64x1024), at VGG-16's and MobileNet's C = 512 (the same shapes and
+     8 x 5000 rois under TEST.MODE top) and MobileNet-0.25's C = 128, with
+     the share of corner reads that its staging leaves; then at C = 1024, 256
+     and 1023 (an odd C: one channel a thread) with
      rois wider than 28 map columns and one pixel wide;
   4. K3 (fused bottleneck) against its twin at the layer1/layer2 shapes of
      the serving path (800x1216) and of the train path (608x1024), with
@@ -27,7 +29,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
   5. K1 at the train shapes (C4: 8 x 12000, FPN: 8 x 8480; t=0.7, cap 2000),
      indices and capped keep masks as in 2;
   6. K2b (RoIAlign backward) against its twin, f32 and bf16, at the train
-     shape (8 x 128 rois, 38x64x1024); K6b (multilevel RoIAlign backward)
+     shape (8 x 128 rois, 38x64x1024, and at C = 512 and 128); K6b (multilevel RoIAlign backward)
      against its twin, f32 and bf16, at the FPN train shape (dOut 8 x 128 x
      7x7x256 over P2-P5 of 608x1024), every level populated and with one
      level empty (exactly zero), and with every roi on one level bit-equal to
@@ -126,22 +128,46 @@ Phases, each of which raises on failure (the script then exits non-zero):
      CPU's or zero on both (a relu input within rounding of zero may pass a
      gradient on one device only, and each trunk tensor lies behind many
      relus);
- 27. (with ``--profile``) CUDA events around each stage of a steady-state
+ 27. the VGG-16 serving path: vgg16 at full width (fc6/fc7 4096), as 12, with
+     launch counts per batch K1 2, K2 1 and K3 0, the steady-state batch time
+     and the peak device memory;
+ 28. one image through VGG-16's f32 ``detect`` on the card and on a CPU copy,
+     matched one to one as in 13;
+ 29. the VGG-16 train path: the shape, roidb and solver of 16; launch counts
+     per step K4 1, K5 2, K1 1, K2 1, K2b 1 (K3 0); finite losses;
+     ``features.0/2/5/7`` (conv1_*, conv2_*) bit-unchanged, fc6 and fc7
+     changed; the steady-state step time and the peak device memory;
+ 30. one f32 VGG-16 train step on the card and on a CPU copy with the same
+     weights and draws, the dropout uniforms of fc6 and fc7 included, as 17;
+ 31-34. 27-30 for MobileNet-v1 at DEPTH_MULTIPLIER 1.0 (``conv0`` and
+     ``sep1``..``sep4`` bit-unchanged; no dropout);
+ 35. POOLING_MODE "pool" and "crop" (plain PyTorch, as in the JAX package:
+     K2 and K2b do not run): one f32 MobileNet ``detect`` and one f32 train
+     step each on the card against a CPU copy (320x480);
+ 36. TEST.MODE "top": VGG-16, bf16, 3 requests of 8 at 800x1216 through
+     ``Detector`` (K1 once a batch: the per-class NMS over 168 problems of
+     5000 rois, cap 100; K2 once over 8 x 5000 rois), the steady-state batch
+     time and peak memory; the per-class NMS of a served batch through K1 and
+     through its twin: detections and valid masks equal;
+ 37. one image through VGG-16's f32 ``detect`` under TEST.MODE "top" (RPN_TOP_N
+     300) on the card and on a CPU copy, matched one to one;
+ 38. (with ``--profile``) CUDA events around each stage of a steady-state
      train step and torch.profiler over 3 steps: stage times, the device's
      idle share, the top kernels and K4's device time (one launch a step),
      also in chiprun_out/profile_train.json;
- 28. (with ``--profile``) the same for a steady-state FPN detect batch,
+ 39. (with ``--profile``) the same for a steady-state FPN detect batch,
      into chiprun_out/profile_fpn.json;
- 29. (with ``--profile``) the same (K4 too) for a steady-state FPN train step, into
+ 40. (with ``--profile``) the same (K4 too) for a steady-state FPN train step, into
      chiprun_out/profile_fpn_train.json, with every device kernel of the RoI
      pool's forward and backward alone (K6b one launch, no memset or
      rounding kernel);
- 30. (with ``--profile``) the same for the GroupNorm FPN train step, into
+ 41. (with ``--profile``) the same for the GroupNorm FPN train step, into
      chiprun_out/profile_fpn_gn_train.json.
 Then one JSON line of per-kernel results, the card line, and, last, the
-JSON ok line.  Each kernel's line carries its launches on the six paths of
-12-19 and 23-26 (``launches``; ``launches_by_path`` by path, with the driven
-runs of 20 (A) and 21), each counted from zero,
+JSON ok line.  Each kernel's line carries its launches on the eleven paths
+of 12, 14, 16, 18, 23, 25, 27, 29, 31, 33 and 36 (``launches``;
+``launches_by_path`` by path, with the driven runs of 20 (A) and 21), each
+counted from zero,
 its error against the twin, its time, the twin's, the time of the one
 library call that computes the same function where there is one, and its
 bound: the least time the card could take for the timed launches, from the
@@ -363,6 +389,15 @@ def check_nms(dev):
     valid[::17] = False
     cls_args, cls_kw = fixed("per-class (168, 300, t=0.3, cap 100)", boxes, scores,
                              valid, 0.3, 100, False)
+    # the per-class shape under TEST.MODE "top": RPN_TOP_N = 5000 rois a class
+    top_rng = np.random.RandomState(16)
+    b, n = 168, 5000
+    boxes = random_boxes(top_rng, b, n, size=1216.0, clusters=120)
+    scores = top_rng.uniform(0, 1, (b, n)).astype(np.float32)
+    valid = scores > 0.05
+    valid[::21] = False                                # the background class
+    top_args, top_kw = fixed("per-class, TEST.MODE top (168, 5000, t=0.3, cap 100)", boxes,
+                             scores, valid, 0.3, 100, False)
 
     # uncapped keep masks, bit-equal: duplicates and integer boxes whose IoU
     # lands exactly on the threshold
@@ -397,7 +432,8 @@ def check_nms(dev):
     bound = Bound()
     for name, args, kw, sort, iters in (("proposals", prop_args, prop_kw, False, 3),
                                         ("per_class", cls_args, cls_kw, True, 5),
-                                        ("FPN proposals", fpn_args, fpn_kw, False, 3)):
+                                        ("FPN proposals", fpn_args, fpn_kw, False, 3),
+                                        ("per_class top", top_args, top_kw, True, 2)):
         bx, thresh, vd, cap = mask_args(args, kw, sort)
         # the main path's cap, one inside the first chunk of 64 candidates, one
         # never reached, then the main path's again (the mask the bound counts)
@@ -405,13 +441,13 @@ def check_nms(dev):
                                  vd, (1, 20, bx.shape[1] + 1, cap))
         k_ms = cuda_ms(lambda: nms_mask_batched(bx, thresh, vd, max_keep=cap))
         t_ms = cuda_ms(lambda: nms_mask_reference(bx, thresh, vd), iters=iters, warmup=1)
-        timings[name] = (k_ms, t_ms)
         b_ms = bound.add(nbytes(bx, vd, keep), nms_pairs(keep, vd, cap) * IOU_FLOPS)
+        timings[name] = {"ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms}
         log(f"K1 time {name}: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms, bound {b_ms:.4f} ms")
-    results["ms"] = sum(v[0] for v in timings.values())
-    results["plain_ms"] = sum(v[1] for v in timings.values())
+    results["ms"] = sum(v["ms"] for v in timings.values())
+    results["plain_ms"] = sum(v["plain_ms"] for v in timings.values())
     results["max_abs_err"] = float(max(errs))
-    return {**results, **bound.result()}
+    return {**results, **bound.result(), "by_shape": timings}
 
 
 # ---------------------------------------------------------------------------
@@ -430,9 +466,17 @@ def check_roi_align(dev):
     k_total = t_total = 0.0
     worst = 0.0
     bound = Bound()
+    by_shape = {}
     # (name, B, H, W, C, rois per image, image size): the serving and train shapes
+    # of the ResNet C4 nets (C 1024), of VGG-16 and MobileNet at width 1.0 (C 512,
+    # and VGG-16's 5000 rois a image under TEST.MODE top) and of MobileNet at
+    # width 0.25 (C 128)
     for name, b, h, w, c, r, size in (("serving", 8, 50, 76, 1024, 300, 1216.0),
-                                      ("train", 8, 38, 64, 1024, 128, 1024.0)):
+                                      ("train", 8, 38, 64, 1024, 128, 1024.0),
+                                      ("serving C512", 8, 50, 76, 512, 300, 1216.0),
+                                      ("train C512", 8, 38, 64, 512, 128, 1024.0),
+                                      ("top serving C512", 8, 50, 76, 512, 5000, 1216.0),
+                                      ("serving C128", 8, 50, 76, 128, 300, 1216.0)):
         feat32 = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(dev)
         rois = random_boxes(rng, b, r, size=size)
         rois[:, :20] = rng.uniform(-400, size + 400, (b, 20, 4))      # partly / wholly outside
@@ -461,6 +505,7 @@ def check_roi_align(dev):
                               c, feat.element_size())
         b_ms = bound.add(read + nbytes(rois_t, k), k.numel() * ROI_FLOPS)
         staged = staged_pixels(rois_t, h, w).sum().item() / (16 * 49 * b * r)
+        by_shape[name] = {"ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms}
         log(f"K2 time {name} bf16: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({read / 1e6:.1f} of the map's {nbytes(feat) / 1e6:.1f} MB lie "
             f"under a roi; the pixels staged are {staged:.4f} of the 16 corner reads a bin)")
@@ -488,7 +533,8 @@ def check_roi_align(dev):
                 raise AssertionError(f"K2 C={c} {dtype}: max abs err {err} > {tol} ({rule})")
         log(f"K2 C={c} (2 x {h}x{w}, {r} rois; whole-map, 62-column and one-pixel rois), f32 and "
             f"bf16: within tolerance of the twin (bf16 err {err:.3e} <= {tol:.3e})")
-    return {"ms": k_total, "plain_ms": t_total, "max_abs_err": worst, **bound.result()}
+    return {"ms": k_total, "plain_ms": t_total, "max_abs_err": worst, **bound.result(),
+            "by_shape": by_shape}
 
 
 def roi_read_bytes(rois, levels, hws, scales, c, element_size, p=7, sr=2):
@@ -703,41 +749,50 @@ def check_roi_align_bwd(dev):
                                                            roi_align_backward_reference)
 
     rng = np.random.RandomState(7)
-    b, r, c = TRAIN_B, 128, 1024
+    b, r = TRAIN_B, 128
     h, w = TRAIN_FEAT
     rois = random_boxes(rng, b, r, size=1000.0)
     rois[:, :10] = rng.uniform(-400, 1400, (b, 10, 4))             # partly / wholly outside
     rois[:, 10:15, 2:] = rois[:, 10:15, :2]                        # zero size
     rois[:, 15:20] = 0.0                                           # padding rois
     rois_t = torch.from_numpy(rois).to(dev)
-    g32 = torch.from_numpy(rng.randn(b, r, 7, 7, c).astype(np.float32)).to(dev)
-    out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        g = g32.to(dtype)
-        k = roi_align_backward(g, rois_t, (h, w))
-        t = roi_align_backward_reference(g, rois_t, (h, w))
-        torch.cuda.synchronize()
-        if k.dtype != dtype or k.shape != (b, h, w, c):
-            raise AssertionError(f"K2b {dtype}: got {k.dtype} {tuple(k.shape)}")
-        err = (k.float() - t.float()).abs().max().item()
-        scale = t.float().abs().max().item()
-        tol, rule = roi_tolerance(dtype, scale)
-        if not err <= tol:
-            raise AssertionError(f"K2b {dtype}: max abs err {err} > {tol} ({rule})")
-        check_twice(f"K2b {dtype}", lambda: roi_align_backward(g, rois_t, (h, w)))
-        log(f"K2b {str(dtype)[6:]} (dOut 8 x 128 x 7x7x1024 -> dF 8 x 38x64x1024): max abs "
-            f"err {err:.3e} <= {tol:.3e} ({rule}, max|twin| {scale:.3f}); two calls bit-equal")
-        out[dtype] = err
-    k_ms = cuda_ms(lambda: roi_align_backward(g, rois_t, (h, w)))
-    t_ms = cuda_ms(lambda: roi_align_backward_reference(g, rois_t, (h, w)), iters=5)
-    plans = time_bwd_plans(lambda plan: roi_align_backward(g, rois_t, (h, w), plan=plan), c,
-                           g.element_size())
+    out, by_shape, plans = {}, {}, None
     bound = Bound()
-    bound.add(nbytes(g, rois_t, k), g.numel() * ROI_FLOPS)
-    log(f"K2b time bf16: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms, bound {bound.ms:.4f} ms; "
-        f"by plan (tile/chunk) {plans}")
-    return {"ms": k_ms, "plain_ms": t_ms, "max_abs_err": out[torch.bfloat16], **bound.result(),
-            "by_plan": plans}
+    # the ResNet C4 train shape (C 1024), VGG-16's and MobileNet's (C 512), and
+    # MobileNet's at width 0.25 (C 128)
+    for c in (1024, 512, 128):
+        g32 = torch.from_numpy(rng.randn(b, r, 7, 7, c).astype(np.float32)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = g32.to(dtype)
+            k = roi_align_backward(g, rois_t, (h, w))
+            t = roi_align_backward_reference(g, rois_t, (h, w))
+            torch.cuda.synchronize()
+            if k.dtype != dtype or k.shape != (b, h, w, c):
+                raise AssertionError(f"K2b C={c} {dtype}: got {k.dtype} {tuple(k.shape)}")
+            err = (k.float() - t.float()).abs().max().item()
+            scale = t.float().abs().max().item()
+            tol, rule = roi_tolerance(dtype, scale)
+            if not err <= tol:
+                raise AssertionError(f"K2b C={c} {dtype}: max abs err {err} > {tol} ({rule})")
+            check_twice(f"K2b C={c} {dtype}", lambda: roi_align_backward(g, rois_t, (h, w)))
+            log(f"K2b {str(dtype)[6:]} (dOut 8 x 128 x 7x7x{c} -> dF 8 x 38x64x{c}): max abs "
+                f"err {err:.3e} <= {tol:.3e} ({rule}, max|twin| {scale:.3f}); two calls "
+                "bit-equal")
+            out[dtype] = max(out.get(dtype, 0.0), err)
+        k_ms = cuda_ms(lambda: roi_align_backward(g, rois_t, (h, w)))
+        t_ms = cuda_ms(lambda: roi_align_backward_reference(g, rois_t, (h, w)), iters=5)
+        b_ms = bound.add(nbytes(g, rois_t, k), g.numel() * ROI_FLOPS)
+        by_shape[f"C{c}"] = {"ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms}
+        if plans is None:
+            plans = time_bwd_plans(
+                lambda plan: roi_align_backward(g, rois_t, (h, w), plan=plan), c,
+                g.element_size())
+        log(f"K2b time bf16 C={c}: kernel {k_ms:.4f} ms, plain twin {t_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms" + (f"; by plan (tile/chunk) {plans}" if c == 1024 else ""))
+    return {"ms": sum(v["ms"] for v in by_shape.values()),
+            "plain_ms": sum(v["plain_ms"] for v in by_shape.values()),
+            "max_abs_err": out[torch.bfloat16], **bound.result(), "by_plan": plans,
+            "by_shape": by_shape}
 
 
 def check_roi_align_ml_bwd(dev):
@@ -1187,12 +1242,25 @@ def build_seeded(cfg, dtype, seed=0, net="res50"):
     return model.eval()
 
 
-def main_path(dev, card):
+# per C4 detect batch at 800x1216: the proposal NMS and the per-class NMS, one
+# RoIAlign, the 6 stride-1 blocks of layer1-2
+SERVE_LAUNCHES = {"nms": 2, "roi_align": 1, "fused_block": 6}
+# the same for VGG-16 and MobileNet, which have no bottleneck block for K3
+C4_PLAIN_SERVE_LAUNCHES = {"nms": 2, "roi_align": 1}
+# under TEST.MODE top: no proposal NMS, the per-class NMS over 5000 rois a class
+TOP_SERVE_LAUNCHES = {"nms": 1, "roi_align": 1}
+
+
+def main_path(dev, card, net="res50", per_batch=SERVE_LAUNCHES, extra=()):
+    """A C4 net's serving path at full width: 3 requests of 8 through
+    ``Detector`` with the launch counts per batch, then the steady-state batch
+    time and peak device memory."""
     from frcnn_tpu_torch.engine.serve import Detector, iter_bucket_batches
     from frcnn_tpu_torch.ops.cuda import build
 
-    cfg = smoke_config()
-    model = build_seeded(cfg, torch.bfloat16)
+    label = "main path" if net == "res50" and not extra else f"{net} serving path {list(extra)}"
+    cfg = smoke_config(extra)
+    model = build_seeded(cfg, torch.bfloat16, net=net)
     detector = Detector(model, uint8_input=True)          # no device given: the card
     if detector.device != dev or next(model.parameters()).device != dev:
         raise AssertionError(f"Detector did not move the model to {dev}: {detector.device}")
@@ -1210,39 +1278,42 @@ def main_path(dev, card):
         x = preprocess_images(torch.from_numpy(blob).to(dev), cfg, torch.bfloat16)
         feat = model.backbone.extract_features(x.permute(0, 3, 1, 2)).float()
     if not torch.isfinite(feat).all():
-        raise AssertionError("trunk activations are not finite at 800x1216")
-    log(f"trunk features {tuple(feat.shape)}: finite, std {feat.std().item():.4f}, "
+        raise AssertionError(f"{net} trunk activations are not finite at 800x1216")
+    log(f"{net} trunk features {tuple(feat.shape)}: finite, std {feat.std().item():.4f}, "
         f"max |x| {feat.abs().max().item():.4f}")
+    del feat
 
     torch.cuda.synchronize()
     build.reset_launch_counts()
     results = [detector(images) for images in requests]
     torch.cuda.synchronize()
     counts = dict(build.LAUNCH_COUNTS)
-    log(f"main path: 3 requests x 8 images served; kernel launches {counts}")
+    log(f"{label}: 3 requests x 8 images served; kernel launches {counts}")
     n_det = 0
     for req in results:
         for dets in req:
             if dets.ndim != 2 or dets.shape[1] != 6 or not np.isfinite(dets).all():
-                raise AssertionError(f"bad detections: shape {dets.shape}")
+                raise AssertionError(f"{label}: bad detections: shape {dets.shape}")
             n_det += len(dets)
     if n_det == 0:
-        raise AssertionError("no detections at SCORE_THRESH 0.0")
-    want = {"nms": 6, "roi_align": 3, "fused_block": 18}
-    for name, n in want.items():
-        if counts.get(name, 0) != n:
-            raise AssertionError(f"launch count {name}: {counts.get(name, 0)} != {n} "
-                                 "(2 / 1 / 6 per batch)")
-    log(f"main path: {n_det} finite detections of shape (k, 6) over 24 images; per batch "
-        f"K1 {counts['nms'] // 3}, K2 {counts['roi_align'] // 3}, "
-        f"K3 {counts['fused_block'] // 3} launches")
+        raise AssertionError(f"{label}: no detections at SCORE_THRESH 0.0")
+    want = {name: 3 * n for name, n in per_batch.items()}
+    if counts != want:
+        raise AssertionError(f"{label} launch counts {counts} != {want} ({per_batch} per batch; "
+                             "a kernel not named launches 0 times)")
+    log(f"{label}: {n_det} finite detections of shape (k, 6) over 24 images; per batch "
+        f"K1 {per_batch.get('nms', 0)}, K2 {per_batch.get('roi_align', 0)}, "
+        f"K3 {per_batch.get('fused_block', 0)} launches")
 
     data = torch.from_numpy(blob).to(dev)
     im_info = torch.tensor([[float(bh), float(bw), 1.0]] * 8, device=dev)
+    torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: detector.detect_blobs(data, im_info), iters=10, warmup=2)
-    log(f"serving path steady state (batch 8, {bh}x{bw}, bf16 trunk): {ms:.3f} ms per batch "
-        f"(median of 10, CUDA events), {8000.0 / ms:.2f} images/s on {card}")
-    return counts, ms
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{label} steady state ({net}, batch 8, {bh}x{bw}, bf16 trunk): {ms:.3f} ms per batch "
+        f"(median of 10, CUDA events), {8000.0 / ms:.2f} images/s, peak device memory "
+        f"{peak:.3f} GiB on {card}")
+    return counts, ms, detector, data, im_info
 
 
 def match_dets(want, got, label, score_atol=1e-3, box_atol=5e-2):
@@ -1277,30 +1348,73 @@ def match_im_detect(want, got, label, score_atol=1e-3, box_atol=5e-2):
     return len(ws)
 
 
-def end_to_end(dev):
+E2E_LAUNCHES = {"nms": 2, "roi_align": 1}
+
+
+def end_to_end(dev, net="res50", extra=(), launches=E2E_LAUNCHES):
+    """One image through a C4 net's f32 ``detect`` on the card and on a CPU
+    copy of the same model (320x480), detections matched one to one;
+    ``launches`` the kernels the card's detect must run."""
     from frcnn_tpu_torch.engine.serve import Detector
     from frcnn_tpu_torch.ops.cuda import build
 
     cfg = smoke_config(["TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480",
-                        "DEVICE.BUCKETS", "((320, 480),)", "TEST.SCORE_THRESH", "0.05"])
-    cpu_model = build_seeded(cfg, torch.float32, seed=1)
-    card_model = build_seeded(cfg, torch.float32, seed=1)
+                        "DEVICE.BUCKETS", "((320, 480),)", "TEST.SCORE_THRESH", "0.05", *extra])
+    cpu_model = build_seeded(cfg, torch.float32, seed=1, net=net)
+    card_model = build_seeded(cfg, torch.float32, seed=1, net=net)
     im = synthetic_images(np.random.RandomState(5), [(320, 480)])
     before = dict(build.LAUNCH_COUNTS)
     got = Detector(card_model)(im)[0]
     after = dict(build.LAUNCH_COUNTS)
     want = Detector(cpu_model, device="cpu")(im)[0]
-    ran = {k: after.get(k, 0) - before.get(k, 0) for k in ("nms", "roi_align")}
-    if ran != {"nms": 2, "roi_align": 1}:
-        raise AssertionError(f"f32 card detect did not run K1 twice and K2 once: {ran}")
-    match_dets(want, got, "f32 detect, card vs CPU")
-    log(f"end to end (f32, TF32 off, 320x480): card detect (K1 x2, K2 x1) matches the CPU "
-        f"copy (twins): {len(want)} detections, score atol 1e-3, box atol 5e-2")
+    ran = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+    if ran != launches:
+        raise AssertionError(f"f32 {net} {list(extra)} card detect ran {ran}, not {launches}")
+    if len(want) == 0:
+        raise AssertionError(f"f32 {net} {list(extra)} detect: no detections to compare")
+    match_dets(want, got, f"f32 {net} {list(extra)} detect, card vs CPU")
+    log(f"{net} {list(extra)} end to end (f32, TF32 off, 320x480): card detect ({ran}) matches "
+        f"the CPU copy (twins): {len(want)} detections, score atol 1e-3, box atol 5e-2")
 
 
-# per C4 detect batch at 800x1216: the proposal NMS and the per-class NMS, one
-# RoIAlign, the 6 stride-1 blocks of layer1-2
-SERVE_LAUNCHES = {"nms": 2, "roi_align": 1, "fused_block": 6}
+def top_path(dev, card):
+    """TEST.MODE top at full width: VGG-16, bf16, one 800x1216 bucket, 3
+    requests of 8 through ``Detector`` (K1 once a batch: the per-class NMS
+    over 168 problems of 5000 rois; K2 once over 8 x 5000 rois), then the
+    steady-state batch time and peak memory; then the per-class NMS of one
+    batch's real outputs through K1 and through its twin: detections and
+    valid masks equal."""
+    from frcnn_tpu_torch.models.network import postprocess_detections
+
+    counts, ms, detector, data, im_info = main_path(dev, card, "vgg16", TOP_SERVE_LAUNCHES,
+                                                    ("TEST.MODE", "top"))
+    model, cfg = detector.model, detector.cfg
+    with torch.inference_mode():
+        out = model.predict(data, im_info)
+        n = out["rois"].shape[1]
+        if n != cfg.TEST.RPN_TOP_N or not out["roi_valid"].all():
+            raise AssertionError(f"TEST.MODE top: {n} rois a image, "
+                                 f"{int(out['roi_valid'].sum())} valid")
+        got = postprocess_detections(out, im_info, cfg, 21, cfg.TEST.MAX_PER_IMAGE)
+        want = postprocess_detections(out, im_info, cfg, 21, cfg.TEST.MAX_PER_IMAGE,
+                                      use_kernels=False)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("TEST.MODE top: the per-class NMS through K1 (168 x 5000, cap "
+                             "100) differs from its twin")
+    with torch.inference_mode():
+        k_ms = cuda_ms(lambda: postprocess_detections(out, im_info, cfg, 21,
+                                                      cfg.TEST.MAX_PER_IMAGE))
+        t_ms = cuda_ms(lambda: postprocess_detections(out, im_info, cfg, 21,
+                                                      cfg.TEST.MAX_PER_IMAGE,
+                                                      use_kernels=False), iters=3, warmup=1)
+    log(f"TEST.MODE top: the per-class NMS of a served batch (168 problems x {n} rois, cap 100) "
+        f"through K1 equals its twin's: detections and valid masks equal "
+        f"({int(got[1].sum())} detections); postprocess_detections {k_ms:.4f} ms with K1, "
+        f"{t_ms:.4f} ms with the twin")
+    return counts, ms
+
+
 # per FPN detect batch at 800x1216: the 6 stride-1 blocks of layer1-2, K5 on
 # the P2 and P3 rows, the proposal NMS and the per-class NMS, one K6 launch
 FPN_LAUNCHES = {"fused_block": 6, "select": 2, "nms": 2, "roi_align_ml": 1}
@@ -1452,6 +1566,9 @@ TRAIN_LAUNCHES = {"nms": 1, "roi_align": 1, "roi_align_bwd": 1, "fused_block": 6
 # the K5 gate), the cross-level NMS, multilevel RoIAlign fwd + bwd
 FPN_TRAIN_LAUNCHES = {"fused_block": 6, "overlap": 1, "select": 3, "nms": 1,
                       "roi_align_ml": 1, "roi_align_ml_bwd": 1}
+# per VGG-16 or MobileNet train step: the C4 step without K3
+C4_PLAIN_TRAIN_LAUNCHES = {"nms": 1, "roi_align": 1, "roi_align_bwd": 1, "overlap": 1,
+                           "select": 2}
 # per GroupNorm FPN train step: the same without K3
 FPN_GN_TRAIN_LAUNCHES = {"overlap": 1, "select": 3, "nms": 1, "roi_align_ml": 1,
                          "roi_align_ml_bwd": 1}
@@ -1498,7 +1615,7 @@ def train_path(dev, card, net="res50", per_step=TRAIN_LAUNCHES, extra=()):
     from frcnn_tpu_torch.engine.train import SolverWrapper, filter_roidb
     from frcnn_tpu_torch.ops.cuda import build
 
-    label = f"{net} train" if "_fpn" in net else "train"
+    label = "train" if net == "res50" else f"{net} train"
     cfg = train_config(extra)
     model = build_seeded(cfg, torch.bfloat16, net=net)
     rng = np.random.RandomState(4)
@@ -1549,7 +1666,8 @@ def train_path(dev, card, net="res50", per_step=TRAIN_LAUNCHES, extra=()):
     groups = sorted({n.split(".")[0] for n, _ in trained})
     log(f"{label} path: losses finite, first {history[0]}, last {history[-1]}; step 1 gave all "
         f"{len(trained)} trainable tensors ({', '.join(groups)}) a non-zero gradient; "
-        f"{len(frozen)} frozen tensors bit-unchanged, {len(trained)} trainable tensors changed")
+        f"{len(frozen)} frozen tensors ({', '.join(sorted({n.rsplit('.', 1)[0] for n in frozen}))}"
+        f") bit-unchanged, {len(trained)} trainable tensors changed")
 
     blobs = {k: torch.as_tensor(v).to(dev) for k, v in solver.data_layer.forward().items()}
     torch.cuda.reset_peak_memory_stats()
@@ -1577,6 +1695,22 @@ CARD_VS_CPU = {
                   {"overlap": 1, "select": 3, "nms": 1, "roi_align_ml": 1, "roi_align_ml_bwd": 1},
                   ("rpn_net.weight", "rpn_cls_w", "cls_score.weight", "box_head.fc1.weight",
                    "neck.output2.weight", "neck.lateral5.weight", "layer2.1.conv2.weight")),
+    # VGG-16 and MobileNet (width 1.0): the C4 cuts and launches without K3; VGG's
+    # conv3_* are left out of the compared updates (a relu input within rounding
+    # of zero passes the gradient on one device only: tests/test_torch_vgg_mobile.py)
+    "vgg16": (["TRAIN.RPN_PRE_NMS_TOP_N", "400", "TRAIN.RPN_POST_NMS_TOP_N", "64"],
+              (320 // 16) * (480 // 16) * 9, 64,
+              {"nms": 1, "roi_align": 1, "roi_align_bwd": 1, "overlap": 1},
+              ("rpn_net.weight", "cls_score.weight", "classifier.0.weight",
+               "classifier.3.weight", "features.28.weight")),
+    # MobileNet at lr 1.0: at 1e-3 a depthwise weight (N(0, 2/9)) moves by ~400 of its
+    # f32 ulps, and the rounding of p + delta alone exceeds 1e-3 of max|delta|
+    "mobile": (["TRAIN.RPN_PRE_NMS_TOP_N", "400", "TRAIN.RPN_POST_NMS_TOP_N", "64",
+                "TRAIN.LEARNING_RATE", "1.0"],
+               (320 // 16) * (480 // 16) * 9, 64,
+               {"nms": 1, "roi_align": 1, "roi_align_bwd": 1, "overlap": 1},
+               ("rpn_net.weight", "cls_score.weight", "sep13.pointwise.weight",
+                "sep11.depthwise.weight", "sep6.pointwise.weight")),
     # the same under the from-scratch recipe (nothing frozen, clip, warmup) at lr 1.0:
     # at the recipe's rates under the clip an update is a few ulps of its weight
     # (tests/test_torch_train.py).  The trunk's tensors are held by direction only:
@@ -1591,20 +1725,25 @@ CARD_VS_CPU = {
 }
 
 
-def train_card_vs_cpu(dev, net="res50"):
+def train_card_vs_cpu(dev, net="res50", pooling="align"):
     """One f32 train step on the card (kernels) and on a CPU copy (twins)
-    from the same weights, minibatch and draws.  The proposal and RoI
-    counts are cut (C4: pre-NMS 400; FPN: 200 a level; post-NMS 64) so that
-    the proposal order, which decides which roi each random priority lands
-    on, is not flipped by near-tied RPN scores that differ in the last bits
-    between cuDNN and the CPU convolutions."""
+    from the same weights, minibatch and draws (VGG-16's dropout uniforms
+    too).  The proposal and RoI counts are cut (C4: pre-NMS 400; FPN: 200 a
+    level; post-NMS 64) so that the proposal order, which decides which roi
+    each random priority lands on, is not flipped by near-tied RPN scores
+    that differ in the last bits between cuDNN and the CPU convolutions.
+    POOLING_MODE "pool" or "crop" pools in plain PyTorch on both: K2 and K2b
+    do not run."""
     from frcnn_tpu_torch.data.loader import get_minibatch
     from frcnn_tpu_torch.engine.train import SolverWrapper
     from frcnn_tpu_torch.ops.cuda import build
 
     cuts, k, post, card_launches, compared = CARD_VS_CPU[net]
+    if pooling != "align":
+        card_launches = {n: c for n, c in card_launches.items() if not n.startswith("roi_align")}
     cfg = train_config(["TRAIN.IMS_PER_BATCH", "2", "DEVICE.BUCKETS", "((320, 480),)",
-                        "TRAIN.SCALES", "(320,)", "TRAIN.MAX_SIZE", "480", *cuts])
+                        "TRAIN.SCALES", "(320,)", "TRAIN.MAX_SIZE", "480", "POOLING_MODE",
+                        pooling, *cuts])
     rng = np.random.RandomState(5)
     roidb, reader = synthetic_roidb(rng, [(320, 480), (320, 480)])
     blobs = get_minibatch(roidb, cfg, np.random.RandomState(0), reader=reader)
@@ -1612,6 +1751,9 @@ def train_card_vs_cpu(dev, net="res50"):
     draws = {name: torch.from_numpy(rng.uniform(0, 1, (2, size)).astype(np.float32))
              for name, size in (("anchor_fg", k), ("anchor_bg", k), ("roi_fg", n),
                                 ("roi_bg", n))}
+    if net == "vgg16":                      # fc6's and fc7's dropout, as uniform_draws shapes it
+        draws["dropout"] = torch.from_numpy(
+            rng.uniform(0, 1, (2, 2 * cfg.TRAIN.BATCH_SIZE, 4096)).astype(np.float32))
     results = []
     for device in (None, "cpu"):                         # None: the card
         model = build_seeded(cfg, torch.float32, seed=2, net=net)
@@ -1625,22 +1767,25 @@ def train_card_vs_cpu(dev, net="res50"):
         results.append(({k_: float(v) for k_, v in losses.items()}, delta, ran, solver.device))
     (card_l, card_d, card_ran, card_dev), (cpu_l, cpu_d, cpu_ran, _) = results
     if card_dev != dev or card_ran != card_launches or cpu_ran:
-        raise AssertionError(f"f32 {net} train step on {card_dev}: card launches {card_ran} "
+        raise AssertionError(f"f32 {net} {pooling} train step on {card_dev}: card launches "
+                             f"{card_ran} "
                              f"(want {card_launches}), CPU launches {cpu_ran}")
     for name, want in cpu_l.items():
         rel = abs(card_l[name] - want) / max(abs(want), 1e-6)
         if not rel <= 1e-4:
-            raise AssertionError(f"f32 {net} train step {name}: card {card_l[name]} vs CPU {want} "
+            raise AssertionError(f"f32 {net} {pooling} train step {name}: card {card_l[name]} "
+                                 f"vs CPU {want} "
                                  f"(rel {rel:.2e} > 1e-4)")
     worst = {}
     for name in compared:
         scale = cpu_d[name].abs().max().item()
         err = (card_d[name] - cpu_d[name]).abs().max().item()
         if not (scale > 0 and err <= 1e-3 * scale):
-            raise AssertionError(f"f32 {net} train step update of {name}: err {err} vs "
+            raise AssertionError(f"f32 {net} {pooling} train step update of {name}: err {err} vs "
                                  f"max|delta| {scale} (tolerance 1e-3 relative)")
         worst[name] = err / scale
-    log(f"f32 {net} train step, card ({card_ran}) vs CPU copy (twins), 320x480, batch 2: losses "
+    log(f"f32 {net} {pooling} train step, card ({card_ran}) vs CPU copy (twins), 320x480, "
+        f"batch 2: losses "
         f"{cpu_l} within 1e-4 relative; updates within 1e-3 of max|delta| "
         f"({ {k_: f'{v:.2e}' for k_, v in worst.items()} })")
     if net.endswith("_gn"):
@@ -2274,7 +2419,7 @@ def main(argv=None) -> int:
         print(card)
         return 0
 
-    serve_counts, serve_ms = main_path(dev, card)
+    serve_counts, serve_ms = main_path(dev, card)[:2]
     end_to_end(dev)
     fpn_counts, fpn_detector, fpn_data, fpn_info, fpn_ms = fpn_path(dev, card)
     fpn_end_to_end(dev)
@@ -2297,6 +2442,19 @@ def main(argv=None) -> int:
     gn_train_counts, gn_solver, _ = train_path(dev, card, "res50_fpn_gn", FPN_GN_TRAIN_LAUNCHES,
                                                GN_TRAIN_CONFIG)
     train_card_vs_cpu(dev, "res50_fpn_gn")
+    # VGG-16 and MobileNet (width 1.0), the other pooling modes, TEST.MODE top
+    new_paths = {}
+    for net in ("vgg16", "mobile"):
+        new_paths[f"{net}_serve"] = main_path(dev, card, net, C4_PLAIN_SERVE_LAUNCHES)[0]
+        end_to_end(dev, net)
+        new_paths[f"{net}_train"] = train_path(dev, card, net, C4_PLAIN_TRAIN_LAUNCHES)[0]
+        train_card_vs_cpu(dev, net)
+    for pooling in ("pool", "crop"):
+        end_to_end(dev, "mobile", ("POOLING_MODE", pooling), {"nms": 2})
+        train_card_vs_cpu(dev, "mobile", pooling)
+    new_paths["vgg16_top_serve"] = top_path(dev, card)[0]
+    # 300 rois an image: VGG-16's fc6 over the full 5000 would take the CPU copy ~10 s
+    end_to_end(dev, "vgg16", ("TEST.MODE", "top", "TEST.RPN_TOP_N", "300"), TOP_SERVE_LAUNCHES)
     if args.profile:
         profile_train_step(solver, card)
         profile_fpn_detect(fpn_detector, fpn_data, fpn_info, card)
@@ -2306,11 +2464,11 @@ def main(argv=None) -> int:
     # the TPU kernels served by a kernel that stands for another one
     also = {"nms": ("frcnn_tpu/ops/pallas/nms_kernel.py:128", k1b),
             "roi_align_ml": ("frcnn_tpu/ops/pallas/roi_align_kernel.py:609", None)}
-    # launches: the six paths of 12-19 and 23-26, each counted from zero; the
-    # driven runs of 20 (A) and 21 are reported beside them by path
+    # launches: the eleven paths of 12, 14, 16, 18, 23, 25, 27, 29, 31, 33 and 36,
+    # each counted from zero; the driven runs of 20 (A) and 21 beside them by path
     paths = {"c4_serve": serve_counts, "fpn_serve": fpn_counts, "c4_train": train_counts,
              "fpn_train": fpn_train_counts, "fpn_gn_detect": gn_counts,
-             "fpn_gn_train": gn_train_counts}
+             "fpn_gn_train": gn_train_counts, **new_paths}
     driven = {"c4_train_net": train_net_counts, "c4_test_net": c4_test_counts,
               "fpn_test_net": fpn_test_counts}
     kernels = []

@@ -445,10 +445,11 @@ def train_net(model, imdb, roidb, valroidb, output_dir: str, tb_dir: str | None 
 
         init_reference_(model, torch.Generator().manual_seed(cfg.RNG_SEED))
     elif pretrained is None:
-        # a frozen-BN ResNet normalizes nothing at random init
-        print("WARNING: no pretrained weights and a frozen-BN backbone — the reference design "
-              "assumes ImageNet initialization.  For training from scratch use a *_fpn_gn net "
-              "(GroupNorm) or set TRAIN.WARMUP_ITERS/GRAD_CLIP and a lower LEARNING_RATE.")
+        # a frozen-BN ResNet or MobileNet, or VGG-16, normalizes nothing at random init
+        print("WARNING: no pretrained weights and a frozen-BN or VGG-16 backbone — the reference "
+              "design assumes ImageNet initialization.  For training from scratch use a "
+              "*_fpn_gn net (GroupNorm) or set TRAIN.WARMUP_ITERS/GRAD_CLIP and a lower "
+              "LEARNING_RATE.")
     roidb = filter_roidb(roidb, cfg)
     valroidb = filter_roidb(valroidb, cfg) if valroidb is not None else None
     sw = SolverWrapper(model, roidb, cfg, reader=reader, device=device, imdb=imdb,

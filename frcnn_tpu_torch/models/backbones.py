@@ -1,6 +1,7 @@
-"""ResNet-v1 backbone (``frcnn_tpu/models/backbones.py``, ResNet only): the
-C4 trunk and tail, and the C2-C5 stages of the FPN model
-(``frcnn_tpu/models/fpn.py::_ResNetStages``).
+"""Backbones (``frcnn_tpu/models/backbones.py``): VGG-16, ResNet-v1
+(50/101/152) and MobileNet-v1, each a stride-16 trunk (``extract_features``)
+and a per-RoI tail (``head_to_tail``); the ResNet also gives the C2-C5
+stages of the FPN model (``frcnn_tpu/models/fpn.py::_ResNetStages``).
 
 Parameter names and layouts are torchvision's (``conv1``, ``bn1``,
 ``layer1.0.conv1.weight``, ``layer1.0.downsample.0.weight``, ...), so a
@@ -21,10 +22,22 @@ Training: frozen BN is buffers, never parameters; ``freeze_fixed_blocks``
 sets ``requires_grad=False`` on the stem and layer1..layer``FIXED_BLOCKS``
 (``frozen_param`` of the JAX ResNetV1 and FasterRCNNFPN), so autograd neither
 computes their gradients nor runs the backward below the first trainable
-layer.
+layer.  VGG-16 freezes its first two conv blocks and MobileNet-v1 ``conv0``
+and ``sep1..sep{FIXED_LAYERS - 1}`` the same way (their ``frozen_param``).
+
+VGG-16 keeps torchvision's names (``features.{0,2,...,28}``, ``classifier.0``
+(fc6), ``classifier.3`` (fc7)); MobileNet-v1, which has no torchvision
+layout in the lineage, the JAX tree's (``conv0``, ``bn0``,
+``sep{i}.{depthwise,bn_dw,pointwise,bn_pw}``).
+
+``init_random_`` (in ``models/network.py``) draws every conv He-normal; each
+backbone's ``init_random_`` then sets what keeps its activations O(1) at full
+size with random weights.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -175,6 +188,7 @@ class ResNetV1(nn.Module):
 
     feat_channels = 1024
     tail_dim = 2048
+    tail_dropout = 0
 
     def __init__(self, depth: int = 50, fused: bool = True, norm: str = "frozen_bn"):
         super().__init__()
@@ -206,9 +220,19 @@ class ResNetV1(nn.Module):
             outs.append(layer(outs[-1]))
         return outs
 
-    def head_to_tail(self, pooled):
-        """pooled (N, 1024, p, p) → (N, 2048)."""
+    def head_to_tail(self, pooled, drop=None):
+        """pooled (N, 1024, p, p) → (N, 2048).  The tail has no dropout:
+        ``drop`` is always None."""
         return self.layer4(pooled).mean(dim=(2, 3))
+
+    def init_random_(self, normal_) -> None:
+        """``init_random_``'s part past the He-normal convs: the last norm of
+        each residual branch scaled to 0.5, and the stem's to 1/64 (raw pixels
+        are O(100))."""
+        for name, module in self.named_modules():
+            if name.endswith("bn3") or name.endswith("downsample.1"):
+                module.weight.fill_(0.5)
+        self.bn1.weight.fill_(1.0 / 64.0)
 
     def freeze_fixed_blocks(self, fixed_blocks: int) -> None:
         """layer1..layer{fixed_blocks} stop training (cfg.RESNET.FIXED_BLOCKS),
@@ -223,6 +247,171 @@ class ResNetV1(nn.Module):
             module.requires_grad_(False)
 
 
+def dropout(x, uniform, rate: float = 0.5):
+    """flax ``nn.Dropout(rate)`` with its uniform draws given: an element is
+    kept where its uniform is below 1 - rate (``bernoulli(keep)``) and
+    scaled by 1 / (1 - rate), else zeroed."""
+    keep = 1.0 - rate
+    return torch.where(uniform < keep, x / keep, 0.0)
+
+
+# channels of the 13 convs, "M" a 2x2 max-pool; the last pool is dropped
+_VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512)
+
+
+class VGG16(nn.Module):
+    """VGG-16 (the lineage's ``lib/nets/vgg16.py``): torchvision's
+    ``features`` without the last max-pool (13 3x3 convs with relu, 4 2x2
+    max-pools that floor odd sizes as flax's VALID pool: stride 16, 512
+    channels), and ``classifier`` without fc8: the 7x7 crop flattened in C, H,
+    W order (torchvision's; the JAX tail flattens H, W, C and its converter
+    permutes fc6), fc6 and fc7, each with relu and, in training, dropout p
+    0.5 on the uniforms ``drop`` (``dropout``).  conv1_* and conv2_*
+    (``features.0/2/5/7``) are frozen.  Only the parameterized layers are
+    modules, under their torchvision indices."""
+
+    feat_channels = 512
+    norm = "none"
+    tail_dropout = 2       # dropout layers in the tail: fc6's and fc7's
+
+    def __init__(self, tail_dim: int = 4096):
+        super().__init__()
+        self.tail_dim = tail_dim
+        self.features = nn.ModuleDict()
+        self._pool_after = set()
+        cin, idx = 3, 0
+        for v in _VGG_CFG:
+            if v == "M":
+                self._pool_after.add(idx - 2)
+                idx += 1
+            else:
+                self.features[str(idx)] = nn.Conv2d(cin, v, 3, padding=1)
+                cin, idx = v, idx + 2           # the conv, then its relu
+        self.classifier = nn.ModuleDict({"0": nn.Linear(512 * 7 * 7, tail_dim),
+                                         "3": nn.Linear(tail_dim, tail_dim)})
+        for idx in ("0", "2", "5", "7"):        # conv1_1 .. conv2_2
+            self.features[idx].requires_grad_(False)
+
+    def extract_features(self, x):
+        """x (B, 3, H, W) in the compute dtype → (B, 512, H/16, W/16)."""
+        for idx, conv in self.features.items():
+            x = F.relu(_conv(x, conv, padding=1))
+            if int(idx) in self._pool_after:
+                x = F.max_pool2d(x, 2, 2)
+        return x
+
+    def head_to_tail(self, pooled, drop=None):
+        """pooled (N, 512, 7, 7) → (N, tail_dim); ``drop`` (2, N, tail_dim):
+        the uniforms of fc6's and fc7's dropout (training), or None."""
+        x = pooled.flatten(1)
+        for i, fc in enumerate(self.classifier.values()):
+            x = F.relu(F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype)))
+            if drop is not None:
+                x = dropout(x, drop[i])
+        return x
+
+    def init_random_(self, normal_) -> None:
+        """``init_random_``'s part past the He-normal convs: conv1_1 scaled
+        by 1/64 (raw pixels are O(100)), fc6 and fc7 N(0, 2/fan_in), biases
+        zero."""
+        self.features["0"].weight.mul_(1.0 / 64.0)
+        for fc in self.classifier.values():
+            normal_(fc.weight, math.sqrt(2.0 / fc.in_features))
+            fc.bias.zero_()
+
+
+# (channels, stride) of the 13 separable layers after the stem: sep1-sep11
+# are the trunk (stride 16), sep12-13 the tail at stride 1 on the crop
+_MOBILENET_CFG = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2),
+                  (512, 1), (512, 1), (512, 1), (512, 1), (512, 1),
+                  (1024, 2), (1024, 1))
+
+
+def _mch(c: int, dm: float) -> int:
+    return max(int(c * dm), 8)
+
+
+def _same_pad(x, stride: int, k: int = 3):
+    """x padded as XLA's "SAME" (flax ``padding="SAME"``) pads a k x k
+    window at ``stride``: out = ceil(n / stride) a side, and the total pad
+    max((out - 1) * stride + k - n, 0) split total // 2 before, the rest
+    after.  At stride 2 an even side gets nothing before and one after,
+    where a symmetric ``padding=1`` would shift every output a pixel."""
+    pads = []
+    for n in (x.shape[3], x.shape[2]):              # F.pad lists the last dim first
+        total = max((-(-n // stride) - 1) * stride + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
+class SeparableConv(nn.Module):
+    """Depthwise 3x3 (SAME, ``stride``) → frozen BN → relu6 → pointwise 1x1
+    → frozen BN → relu6, no conv biases."""
+
+    def __init__(self, cin: int, cout: int, stride: int):
+        super().__init__()
+        self.stride = stride
+        self.depthwise = nn.Conv2d(cin, cin, 3, stride=stride, groups=cin, bias=False)
+        self.bn_dw = FrozenBatchNorm(cin)
+        self.pointwise = nn.Conv2d(cin, cout, 1, bias=False)
+        self.bn_pw = FrozenBatchNorm(cout)
+
+    def forward(self, x):
+        w = self.depthwise.weight.to(x.dtype)
+        x = F.conv2d(_same_pad(x, self.stride), w, stride=self.stride, groups=x.shape[1])
+        x = F.relu6(self.bn_dw(x))
+        return F.relu6(self.bn_pw(_conv(x, self.pointwise)))
+
+
+class MobileNetV1(nn.Module):
+    """MobileNet-v1 (the lineage's ``lib/nets/mobilenet_v1.py``) at width
+    ``depth_multiplier``: the trunk is ``conv0`` (3x3/s2 SAME) → ``bn0`` →
+    relu6 → ``sep1``..``sep11`` (stride 16, 512 x dm channels); the tail is
+    ``sep12``, ``sep13`` at stride 1 on the crop, then the spatial mean
+    (1024 x dm).  Every BN is frozen (buffers); ``freeze_fixed_layers``
+    freezes ``conv0`` and ``sep1..sep{FIXED_LAYERS - 1}``."""
+
+    norm = "frozen_bn"
+    tail_dropout = 0
+
+    def __init__(self, depth_multiplier: float = 1.0):
+        super().__init__()
+        dm = depth_multiplier
+        self.feat_channels = _mch(512, dm)
+        self.tail_dim = _mch(1024, dm)
+        cin = _mch(32, dm)
+        self.conv0 = nn.Conv2d(3, cin, 3, stride=2, bias=False)
+        self.bn0 = FrozenBatchNorm(cin)
+        for i, (c, s) in enumerate(_MOBILENET_CFG, start=1):
+            setattr(self, f"sep{i}", SeparableConv(cin, _mch(c, dm), s if i <= 11 else 1))
+            cin = _mch(c, dm)
+
+    def extract_features(self, x):
+        """x (B, 3, H, W) in the compute dtype → (B, 512 x dm, ~H/16, ~W/16)."""
+        x = F.relu6(self.bn0(_conv(_same_pad(x, 2), self.conv0, 2)))
+        for i in range(1, 12):
+            x = getattr(self, f"sep{i}")(x)
+        return x
+
+    def head_to_tail(self, pooled, drop=None):
+        """pooled (N, 512 x dm, p, p) → (N, 1024 x dm).  The tail has no
+        dropout: ``drop`` is always None."""
+        return self.sep13(self.sep12(pooled)).mean(dim=(2, 3))
+
+    def init_random_(self, normal_) -> None:
+        """``init_random_``'s part past the He-normal convs: ``bn0`` scaled to
+        1/64 (raw pixels are O(100))."""
+        self.bn0.weight.fill_(1.0 / 64.0)
+
+    def freeze_fixed_layers(self, fixed_layers: int) -> None:
+        """cfg.MOBILENET.FIXED_LAYERS = n > 0 freezes ``conv0`` and
+        ``sep1``..``sep{n-1}`` (the JAX ``frozen_param``)."""
+        if fixed_layers > 0:
+            self.conv0.requires_grad_(False)
+        for i in range(1, fixed_layers):
+            getattr(self, f"sep{i}").requires_grad_(False)
+
+
 def preprocess_images(images, cfg, dtype):
     """Mean-subtract and scale (B, H, W, 3) BGR pixels; returns NHWC in dtype."""
     means = torch.tensor(cfg.PIXEL_MEANS, dtype=torch.float32, device=images.device)
@@ -231,10 +420,18 @@ def preprocess_images(images, cfg, dtype):
 
 
 def build_backbone(name: str, cfg, norm: str = "frozen_bn"):
-    """ResNet factory (reference tools/trainval_net.py --net)."""
+    """Backbone factory (reference tools/trainval_net.py --net): vgg16,
+    res50 | res101 | res152 (of either norm) or mobile."""
+    if name == "vgg16":
+        return VGG16()
     if name in ("res50", "res101", "res152"):
         net = ResNetV1(depth=int(name[3:]),
                        fused=cfg.DEVICE.FUSED_RESNET_BLOCKS and cfg.DEVICE.USE_KERNELS, norm=norm)
         net.freeze_fixed_blocks(cfg.RESNET.FIXED_BLOCKS)
         return net
-    raise ValueError(f"backbone {name!r} is not ported (expected res50, res101, res152)")
+    if name == "mobile":
+        net = MobileNetV1(cfg.MOBILENET.DEPTH_MULTIPLIER)
+        net.freeze_fixed_layers(cfg.MOBILENET.FIXED_LAYERS)
+        return net
+    raise ValueError(f"backbone {name!r} is not ported "
+                     "(expected vgg16, res50, res101, res152, mobile)")

@@ -329,9 +329,9 @@ class FasterRCNNFPN(nn.Module):
 
     def predict(self, images, im_info):
         """images (B, H, W, 3) BGR; im_info (B, 3) [h, w, scale] → dict of
-        rois, roi_scores, roi_valid, cls_prob, bbox_pred."""
-        if self.config.TEST.MODE != "nms":
-            raise ValueError(f"TEST.MODE {self.config.TEST.MODE!r} is not ported (only 'nms')")
+        rois, roi_scores, roi_valid, cls_prob, bbox_pred.  TEST.MODE is not
+        read: the proposals are the NMS ones under "top" too, as in the JAX
+        ``FasterRCNNFPN``."""
         pyramid = self._pyramid(images)
         fg_prob, box_cells, _ = self._rpn_all_levels(pyramid)
         anchors = self._anchors(pyramid)

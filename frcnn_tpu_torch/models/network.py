@@ -2,12 +2,17 @@
 Faster R-CNN with fixed output shapes.
 
   * ``predict``: preprocess → backbone trunk → RPN → proposal layer
-    (K1) → RoIAlign (K2) → tail + heads; raw outputs.
+    (K1; under TEST.MODE "top" the top RPN_TOP_N anchors, no NMS) → RoI
+    pool (POOLING_MODE "align": K2; "pool", "crop": plain PyTorch, as the
+    JAX package) → tail + heads; raw outputs.
   * ``detect``: predict + delta decode, clip, rescale to original image
     coordinates, per-class threshold + NMS (K1), global top-k → (B, D, 6).
   * ``train_forward``: the trunk and RPN, the train proposal layer (K1),
     anchor targets (K4, K5) and proposal targets, RoIAlign (K2 forward,
-    K2b backward), the tail and heads, and the four losses.
+    K2b backward), the tail (VGG-16: dropout on drawn uniforms) and heads,
+    and the four losses.
+
+Backbones: ``vgg16``, ``res{50,101,152}``, ``mobile`` (``build_backbone``).
 
 Dtypes follow the JAX module: trunk, RPN convs and tail in the compute
 dtype, RPN outputs cast to f32; ``cls_score``/``bbox_pred`` run in f32.
@@ -24,7 +29,7 @@ from torch import nn
 from frcnn_tpu_torch.config import Config
 from frcnn_tpu_torch.models.backbones import _conv, build_backbone, preprocess_images
 from frcnn_tpu_torch.models.losses import detection_losses_compact
-from frcnn_tpu_torch.models.proposals import proposal_layer_batch
+from frcnn_tpu_torch.models.proposals import proposal_layer_batch, proposal_top_layer
 from frcnn_tpu_torch.models.targets import (anchor_target_compact, proposal_target_layer,
                                             uniform_draws)
 from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
@@ -107,9 +112,10 @@ def gather_anchor_rows(cells, sel, a_n: int):
 
 
 class FasterRCNN(nn.Module):
-    """The detector.  The backbone's children (``conv1``, ``bn1``,
-    ``layer1``..``layer4``) are registered on the detector itself, so the
-    state_dict carries the lineage's flat torchvision names beside
+    """The detector.  The backbone's children (ResNet: ``conv1``, ``bn1``,
+    ``layer1``..``layer4``; VGG-16: ``features``, ``classifier``; MobileNet:
+    ``conv0``, ``bn0``, ``sep1``..``sep13``) are registered on the detector
+    itself, so the state_dict carries the lineage's flat names beside
     ``rpn_net``, ``rpn_cls_score``, ``rpn_bbox_pred``, ``cls_score`` and
     ``bbox_pred``.  ``rpn_cls_score`` keeps the lineage channel order: a
     background block of A channels, then a foreground block."""
@@ -181,12 +187,15 @@ class FasterRCNN(nn.Module):
             output_size=cfg.POOLING_SIZE, spatial_scale=1.0 / cfg.FEAT_STRIDE[0],
             sampling_ratio=cfg.DEVICE.ROI_SAMPLING_RATIO, use_kernels=self.use_kernels)
 
-    def _classify(self, pooled):
+    def _classify(self, pooled, drop=None):
         """(B, N, p, p, C) → (cls_logits (B, N, classes), cls_prob (B, N,
-        classes), bbox_pred (B, N, 4*classes))."""
+        classes), bbox_pred (B, N, 4*classes)); ``drop``: the tail's dropout
+        uniforms in training, else None."""
         b, n = pooled.shape[:2]
         flat = pooled.reshape((b * n,) + pooled.shape[2:]).to(self.dtype).permute(0, 3, 1, 2)
-        fc = self.backbone.head_to_tail(flat).float()
+        # the last two layers in their parameters' dtype (f32, or f64 in an
+        # f64 model), as the JAX Dense layers' promotion
+        fc = self.backbone.head_to_tail(flat, drop).to(self.cls_score.weight.dtype)
         cls_logits = F.linear(fc, self.cls_score.weight, self.cls_score.bias)
         bbox = F.linear(fc, self.bbox_pred.weight, self.bbox_pred.bias)
         return (cls_logits.reshape(b, n, -1), torch.softmax(cls_logits, dim=-1).reshape(b, n, -1),
@@ -196,17 +205,19 @@ class FasterRCNN(nn.Module):
         """images (B, H, W, 3) BGR; im_info (B, 3) [h, w, scale] → dict of
         rois, roi_scores, roi_valid, cls_prob, bbox_pred."""
         cfg = self.config
-        if cfg.TEST.MODE != "nms":
-            raise ValueError(f"TEST.MODE {cfg.TEST.MODE!r} is not ported (only 'nms')")
         x = preprocess_images(images, cfg, self.dtype).permute(0, 3, 1, 2)
         feat = self.backbone.extract_features(x)
         fg_prob, deltas = self._rpn(feat)
         anchors = self._anchors(feat.shape[2], feat.shape[3], feat.device)
-        rois, roi_scores, roi_valid = proposal_layer_batch(
-            fg_prob, deltas, anchors, im_info,
-            pre_nms_top_n=cfg.TEST.RPN_PRE_NMS_TOP_N,
-            post_nms_top_n=cfg.TEST.RPN_POST_NMS_TOP_N,
-            nms_thresh=cfg.TEST.RPN_NMS_THRESH, use_kernels=self.use_kernels)
+        if cfg.TEST.MODE == "top":
+            rois, roi_scores, roi_valid = proposal_top_layer(
+                fg_prob, deltas, anchors, im_info, rpn_top_n=cfg.TEST.RPN_TOP_N)
+        else:
+            rois, roi_scores, roi_valid = proposal_layer_batch(
+                fg_prob, deltas, anchors, im_info,
+                pre_nms_top_n=cfg.TEST.RPN_PRE_NMS_TOP_N,
+                post_nms_top_n=cfg.TEST.RPN_POST_NMS_TOP_N,
+                nms_thresh=cfg.TEST.RPN_NMS_THRESH, use_kernels=self.use_kernels)
         _, cls_prob, bbox_pred = self._classify(self._pool(feat, rois))
         return {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid,
                 "cls_prob": cls_prob, "bbox_pred": bbox_pred}
@@ -230,7 +241,8 @@ class FasterRCNN(nn.Module):
         ``torch.Generator`` on the model's device, or a dict of the uniform
         draws ``uniform_draws`` makes (anchor_fg, anchor_bg (B, K); roi_fg,
         roi_bg (B, P + G) for P = min(RPN_POST_NMS_TOP_N, RPN_PRE_NMS_TOP_N,
-        K) proposals).  Returns (losses dict of batch-mean scalars,
+        K) proposals; for a tail with dropout (VGG-16) also dropout (2, B *
+        BATCH_SIZE, tail_dim)).  Returns (losses dict of batch-mean scalars,
         aux dict)."""
         cfg = self.config
         t = cfg.TRAIN
@@ -238,9 +250,11 @@ class FasterRCNN(nn.Module):
         x = preprocess_images(images, cfg, self.dtype).permute(0, 3, 1, 2)
         feat = self.backbone.extract_features(x)
         anchors = self._anchors(feat.shape[2], feat.shape[3], feat.device)
+        layers = self.backbone.tail_dropout
         if isinstance(draws, torch.Generator):
             n_rois = min(t.RPN_POST_NMS_TOP_N, t.RPN_PRE_NMS_TOP_N, anchors.shape[0])
-            draws = uniform_draws(draws, b, anchors.shape[0], n_rois + gt_boxes.shape[1])
+            drop = (layers, b * t.BATCH_SIZE, self.backbone.tail_dim) if layers else None
+            draws = uniform_draws(draws, b, anchors.shape[0], n_rois + gt_boxes.shape[1], drop)
 
         at = anchor_target_compact(anchors, gt_boxes, gt_valid, im_info, draws["anchor_fg"],
                                    draws["anchor_bg"], cfg)
@@ -252,7 +266,8 @@ class FasterRCNN(nn.Module):
         pt = proposal_target_layer(rois, roi_valid, gt_boxes, gt_labels, gt_valid,
                                    draws["roi_fg"], draws["roi_bg"], cfg, self.num_classes)
 
-        cls_logits, cls_prob, bbox_pred = self._classify(self._pool(feat, pt.rois))
+        cls_logits, cls_prob, bbox_pred = self._classify(self._pool(feat, pt.rois),
+                                                         draws["dropout"] if layers else None)
         box_rows = torch.take_along_dim(deltas, at.sel[..., None], dim=1)
         per_image = detection_losses_compact(cls_rows, box_rows, at, cls_logits, bbox_pred, pt)
         losses = {name: v.mean() for name, v in per_image.items()}
@@ -263,8 +278,8 @@ class FasterRCNN(nn.Module):
 
 
 def build_model(net: str, num_classes: int, cfg: Config, dtype=torch.float32):
-    """Model factory: net in res50 | res101 | res152 (C4) or
-    res50_fpn | res101_fpn | res152_fpn (FPN)."""
+    """Model factory: net in vgg16 | res50 | res101 | res152 | mobile (C4)
+    or res{50,101,152}_fpn[_gn] (FPN)."""
     if "_fpn" in net:
         from frcnn_tpu_torch.models.fpn import build_fpn_model
 
@@ -274,21 +289,21 @@ def build_model(net: str, num_classes: int, cfg: Config, dtype=torch.float32):
 
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator):
-    """Seeded random weights that keep activations O(1) through a frozen-BN
-    ResNet (trunk output std 1-3, where the JAX init grows ~1000x): convs
-    N(0, 2/fan_in), the last BN of each residual branch scaled to 0.5, the
-    raw O(100) pixels scaled down by the stem's BN; then the model's own
-    ``_init_heads_`` sets the layers past the trunk.  All draws come from
-    ``generator`` on the CPU."""
+    """Seeded random weights that keep activations O(1) through the trunk
+    (a frozen-BN ResNet's output std 1-3, where the JAX init grows ~1000x):
+    convs N(0, 2/fan_in) with zero biases, then the backbone's own
+    ``init_random_`` (the raw O(100) pixels scaled down at the first layer,
+    a ResNet's residual branches damped, VGG-16's fc6/fc7 drawn), then the
+    model's ``_init_heads_`` for the layers past the trunk.  All draws come
+    from ``generator`` on the CPU."""
 
     def normal_(t, std):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
-    for name, module in model.named_modules():
+    for module in model.modules():
         if isinstance(module, nn.Conv2d):
-            fan_in = module.in_channels * module.kernel_size[0] * module.kernel_size[1]
-            normal_(module.weight, math.sqrt(2.0 / fan_in))
-        if name.endswith("bn3") or name.endswith("downsample.1"):
-            module.weight.fill_(0.5)
-    model.bn1.weight.fill_(1.0 / 64.0)  # raw pixels are O(100)
+            normal_(module.weight, math.sqrt(2.0 / module.weight[0].numel()))
+            if module.bias is not None:
+                module.bias.zero_()
+    model.backbone.init_random_(normal_)
     model._init_heads_(normal_)

@@ -1,6 +1,8 @@
 """Proposal generation (``frcnn_tpu/models/proposals.py``): decode RPN
 deltas, clip, drop anchors centred on padding, take the top pre-NMS boxes
-by score, greedy NMS, pad to a fixed count with a validity mask."""
+by score, greedy NMS, pad to a fixed count with a validity mask; or, under
+TEST.MODE "top", the top RPN_TOP_N anchors with no NMS
+(``proposal_top_layer``)."""
 
 from __future__ import annotations
 
@@ -56,3 +58,22 @@ def proposal_layer(scores, deltas, anchors, im_info, *, pre_nms_top_n: int,
         scores[None], deltas[None], anchors, im_info[None], pre_nms_top_n=pre_nms_top_n,
         post_nms_top_n=post_nms_top_n, nms_thresh=nms_thresh, use_kernels=use_kernels)
     return rois[0], roi_scores[0], valid[0]
+
+
+def proposal_top_layer(scores, deltas, anchors, im_info, *, rpn_top_n: int):
+    """The NMS-free TEST variant (TEST.MODE "top"), batched: scores (B, K),
+    deltas (B, K, 4), anchors (K, 4), im_info (B, 3) → the top
+    min(rpn_top_n, K) valid anchors by score (ties lowest index first, as
+    ``lax.top_k``), decoded and clipped: (rois (B, n, 4), scores (B, n),
+    valid (B, n)).  Where fewer anchors are valid than n, the rest are zero
+    boxes with valid False (the lineage pads at random)."""
+    scores = torch.where(_anchor_validity(anchors, im_info), scores, NEG_INF)
+    n = min(rpn_top_n, scores.shape[1])
+    top_scores, top_idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    top_scores, top_idx = top_scores[:, :n], top_idx[:, :n]
+    valid = top_scores > NEG_INF / 2
+    boxes = bbox_transform_inv(anchors[top_idx], torch.take_along_dim(deltas, top_idx[..., None],
+                                                                        dim=1))
+    boxes = clip_boxes(boxes, im_info[:, :2])
+    boxes = torch.where(valid[..., None], boxes, 0.0)
+    return boxes, torch.where(valid, top_scores, 0.0), valid

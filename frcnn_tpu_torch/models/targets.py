@@ -33,13 +33,20 @@ def _f32(value, device):
     return torch.tensor(value, dtype=torch.float32, device=device)
 
 
-def uniform_draws(generator: torch.Generator, b: int, k: int, n: int) -> dict:
-    """The four uniform draws of a train step on the generator's device:
-    anchor fg/bg priorities (B, K) and RoI fg/bg priorities (B, N)."""
-    def rand(size):
-        return torch.rand((b, size), generator=generator, device=generator.device)
+def uniform_draws(generator: torch.Generator, b: int, k: int, n: int,
+                  dropout: tuple | None = None) -> dict:
+    """The uniform draws of a train step on the generator's device: anchor
+    fg/bg priorities (B, K), RoI fg/bg priorities (B, N) and, for a tail
+    with dropout, its uniforms of shape ``dropout`` (layers, rows, width),
+    drawn last."""
+    def rand(*size):
+        return torch.rand(size, generator=generator, device=generator.device)
 
-    return {"anchor_fg": rand(k), "anchor_bg": rand(k), "roi_fg": rand(n), "roi_bg": rand(n)}
+    draws = {"anchor_fg": rand(b, k), "anchor_bg": rand(b, k), "roi_fg": rand(b, n),
+             "roi_bg": rand(b, n)}
+    if dropout is not None:
+        draws["dropout"] = rand(*dropout)
+    return draws
 
 
 def _rank_by_random_priority(mask, uniform):

@@ -18,8 +18,8 @@ import argparse
 import os.path as osp
 import sys
 
-NETS = ("res50", "res101", "res152", "res50_fpn", "res101_fpn", "res152_fpn",
-        "res50_fpn_gn", "res101_fpn_gn", "res152_fpn_gn")
+NETS = ("vgg16", "res50", "res101", "res152", "mobile", "res50_fpn", "res101_fpn",
+        "res152_fpn", "res50_fpn_gn", "res101_fpn_gn", "res152_fpn_gn")
 
 
 def parse_args(argv=None):

@@ -8,10 +8,11 @@
 
 It runs on the card (cuda:0, bf16 trunk under DEVICE.DTYPE bfloat16);
 ``--cpu`` asks for the CPU (f32).  ``--weight`` takes a ``.pth`` state_dict
-with torchvision names (an ImageNet ResNet: the tensors whose name and
-shape match are loaded); without it a GroupNorm net (``--net res50_fpn_gn``,
-with ``--set RESNET.FIXED_BLOCKS 0``) starts from the JAX package's
-from-scratch initialisation.  Datasets live under DATA_DIR; their images are
+with torchvision names (an ImageNet ResNet or VGG-16: the tensors whose
+name and shape match are loaded); ``--net`` takes vgg16, res{50,101,152},
+mobile, res{50,101,152}_fpn and res{50,101,152}_fpn_gn.  Without ``--weight``
+a GroupNorm net (``--net res50_fpn_gn``, with ``--set RESNET.FIXED_BLOCKS
+0``) starts from the JAX package's from-scratch initialisation.  Datasets live under DATA_DIR; their images are
 read with cv2.  Snapshots and ``train_log.jsonl`` go to
 ROOT_DIR/output/EXP_DIR/<imdb>/<tag>, and a run there resumes from its
 latest snapshot.
@@ -23,8 +24,8 @@ import argparse
 import os.path as osp
 import sys
 
-NETS = ("res50", "res101", "res152", "res50_fpn", "res101_fpn", "res152_fpn",
-        "res50_fpn_gn", "res101_fpn_gn", "res152_fpn_gn")
+NETS = ("vgg16", "res50", "res101", "res152", "mobile", "res50_fpn", "res101_fpn",
+        "res152_fpn", "res50_fpn_gn", "res101_fpn_gn", "res152_fpn_gn")
 
 
 def parse_args(argv=None):

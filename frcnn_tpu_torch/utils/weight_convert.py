@@ -6,12 +6,19 @@ The port keeps the lineage's torchvision names and layouts, so a lineage
 module maps a ``frcnn_tpu`` FasterRCNN ``variables["params"]`` tree (numpy
 arrays) back to those names:
 
-  * conv kernels HWIO → OIHW; dense kernels (in, out) → (out, in);
+  * conv kernels HWIO → OIHW (a depthwise (3, 3, 1, C) → (C, 1, 3, 3));
+    dense kernels (in, out) → (out, in);
   * FrozenBatchNorm {scale, bias, mean, var} → {weight, bias, running_mean,
     running_var}; GroupNorm {scale, bias} → {weight, bias};
   * ``rpn_cls_score``: the JAX module orders the 2A channels per anchor
     (c = a*2 + j); the lineage orders a bg block then an fg block
-    (c = j*A + a).  The channel permutation is undone.
+    (c = j*A + a).  The channel permutation is undone;
+  * VGG-16: ``trunk.conv{b}_{i}`` → torchvision's ``features.{idx}``,
+    ``tail.fc6/fc7`` → ``classifier.0/3``; the JAX tail flattens the 7x7
+    crop in H, W, C order and torchvision in C, H, W, so fc6's input columns
+    are permuted (the inverse of the JAX ``convert_vgg16``'s);
+  * MobileNet-v1: the JAX tree's names (``trunk.conv0``, ``trunk.bn0``,
+    ``{trunk,tail}.sep{i}.{depthwise,bn_dw,pointwise,bn_pw}``) flattened.
 
 ``convert_fpn_from_jax`` maps a ``FasterRCNNFPN`` tree the same way, of
 either norm (``res*_fpn`` or ``res*_fpn_gn``).  The
@@ -71,6 +78,43 @@ def convert_resnet_from_jax(backbone, depth: int):
                    lambda li: backbone["trunk"] if li <= 3 else backbone["tail"], depth)
 
 
+# torchvision vgg16 ``features`` indices of the 13 convs, in order
+_VGG_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_VGG_NAMES = ("conv1_1", "conv1_2", "conv2_1", "conv2_2", "conv3_1", "conv3_2", "conv3_3",
+              "conv4_1", "conv4_2", "conv4_3", "conv5_1", "conv5_2", "conv5_3")
+
+
+def convert_vgg16_from_jax(backbone):
+    """``params["backbone"]`` of a VGG16 → torchvision vgg16 names."""
+    sd = {}
+    for idx, name in zip(_VGG_IDX, _VGG_NAMES):
+        _conv_bias(sd, f"features.{idx}", backbone["trunk"][name])
+    tail = backbone["tail"]
+    c = np.asarray(backbone["trunk"]["conv5_3"]["kernel"]).shape[-1]
+    w6 = np.asarray(tail["fc6"]["kernel"])                      # (p * p * C, D), rows (y, x, c)
+    p = int(round((w6.shape[0] // c) ** 0.5))
+    w6 = w6.reshape(p, p, c, -1).transpose(2, 0, 1, 3).reshape(w6.shape)   # rows (c, y, x)
+    _dense(sd, "classifier.0", {"kernel": w6, "bias": tail["fc6"]["bias"]})
+    _dense(sd, "classifier.3", tail["fc7"])
+    return sd
+
+
+def convert_mobilenet_from_jax(backbone):
+    """``params["backbone"]`` of a MobileNetV1 → the port's names (the JAX
+    tree's, flattened)."""
+    trunk = backbone["trunk"]
+    sd = {"conv0.weight": _conv(trunk["conv0"]["kernel"])}
+    _bn(sd, "bn0", trunk["bn0"])
+    for part in (trunk, backbone["tail"]):
+        for name, layer in part.items():
+            if name.startswith("sep"):
+                for conv in ("depthwise", "pointwise"):
+                    sd[f"{name}.{conv}.weight"] = _conv(layer[conv]["kernel"])
+                for bn in ("bn_dw", "bn_pw"):
+                    _bn(sd, f"{name}.{bn}", layer[bn])
+    return sd
+
+
 def _conv_bias(sd, prefix, p):
     sd[f"{prefix}.weight"] = _conv(p["kernel"])
     sd[f"{prefix}.bias"] = _t(p["bias"])
@@ -86,9 +130,14 @@ def _dense(sd, prefix, p):
 def convert_from_jax(params, net: str, num_anchors: int = 9):
     """Full JAX FasterRCNN params tree (numpy leaves) → the port's
     state_dict (torch tensors, lineage names and layouts)."""
-    if not net.startswith("res") or "_" in net:
+    if net == "vgg16":
+        sd = convert_vgg16_from_jax(params["backbone"])
+    elif net in ("res50", "res101", "res152"):
+        sd = convert_resnet_from_jax(params["backbone"], int(net[3:]))
+    elif net == "mobile":
+        sd = convert_mobilenet_from_jax(params["backbone"])
+    else:
         raise ValueError(f"no converter for backbone {net}")
-    sd = convert_resnet_from_jax(params["backbone"], int(net[3:]))
     a = num_anchors
     # JAX channel k = i*2 + j holds lineage channel perm[k] = j*A + i
     perm = np.array([j * a + i for i in range(a) for j in range(2)])

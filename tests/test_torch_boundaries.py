@@ -88,7 +88,7 @@ def test_chip_smoke_roi_bound_counts_the_pixels_under_the_rois():
     assert 0 < want < sum(2 * h * w for h, w in hws) and got == want * c * 2
 
 
-@pytest.mark.parametrize("net", ["res50", "res50_fpn"])
+@pytest.mark.parametrize("net", ["res50", "res50_fpn", "vgg16", "mobile"])
 def test_entry_points_default_to_the_card(net):
     """``Detector(model)`` and ``SolverWrapper(model, roidb)`` run on cuda:0
     unless told otherwise: with no card they raise instead of quietly serving

@@ -144,7 +144,7 @@ def _edge_rois(rng, b, r, width, height):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [1024, 256, 96, 33, 1023])
+@pytest.mark.parametrize("c", [1024, 512, 256, 128, 96, 33, 1023])
 def test_roi_align_staged_kernel_over_plans(dev, rng, c, dtype):
     """The staged forward at 16 bytes of channels a thread and (odd C) one
     channel, over channel chunks, threads and staging sizes; a small buffer
@@ -314,8 +314,9 @@ def test_fused_block_kernel_matches_twin(dev, b, h, w, cin, mid, proj):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_roi_align_backward_kernel_matches_twin(dev, rng, dtype):
-    dout = torch.from_numpy(rng.randn(2, 40, 7, 7, 96).astype(np.float32)).to(dev, dtype)
+@pytest.mark.parametrize("c", [96, 512, 128])      # and VGG-16's / MobileNet's widths
+def test_roi_align_backward_kernel_matches_twin(dev, rng, dtype, c):
+    dout = torch.from_numpy(rng.randn(2, 40, 7, 7, c).astype(np.float32)).to(dev, dtype)
     rois = np.stack([random_boxes(rng, 40, width=479, height=319) for _ in range(2)])
     rois[:, :4] = rng.uniform(-100, 600, (2, 4, 4))
     rois = torch.from_numpy(rois).to(dev)
@@ -614,3 +615,48 @@ def test_clis_run_on_the_card(dev, tmp_path, monkeypatch):
     out = tmp_path / "output" / "default" / "voc_2007_test" / "default"
     with open(out / "detections.pkl", "rb") as f:
         assert sum(len(b) for c in pickle.load(f) for b in c) > 0
+
+
+def test_nms_kernel_at_the_top_mode_shape(dev, rng):
+    """TEST.MODE top's per-class NMS: 168 problems of 5000 rois, unsorted,
+    score-threshold validity, cap 100: indices and valid masks equal."""
+    from frcnn_tpu_torch.ops.nms import nms_fixed_batched
+
+    boxes = torch.from_numpy(np.stack([random_boxes(rng, 5000, 1216, 800)
+                                       for _ in range(168)])).to(dev)
+    scores = torch.from_numpy(rng.uniform(0, 1, (168, 5000)).astype(np.float32)).to(dev)
+    valid = scores > 0.05
+    valid[::21] = False
+    build.reset_launch_counts()
+    ki, kv = nms_fixed_batched(boxes, scores, 0.3, 100, valid=valid)
+    assert build.LAUNCH_COUNTS["nms"] == 1
+    ti, tv = nms_fixed_batched(boxes, scores, 0.3, 100, valid=valid, use_kernels=False)
+    assert torch.equal(ki, ti) and torch.equal(kv, tv) and kv.sum(1).max().item() == 100
+
+
+# (net, config, launches of the card's detect): VGG-16, MobileNet and the other modes
+NEW_PATHS = [("vgg16", (), {"nms": 2, "roi_align": 1}),
+             ("mobile", (), {"nms": 2, "roi_align": 1}),
+             ("mobile", ("POOLING_MODE", "pool"), {"nms": 2}),
+             ("mobile", ("POOLING_MODE", "crop"), {"nms": 2}),
+             ("vgg16", ("TEST.MODE", "top", "TEST.RPN_TOP_N", "300"), {"nms": 1, "roi_align": 1})]
+
+
+@pytest.mark.parametrize("net,extra,launches", NEW_PATHS)
+def test_new_nets_and_modes_detect_on_the_card_match_the_cpu(dev, net, extra, launches):
+    """``chip_smoke.end_to_end``: f32 ``detect`` at 320x480 on the card and on
+    a CPU copy, detections matched one to one, the card's launches counted."""
+    import chip_smoke
+
+    chip_smoke.end_to_end(dev, net, extra, launches)
+
+
+@pytest.mark.parametrize("net,pooling", [("vgg16", "align"), ("mobile", "align"),
+                                         ("mobile", "pool"), ("mobile", "crop")])
+def test_new_nets_and_modes_train_step_on_the_card_matches_the_cpu(dev, net, pooling):
+    """``chip_smoke.train_card_vs_cpu``: one f32 train step at 320x480 on the
+    card and on a CPU copy from the same weights and draws (VGG-16's dropout
+    uniforms too): losses and the compared updates matched."""
+    import chip_smoke
+
+    chip_smoke.train_card_vs_cpu(torch.device("cuda", 0), net, pooling)
