@@ -162,12 +162,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
      pool's forward and backward alone (K6b one launch, no memset or
      rounding kernel);
  41. (with ``--profile``) the same for the GroupNorm FPN train step, into
-     chiprun_out/profile_fpn_gn_train.json.
+     chiprun_out/profile_fpn_gn_train.json;
+ 42. (after 22, in the devkit) the cached ``train_net``: 20's run A with
+     TRAIN.IMAGE_CACHE (run C): the resized-image cache built through the
+     reader at <DATA_DIR>/cache/voc_2007_trainval_resized.{dat,idx} (one read
+     an image, the build timed), every batch reaching the model as torch.uint8
+     on the card, launch counts per step those of 16, every tensor on the
+     card, finite losses, the median iteration time beside 20's and 16's
+     step; C's final state_dict bit-equal to 20's straight run A where 20's
+     two straight runs were bit-equal (the devkit's trainval images sit at
+     the train scale, so the cached pixels are the reader's), else within
+     their spread; run D to 3 with a snapshot and a new ``train_net`` to 6,
+     both with 0 reader calls (the cache reused), against C by the same rule;
+     one cached batch through ``train_step`` against the same batch cast to
+     f32 from the same state and draws: losses and updates bit-equal;
+ 43. ``serve.throughput`` on 12's seeded res50 C4 (batch 8, 800x1216, bf16):
+     images/s > 0 beside 8000 / 12's batch time and 12's timing of its own
+     noise batch, launch counts 22 x 12's per batch (2 warm-up and 20 timed
+     batches);
+ 44. the host libraries on the card's machine: ``native.host_ops`` builds
+     (g++) and loads; ``apply_nms`` over 21's C4 detections.pkl keeps the
+     rows of ``nms_fixed(..., use_kernels=False)`` at 0.3 and 0.1;
+     ``tools/reval.py`` on that directory returns and prints 21's APs; whether
+     ``native.data_prep`` built (opencv4 dev files) is logged.
 Then one JSON line of per-kernel results, the card line, and, last, the
-JSON ok line.  Each kernel's line carries its launches on the eleven paths
-of 12, 14, 16, 18, 23, 25, 27, 29, 31, 33 and 36 (``launches``;
-``launches_by_path`` by path, with the driven runs of 20 (A) and 21), each
-counted from zero,
+JSON ok line.  Each kernel's line carries its launches on the twelve paths
+of 12, 14, 16, 18, 23, 25, 27, 29, 31, 33, 36 and 43 (``launches``;
+``launches_by_path`` by path, with the driven runs of 20 (A), 21 and 42
+(C)), each counted from zero,
 its error against the twin, its time, the twin's, the time of the one
 library call that computes the same function where there is one, and its
 bound: the least time the card could take for the timed launches, from the
@@ -1910,8 +1932,10 @@ def train_net_path(dev, card, step_ms, workdir, reader):
     """``train_net`` at full width over the synthetic devkit: A straight to 6
     iterations (twice, to see whether the card's step is deterministic), B
     to 3 with a snapshot, then a new ``train_net`` on B's directory to 6;
-    B's final state_dict against A's.  Returns (A's final snapshot, A's
-    launch counts, the median iteration time in ms)."""
+    B's final state_dict against A's.  Returns {"snapshot": A's final
+    snapshot, "counts": A's launch counts, "iter_ms": the median iteration
+    time, "equal": whether two straight runs were bit-equal, "spread": their
+    max |delta|, "deterministic": the cudnn.deterministic of A}."""
     import dataclasses
 
     from frcnn_tpu_torch.engine.train import combined_roidb, train_net
@@ -2005,15 +2029,18 @@ def train_net_path(dev, card, step_ms, workdir, reader):
             + ("bit-equal to the straight run's" if b_equal else
                f"within {b_spread:.3e} of the straight run's (straight runs' spread "
                f"{spread:.3e})"))
+        used = torch.backends.cudnn.deterministic
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    return os.path.join(out_a, "default_iter_6.pth"), counts, iter_ms
+    return {"snapshot": os.path.join(out_a, "default_iter_6.pth"), "counts": counts,
+            "iter_ms": iter_ms, "equal": equal, "spread": spread, "deterministic": used}
 
 
 def test_net_path(dev, card, workdir, reader, snapshot, serve_ms):
     """``test_net`` at full width over the devkit's test split (16 images at
     800x1216, batch 8): phase (a)'s C4 model from its snapshot and a seeded
-    res50_fpn.  Returns the launch counts of each run."""
+    res50_fpn.  Returns the launch counts of each run and the C4 run's
+    results (per-class APs and mAP)."""
     import pickle
 
     from frcnn_tpu_torch.data.factory import get_imdb
@@ -2029,7 +2056,7 @@ def test_net_path(dev, card, workdir, reader, snapshot, serve_ms):
     nets = (("res50", c4.eval(), SERVE_LAUNCHES, serve_ms[0]),
             ("res50_fpn", build_seeded(cfg, torch.bfloat16, net="res50_fpn"), FPN_LAUNCHES,
              serve_ms[1]))
-    all_counts = []
+    all_counts, all_aps = [], []
     for net, model, per_batch, batch_ms in nets:
         out = os.path.join(workdir, "test_" + net)
         torch.cuda.synchronize()
@@ -2060,7 +2087,8 @@ def test_net_path(dev, card, workdir, reader, snapshot, serve_ms):
             f"(reader, prep thread, detect, readback, VOC eval; {seconds:.3f} s) against "
             f"Detector.detect_blobs' {8000.0 / batch_ms:.2f} on a device-resident batch; on {card}")
         all_counts.append(counts)
-    return all_counts
+        all_aps.append(aps)
+    return all_counts, all_aps[0]
 
 
 def test_net_card_vs_cpu(dev, workdir, reader):
@@ -2112,6 +2140,246 @@ def test_net_card_vs_cpu(dev, workdir, reader):
         f"box atol 5e-2; im_detect of image 0 on the card (K1 x1, K2 x1, model on {dev}): "
         f"{rois} rois of per-class scores and boxes matched to the CPU copy's, the same "
         "tolerances")
+
+
+# ---------------------------------------------------------------------------
+# The host data path: the resized-image cache, throughput, the host ops
+# ---------------------------------------------------------------------------
+
+def cached_train_net_path(dev, card, workdir, reader, straight, step_ms):
+    """``train_net`` of phase 20 (a) with TRAIN.IMAGE_CACHE: C straight to 6
+    iterations (the cache built through the reader, at the dataset level),
+    then D to 3 with a snapshot and a new ``train_net`` to 6, both reusing
+    the cache; C against 20's straight run A, D against C, under 20's rule
+    (bit-equal where 20's two straight runs were, else within their spread);
+    then one cached batch through ``train_step`` against the same batch cast
+    to f32.  Returns C's launch counts."""
+    import copy
+    import dataclasses
+
+    from frcnn_tpu_torch.data.cache import ResizedImageCache
+    from frcnn_tpu_torch.engine.checkpoint import load_params
+    from frcnn_tpu_torch.engine.train import combined_roidb, train_net
+    from frcnn_tpu_torch.ops.cuda import build
+
+    base = train_config(["DATA_DIR", workdir, "TRAIN.SNAPSHOT_KEPT", "1",
+                         "TRAIN.IMAGE_CACHE", "True"])
+    imdb, roidb = combined_roidb("voc_2007_trainval", base, reader=reader)
+    prefix = os.path.join(workdir, "cache", "voc_2007_trainval_resized")
+    reads, builds, seen = [], [], set()
+
+    def counting_reader(path):
+        reads.append(path)
+        return reader(path)
+
+    build_cache = ResizedImageCache.build
+
+    def timed_build(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = build_cache(*args, **kwargs)
+        builds.append(time.perf_counter() - t0)
+        return out
+
+    def run(name, iters, snapshot_iters):
+        cfg = dataclasses.replace(base, TRAIN=dataclasses.replace(
+            base.TRAIN, SNAPSHOT_ITERS=snapshot_iters))
+        model = build_seeded(cfg, torch.bfloat16)
+        forward = model.train_forward
+
+        def recorded(images, *args):
+            seen.add((images.dtype, images.device))
+            return forward(images, *args)
+
+        model.train_forward = recorded
+        out = os.path.join(workdir, name)
+        solver = train_net(model, imdb, roidb, None, out, cfg=cfg, max_iters=iters,
+                           reader=counting_reader)               # no device given: the card
+        torch.cuda.synchronize()
+        model.train_forward = forward
+        return solver, out
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = straight["deterministic"]
+    ResizedImageCache.build = timed_build
+    try:
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        sw_c, out_c = run("c", 6, 100)
+        counts = dict(build.LAUNCH_COUNTS)
+        want = {name: 6 * n for name, n in TRAIN_LAUNCHES.items()}
+        if counts != want:
+            raise AssertionError(f"cached train_net launch counts {counts} != {want}")
+        unique = sorted(set(e["image"] for e in roidb))
+        if sorted(reads) != unique or not all(os.path.exists(prefix + ext)
+                                              for ext in (".dat", ".idx")):
+            raise AssertionError(f"cached train_net: {len(reads)} reads for {len(unique)} "
+                                 f"images, cache files at {prefix}: "
+                                 f"{sorted(os.listdir(os.path.dirname(prefix)))}")
+        if seen != {(torch.uint8, dev)}:
+            raise AssertionError(f"cached train_net: batches reached train_forward as {seen}, "
+                                 f"not torch.uint8 on {dev}")
+        off = [n for n, t in list(sw_c.model.named_parameters()) + list(sw_c.model.named_buffers())
+               if t.device != dev]
+        log_c = read_train_log(out_c)
+        if off or [r["iter"] for r in log_c] != list(range(1, 7)) or not all(
+                np.isfinite(v) for r in log_c for k, v in r.items() if k not in ("iter", "ts")):
+            raise AssertionError(f"cached train_net: tensors off {dev}: {off}; log {log_c}")
+        iter_ms = statistics.median(1000.0 * (log_c[k]["ts"] - log_c[k - 1]["ts"])
+                                    for k in range(2, 6))
+        dat_mb = os.path.getsize(prefix + ".dat") / 1e6
+        log(f"cached train_net (res50 C4, batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, bf16 trunk, "
+            f"TRAIN.IMAGE_CACHE): cache built at {prefix}.{{dat,idx}} ({len(unique)} images, "
+            f"{dat_mb:.1f} MB) in {builds[0]:.3f} s, {len(reads)} reader calls; batches reach "
+            f"the card as torch.uint8; launches per step "
+            f"{ {k: v // 6 for k, v in counts.items()} } (the train path's); losses finite "
+            f"({log_c[0]['total_loss']:.4f} -> {log_c[-1]['total_loss']:.4f})")
+        log(f"cached train_net iteration: {iter_ms:.3f} ms (median of iterations 3-6) against "
+            f"phase 20's uncached {straight['iter_ms']:.3f} ms and the train path's train_step "
+            f"{step_ms:.3f} ms ({iter_ms / step_ms:.3f}x the step); on {card}")
+
+        rule = (f"bit-equal (20's straight runs were)" if straight["equal"] else
+                f"within 20's spread {straight['spread']:.3e}")
+        a_state = load_params(straight["snapshot"])
+        c_state = {k: v.cpu() for k, v in sw_c.model.state_dict().items()}
+        c_equal, c_spread = state_spread(a_state, c_state)
+        if not (c_equal if straight["equal"] else c_spread <= straight["spread"]):
+            raise AssertionError(f"cached train_net: final state_dict off 20's straight run by "
+                                 f"{c_spread:.3e}; want {rule}")
+
+        del reads[:]
+        sw_d, out_d = run("d", 3, 3)
+        sw_d, _ = run("d", 6, 100)                                 # resumes from iter 3
+        log_d = read_train_log(out_d)
+        files = sorted(os.listdir(out_d))
+        if reads or len(builds) != 3 or [r["iter"] for r in log_d] != list(range(1, 7)) or \
+                files != ["default_iter_6.pkl", "default_iter_6.pth", "train_log.jsonl"]:
+            raise AssertionError(f"cached train_net resume: {len(reads)} reader calls (want 0), "
+                                 f"{len(builds)} cache builds, iterations "
+                                 f"{[r['iter'] for r in log_d]}, files {files}")
+        d_equal, d_spread = state_spread(c_state, {k: v.cpu() for k, v in
+                                                   sw_d.model.state_dict().items()})
+        if not (d_equal if straight["equal"] else d_spread <= straight["spread"]):
+            raise AssertionError(f"cached train_net: resumed run off the straight cached run "
+                                 f"by {d_spread:.3e}; want {rule}")
+        log(f"cached train_net exactness ({rule}): C's final state_dict against 20's straight "
+            f"run A {'bit-equal' if c_equal else f'within {c_spread:.3e}'}; D (3 iterations, "
+            f"snapshot, a new train_net to 6, resumed at 3) against C "
+            f"{'bit-equal' if d_equal else f'within {d_spread:.3e}'}; both D runs reused the "
+            f"cache (0 reader calls, cache reuse {builds[1]:.3f} / {builds[2]:.3f} s)")
+
+        # one cached batch through train_step, then the same batch cast to f32 from
+        # the same model, optimizer, step and draws
+        blobs = sw_c.data_layer.forward()
+        if blobs["data"].dtype != np.uint8:
+            raise AssertionError(f"cached batch dtype {blobs['data'].dtype}")
+        start = (copy.deepcopy(sw_c.model.state_dict()),
+                 copy.deepcopy(sw_c.optimizer.state_dict()), sw_c.step)
+        results = []
+        for data in (blobs["data"], blobs["data"].astype(np.float32)):
+            sw_c.model.load_state_dict(start[0])
+            # a copy each time: the optimizer keeps the loaded momentum tensors and
+            # updates them in place
+            sw_c.optimizer.load_state_dict(copy.deepcopy(start[1]))
+            sw_c.step = start[2]
+            draws = torch.Generator(device=dev).manual_seed(12)
+            losses = sw_c.train_step({**blobs, "data": data}, draws)
+            results.append(({k: v.cpu() for k, v in losses.items()},
+                            {k: v.cpu() for k, v in sw_c.model.state_dict().items()}))
+        (l8, s8), (l32, s32) = results
+        diff = max((l8[k].float() - l32[k].float()).abs().item() for k in l8)
+        step_equal, step_spread = state_spread(s8, s32)
+        if straight["equal"] and (diff != 0.0 or not step_equal):
+            raise AssertionError(f"uint8 vs f32 batch through train_step: losses off by {diff:.3e}, "
+                                 f"parameters by {step_spread:.3e}; want bit-equal")
+        if not straight["equal"] and step_spread > straight["spread"]:
+            raise AssertionError(f"uint8 vs f32 batch: parameters off by {step_spread:.3e}, beyond "
+                                 f"20's spread {straight['spread']:.3e}")
+        log(f"cached batch (uint8) through train_step against the same batch cast to f32: losses "
+            f"{'bit-equal' if diff == 0.0 else f'within {diff:.3e}'}, parameters after the step "
+            f"{'bit-equal' if step_equal else f'within {step_spread:.3e}'}")
+    finally:
+        ResizedImageCache.build = build_cache
+        torch.backends.cudnn.deterministic = deterministic
+    return counts
+
+
+def throughput_path(dev, card, detector, serve_ms, iters=20, warmup=2):
+    """``serve.throughput`` on phase 12's seeded res50 C4 (800x1216, bf16,
+    batch 8): images/s > 0 with ``iters + warmup`` x the serving launches.
+    Returns the launch counts."""
+    from frcnn_tpu_torch.engine.serve import Detector, throughput
+    from frcnn_tpu_torch.ops.cuda import build
+
+    det = Detector(detector.model)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    rate = throughput(det, 8, iters=iters, warmup=warmup)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCH_COUNTS)
+    want = {name: (iters + warmup) * n for name, n in SERVE_LAUNCHES.items()}
+    if counts != want or not (np.isfinite(rate) and rate > 0):
+        raise AssertionError(f"throughput: {rate} images/s, launch counts {counts} != {want}")
+    # 12's timing on throughput's own batch (its seed and noise), outside the counted
+    # window: what separates the loop from the data (detect's time depends on it)
+    h, w = det.cfg.DEVICE.BUCKETS[0]
+    noise = torch.from_numpy(np.random.RandomState(0).uniform(0, 255, (8, h, w, 3))
+                             .astype(np.float32)).to(dev)
+    im_info = torch.tensor([[float(h), float(w), 1.0]] * 8, device=dev)
+    noise_ms = cuda_ms(lambda: det.detect_blobs(noise, im_info), iters=10, warmup=2)
+    log(f"serve.throughput (res50 C4, batch 8, 800x1216, bf16 trunk, {iters} timed batches after "
+        f"{warmup}): {rate:.2f} images/s against 8000 / phase 12's batch time "
+        f"{8000.0 / serve_ms:.2f} ({rate * serve_ms / 8000.0:.4f}x) and 8000 / 12's timing on "
+        f"throughput's noise batch {8000.0 / noise_ms:.2f} ({noise_ms:.3f} ms); launches per "
+        f"batch { {k: v // (iters + warmup) for k, v in counts.items()} }; on {card}")
+    return counts
+
+
+def host_ops_path(workdir, aps):
+    """The host libraries on this machine: ``host_ops`` must build and load;
+    ``apply_nms`` over phase 21's C4 detections.pkl keeps the rows of
+    ``nms_fixed(..., use_kernels=False)``; ``tools/reval.py`` on that
+    directory gives phase 21's APs; whether ``data_prep`` built."""
+    import contextlib
+    import io
+    import pickle
+
+    from frcnn_tpu_torch.engine.test import apply_nms
+    from frcnn_tpu_torch.native import data_prep, host_ops
+    from frcnn_tpu_torch.ops.nms import nms_fixed
+    from frcnn_tpu_torch.tools import reval
+
+    if not host_ops.have_native():
+        raise AssertionError("native.host_ops: the C++ library did not build or load (g++)")
+    out = os.path.join(workdir, "test_res50")
+    with open(os.path.join(out, "detections.pkl"), "rb") as f:
+        all_boxes = pickle.load(f)
+    total = sum(len(b) for c in all_boxes for b in c)
+    kept = {}
+    for thresh in (0.3, 0.1):
+        got = apply_nms(all_boxes, thresh)
+        for cls, per_class in enumerate(all_boxes):
+            for im, dets in enumerate(per_class):
+                if len(dets) == 0:
+                    continue
+                t = torch.from_numpy(np.asarray(dets, np.float32))
+                idx, keep = nms_fixed(t[:, :4], t[:, 4], thresh, len(dets), use_kernels=False)
+                if not np.array_equal(got[cls][im], dets[idx[keep].numpy()]):
+                    raise AssertionError(f"apply_nms at {thresh}, class {cls} image {im}: "
+                                         "nms_cpu keeps other rows than nms_fixed's twin")
+        kept[thresh] = sum(len(b) for c in got for b in c)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        results = reval.main([out, "--imdb", "voc_2007_test", "--data-dir", workdir])
+    mean_line = [line for line in printed.getvalue().splitlines() if line.startswith("Mean AP")]
+    if results != aps or mean_line != [f"Mean AP = {aps['mAP']:.4f}"]:
+        raise AssertionError(f"reval: {results} ({mean_line}) != test_net's {aps}")
+    built = data_prep.have_native()
+    log(f"host ops: native.host_ops built with g++ and loaded; apply_nms over phase 21's C4 "
+        f"detections.pkl ({total} rows) keeps nms_fixed's twin rows exactly at 0.3 ({kept[0.3]} "
+        f"kept) and 0.1 ({kept[0.1]}); tools/reval.py prints test_net's {mean_line[0]}; "
+        f"native.data_prep {'built' if built else 'did not build (no opencv4 dev files)'} "
+        "(the devkit's JPEGs are empty placeholders served by a reader, so the native prep "
+        "route is not taken here)")
 
 
 # (owner, attribute, stage) of the calls train_forward makes, in order; the
@@ -2419,7 +2687,7 @@ def main(argv=None) -> int:
         print(card)
         return 0
 
-    serve_counts, serve_ms = main_path(dev, card)[:2]
+    serve_counts, serve_ms, serve_detector = main_path(dev, card)[:3]
     end_to_end(dev)
     fpn_counts, fpn_detector, fpn_data, fpn_info, fpn_ms = fpn_path(dev, card)
     fpn_end_to_end(dev)
@@ -2431,10 +2699,13 @@ def main(argv=None) -> int:
     try:
         reader = write_voc_devkit(workdir, devkit_shapes(np.random.RandomState(6)),
                                   np.random.RandomState(7))
-        snapshot, train_net_counts, _ = train_net_path(dev, card, train_ms, workdir, reader)
-        c4_test_counts, fpn_test_counts = test_net_path(dev, card, workdir, reader, snapshot,
-                                                        (serve_ms, fpn_ms))
+        straight = train_net_path(dev, card, train_ms, workdir, reader)
+        (c4_test_counts, fpn_test_counts), c4_aps = test_net_path(
+            dev, card, workdir, reader, straight["snapshot"], (serve_ms, fpn_ms))
         test_net_card_vs_cpu(dev, workdir, reader)
+        cached_counts = cached_train_net_path(dev, card, workdir, reader, straight, train_ms)
+        throughput_counts = throughput_path(dev, card, serve_detector, serve_ms)
+        host_ops_path(workdir, c4_aps)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     gn_counts = fpn_path(dev, card, "res50_fpn_gn", FPN_GN_LAUNCHES)[0]
@@ -2464,13 +2735,13 @@ def main(argv=None) -> int:
     # the TPU kernels served by a kernel that stands for another one
     also = {"nms": ("frcnn_tpu/ops/pallas/nms_kernel.py:128", k1b),
             "roi_align_ml": ("frcnn_tpu/ops/pallas/roi_align_kernel.py:609", None)}
-    # launches: the eleven paths of 12, 14, 16, 18, 23, 25, 27, 29, 31, 33 and 36,
-    # each counted from zero; the driven runs of 20 (A) and 21 beside them by path
+    # launches: the twelve paths of 12, 14, 16, 18, 23, 25, 27, 29, 31, 33, 36 and 43,
+    # each counted from zero; the driven runs of 20 (A), 21 and 42 (C) beside them by path
     paths = {"c4_serve": serve_counts, "fpn_serve": fpn_counts, "c4_train": train_counts,
              "fpn_train": fpn_train_counts, "fpn_gn_detect": gn_counts,
-             "fpn_gn_train": gn_train_counts, **new_paths}
-    driven = {"c4_train_net": train_net_counts, "c4_test_net": c4_test_counts,
-              "fpn_test_net": fpn_test_counts}
+             "fpn_gn_train": gn_train_counts, **new_paths, "c4_throughput": throughput_counts}
+    driven = {"c4_train_net": straight["counts"], "c4_test_net": c4_test_counts,
+              "fpn_test_net": fpn_test_counts, "c4_train_net_cached": cached_counts}
     kernels = []
     for name, src, rep in KERNELS:
         by_path = {path: c.get(name, 0) for path, c in {**paths, **driven}.items()}

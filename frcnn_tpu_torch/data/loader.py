@@ -3,8 +3,14 @@
 ``im_list_to_blob``, ``get_minibatch`` and ``RoIDataLayer``.  Images come
 from a ``reader`` callable (image path → BGR uint8 array); the default,
 ``read_image``, is ``cv2.imread``, and cv2 is imported only there, so a
-machine without cv2 passes its own reader.  The JAX package's native C++
-prep and image caches are not ported.
+machine without cv2 passes its own reader.
+
+``get_minibatch`` takes the JAX package's three routes, in its order: a
+``ResizedImageCache`` as the reader (``data/cache.py``) gives uint8 batches
+of cached views; with no reader, TRAIN.NATIVE_PREP and entries that carry
+their sizes, the native C++ prep (``native/data_prep.py``) decodes and
+resizes the batch where its library builds; else each image is read,
+resized and padded here in f32.
 
 The resize is bilinear in numpy with the sampling of
 ``cv2.resize(im, None, fx=scale, fy=scale, interpolation=INTER_LINEAR)``:
@@ -113,21 +119,40 @@ def im_list_to_blob(ims):
     return blob
 
 
-def get_minibatch(roidb, cfg, rng=None, reader=None):
-    """One fixed-shape minibatch from roidb entries: data (B, bh, bw, 3)
-    raw BGR float32, im_info (B, 3) [h, w, scale] of the scaled unpadded
-    image, gt_boxes (B, MAX_GT, 4) scaled, gt_labels (B, MAX_GT) int32,
-    gt_valid (B, MAX_GT) bool.  ``reader`` maps ``entry["image"]`` to a BGR
-    uint8 array (default ``read_image``)."""
-    reader = reader or read_image
-    rng = rng or np.random
-    t = cfg.TRAIN
-    buckets = cfg.DEVICE.BUCKETS
-    max_gt = cfg.DEVICE.MAX_GT
-    # per-image scale sampled from TRAIN.SCALES, as the reference minibatch
-    targets = [t.SCALES[rng.randint(0, len(t.SCALES))] if len(t.SCALES) > 1
-               else t.SCALES[0] for _ in roidb]
+def _cached_batch(roidb, targets, cache, t, buckets):
+    """The resized-cache route: (uint8 data, scales), or None on a miss (an
+    entry absent or cached under another MAX_SIZE or BUCKETS).  Flipped
+    entries take a negative-stride view; the views are zero-padded into one
+    batch buffer at ``snap_to_bucket`` of their sizes."""
+    got = [cache.get(e["image"], target, t.MAX_SIZE, buckets) for e, target in zip(roidb, targets)]
+    if any(g is None for g in got):
+        return None
+    bh, bw = snap_to_bucket([im.shape[:2] for im, _ in got], buckets)
+    data = np.zeros((len(got), bh, bw, 3), np.uint8)
+    for blob, entry, (im, _) in zip(data, roidb, got):
+        if entry.get("flipped", False):
+            im = im[:, ::-1]
+        blob[: min(im.shape[0], bh), : min(im.shape[1], bw)] = im[:bh, :bw]
+    return data, [scale for _, scale in got]
 
+
+def _native_batch(roidb, targets, t, buckets):
+    """The native route: (f32 data, scales), the scale and bucket from the
+    entries' stored sizes; None where the library is unavailable."""
+    from frcnn_tpu_torch.native import data_prep
+
+    picked = [pick_scale_and_bucket(e["height"], e["width"], target, t.MAX_SIZE, buckets)
+              for e, target in zip(roidb, targets)]
+    res = data_prep.prep_batch([e["image"] for e in roidb],
+                               [1 if e.get("flipped", False) else 0 for e in roidb],
+                               [scale for scale, _ in picked],
+                               snap_to_bucket([bucket for _, bucket in picked], buckets))
+    return None if res is None else (res[0], [scale for scale, _ in picked])
+
+
+def _decoded_batch(roidb, targets, reader, t, buckets):
+    """The Python route: (f32 data, scales, image sizes): each image read,
+    flipped, resized and padded here."""
     prepped, scales = [], []
     for entry, target in zip(roidb, targets):
         im = reader(entry["image"])
@@ -140,14 +165,47 @@ def get_minibatch(roidb, cfg, rng=None, reader=None):
         scales.append(scale)
     # one static shape per batch: the smallest bucket covering every image's
     bucket_hw = snap_to_bucket([p[1].shape[:2] for p in prepped], buckets)
-    images, infos = [], []
-    for ((h, w), padded), scale in zip(prepped, scales):
-        if padded.shape[:2] != bucket_hw:
-            up = np.zeros(bucket_hw + (3,), dtype=np.float32)
-            up[: padded.shape[0], : padded.shape[1]] = padded
-            padded = up
-        images.append(padded)
-        infos.append([np.round(h * scale), np.round(w * scale), scale])
+    data = np.zeros((len(prepped), *bucket_hw, 3), np.float32)
+    for blob, (_, padded) in zip(data, prepped):
+        blob[: padded.shape[0], : padded.shape[1]] = padded
+    return data, scales, [hw for hw, _ in prepped]
+
+
+def get_minibatch(roidb, cfg, rng=None, reader=None):
+    """One fixed-shape minibatch from roidb entries: data (B, bh, bw, 3)
+    raw BGR (float32, or uint8 from a ``ResizedImageCache``), im_info (B, 3)
+    [h, w, scale] of the scaled unpadded image, gt_boxes (B, MAX_GT, 4)
+    scaled, gt_labels (B, MAX_GT) int32, gt_valid (B, MAX_GT) bool.
+
+    ``reader``: a ``ResizedImageCache`` (uint8 batches of its views; a miss
+    falls through to the routes below), or a callable that maps
+    ``entry["image"]`` to a BGR uint8 array.  With none, the native prep
+    runs where TRAIN.NATIVE_PREP is set, the entries carry their sizes and
+    the library builds; else ``read_image`` reads each image."""
+    from frcnn_tpu_torch.data.cache import ResizedImageCache
+
+    rng = rng or np.random
+    t = cfg.TRAIN
+    buckets = cfg.DEVICE.BUCKETS
+    max_gt = cfg.DEVICE.MAX_GT
+    # per-image scale sampled from TRAIN.SCALES, as the reference minibatch
+    targets = [t.SCALES[rng.randint(0, len(t.SCALES))] if len(t.SCALES) > 1
+               else t.SCALES[0] for _ in roidb]
+    sized = all("width" in e and "height" in e for e in roidb)
+
+    batch = None
+    if isinstance(reader, ResizedImageCache):
+        batch = _cached_batch(roidb, targets, reader, t, buckets) if sized else None
+        reader = None                     # a miss: the decode routes, not a callable
+    if batch is None and reader is None and t.NATIVE_PREP and sized:
+        batch = _native_batch(roidb, targets, t, buckets)
+    if batch is not None:
+        data, scales = batch
+        dims = [(e["height"], e["width"]) for e in roidb]
+    else:
+        data, scales, dims = _decoded_batch(roidb, targets, reader or read_image, t, buckets)
+    infos = [[np.round(h * scale), np.round(w * scale), scale]
+             for (h, w), scale in zip(dims, scales)]
 
     gtb, gtl, gtv = [], [], []
     for entry, scale in zip(roidb, scales):
@@ -165,7 +223,7 @@ def get_minibatch(roidb, cfg, rng=None, reader=None):
         gtl.append(lab)
         gtv.append(v)
 
-    return {"data": np.stack(images), "im_info": np.asarray(infos, np.float32),
+    return {"data": data, "im_info": np.asarray(infos, np.float32),
             "gt_boxes": np.stack(gtb), "gt_labels": np.stack(gtl), "gt_valid": np.stack(gtv)}
 
 

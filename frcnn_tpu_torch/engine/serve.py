@@ -1,10 +1,13 @@
 """Single-device serving (``frcnn_tpu/engine/serve.py::Detector`` without
 the mesh): host-side resize + pad into buckets, one ``detect`` call per
 bucket group (all dispatched before the first readback), detections in
-original image coordinates.  The detector runs
-on the card (``cuda:0``) unless the caller passes ``device``."""
+original image coordinates, and ``throughput``, the steady-state images/s
+of ``detect_blobs``.  The detector runs on the card (``cuda:0``) unless the
+caller passes ``device``."""
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -92,3 +95,29 @@ class Detector:
             for bi, i in enumerate(indices):
                 results[i] = dets[bi][valid[bi]]
         return results
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def throughput(detector: Detector, batch: int, iters: int = 20, warmup: int = 2) -> float:
+    """Steady-state images/s of ``detector.detect_blobs`` on synthetic data
+    (``frcnn_tpu/engine/serve.py:99-129``): ``batch`` f32 images of uniform
+    noise at DEVICE.BUCKETS[0], made on the detector's device once, ``warmup``
+    calls, then ``iters`` calls between two synchronizations of the device
+    (the calls queue back to back; the clock stops when the last is done)."""
+    h, w = detector.cfg.DEVICE.BUCKETS[0]
+    rng = np.random.RandomState(0)
+    data = torch.from_numpy(rng.uniform(0, 255, (batch, h, w, 3)).astype(np.float32))
+    data = data.to(detector.device)
+    im_info = torch.tensor([[float(h), float(w), 1.0]] * batch, device=detector.device)
+    for _ in range(warmup):
+        detector.detect_blobs(data, im_info)
+    _sync(detector.device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        detector.detect_blobs(data, im_info)
+    _sync(detector.device)
+    return batch * iters / (time.perf_counter() - t0)

@@ -2,15 +2,18 @@
 per-class scores and decoded boxes in original coordinates), ``test_net``
 (a dataset through the fixed-shape ``detect`` → detections.pkl →
 ``imdb.evaluate_detections``) and ``apply_nms`` (per-class NMS over saved
-detections, on the host).
+detections on the host, ``native.host_ops.nms_cpu``).
 
 ``test_net`` groups the images by bucket into batches of ``batch``; a last
 partial batch is padded with zero images, whose detections are dropped.
-A producer thread reads, prepares and stacks the images (``reader``,
-default ``cv2.imread``; ``serve.iter_bucket_batches``) while the device
-runs the previous batch.  The batches go through ``Detector.detect_blobs``.
-Both entry points run the model on the card unless the caller passes
-``device``.
+A producer thread prepares and stacks the batches (``_prep_stream``) while
+the device runs the previous one: with no ``reader``, a roidb that carries
+the image sizes and the native prep built (``native/data_prep.py``), the
+images are grouped by bucket up front and each batch is decoded and resized
+in C++; else each image is read with ``reader`` (default ``cv2.imread``)
+and batched by ``serve.iter_bucket_batches``.  The batches go through
+``Detector.detect_blobs``.  Both entry points run the model on the card
+unless the caller passes ``device``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import torch
 from frcnn_tpu_torch.data import loader
 from frcnn_tpu_torch.engine import resolve_device
 from frcnn_tpu_torch.engine.serve import Detector, iter_bucket_batches, prep_image
-from frcnn_tpu_torch.ops.nms import nms_fixed
+from frcnn_tpu_torch.native import data_prep
+from frcnn_tpu_torch.native.host_ops import nms_cpu
 from frcnn_tpu_torch.utils.timer import Timer
 
 
@@ -50,14 +54,58 @@ def im_detect(model, im, cfg=None, device=None):
             out["roi_valid"][0].cpu().numpy())
 
 
+def _sized_entries(imdb):
+    """``imdb.roidb`` when it carries every image's size, else None."""
+    try:
+        entries = imdb.roidb
+    except (NotImplementedError, OSError):      # no roidb (or no annotations): the reader route
+        return None
+    n = imdb.num_images
+    if len(entries) < n or not all("width" in e and "height" in e for e in entries[:n]):
+        return None
+    return entries
+
+
+def _prep_stream(imdb, cfg, batch: int, reader=None):
+    """Yield (indices, data (b, bh, bw, 3), im_info (b, 3)), one bucket shape
+    a batch.  With no ``reader``, stored sizes and the native prep, the
+    scale and bucket need no pixels: the images are grouped by bucket up
+    front and each batch is prepared by ``data_prep.prep_batch``; else each
+    image is read with ``reader`` (default ``read_image``) and batched by
+    ``iter_bucket_batches``."""
+    t = cfg.TEST
+    entries = _sized_entries(imdb) if reader is None else None
+    if entries is not None and data_prep.have_native():
+        groups: dict = {}
+        for i in range(imdb.num_images):
+            h, w = entries[i]["height"], entries[i]["width"]
+            scale, bucket = loader.pick_scale_and_bucket(h, w, t.SCALES[0], t.MAX_SIZE,
+                                                         cfg.DEVICE.BUCKETS)
+            groups.setdefault(bucket, []).append((i, scale, h, w))
+        for bucket, items in groups.items():
+            for s in range(0, len(items), batch):
+                part = items[s:s + batch]
+                data, _ = data_prep.prep_batch([imdb.image_path_at(i) for i, _, _, _ in part],
+                                               [0] * len(part), [sc for _, sc, _, _ in part],
+                                               bucket)
+                im_info = np.array([[np.round(h * sc), np.round(w * sc), sc]
+                                    for _, sc, h, w in part], np.float32)
+                yield [i for i, _, _, _ in part], data, im_info
+        return
+    reader = reader or loader.read_image
+    images = (reader(imdb.image_path_at(i)) for i in range(imdb.num_images))
+    yield from iter_bucket_batches(images, cfg, batch)
+
+
 def test_net(model, imdb, cfg=None, output_dir: str = "output", max_per_image: int = 100,
              batch: int = 8, reader=None, device=None):
     """Detect every image of ``imdb``, write ``detections.pkl``
     (all_boxes[class][image] = (k, 5) [x1, y1, x2, y2, score]) to
     ``output_dir`` and return ``imdb.evaluate_detections`` (VOC: per-class
-    AP and mAP; COCO: the 12 stats)."""
+    AP and mAP; COCO: the 12 stats).  ``reader`` maps an image path to BGR
+    uint8 pixels (default ``read_image``); with none, the stored-size route
+    runs where the roidb and the native prep allow (``_prep_stream``)."""
     cfg = cfg or model.config
-    reader = reader or loader.read_image
     detector = Detector(model, cfg, max_per_image=max_per_image, device=device)
     num_images = imdb.num_images
     all_boxes = [[np.zeros((0, 5), np.float32) for _ in range(num_images)]
@@ -66,11 +114,10 @@ def test_net(model, imdb, cfg=None, output_dir: str = "output", max_per_image: i
     done = 0
 
     def produce():
-        """Read, prepare, stack and pad the batches (zero images with
-        im_info [1, 1, 1] fill a part-filled batch)."""
+        """Prepare and pad the batches (zero images with im_info [1, 1, 1]
+        fill a part-filled batch)."""
         try:
-            images = (reader(imdb.image_path_at(i)) for i in range(num_images))
-            for indices, data, im_info in iter_bucket_batches(images, cfg, batch):
+            for indices, data, im_info in _prep_stream(imdb, cfg, batch, reader):
                 pad = batch - len(indices)
                 if pad:
                     data = np.concatenate([data, np.zeros((pad, *data.shape[1:]), data.dtype)])
@@ -113,13 +160,11 @@ def test_net(model, imdb, cfg=None, output_dir: str = "output", max_per_image: i
 
 def apply_nms(all_boxes, thresh: float):
     """Per-class greedy NMS over saved detections (all_boxes[class][image]
-    (k, 5)) with the port's NMS on CPU tensors; kept rows in score order."""
+    (k, 5)) on the host with ``nms_cpu``; kept rows in score order."""
     nms_boxes = [[np.zeros((0, 5), np.float32) for _ in per_class] for per_class in all_boxes]
     for cls_ind, per_class in enumerate(all_boxes):
         for im_ind, dets in enumerate(per_class):
             if len(dets) == 0:
                 continue
-            t = torch.from_numpy(np.asarray(dets, np.float32))
-            idx, keep = nms_fixed(t[:, :4], t[:, 4], thresh, len(dets), use_kernels=False)
-            nms_boxes[cls_ind][im_ind] = np.asarray(dets)[idx[keep].numpy()]
+            nms_boxes[cls_ind][im_ind] = np.asarray(dets)[nms_cpu(dets, thresh)]
     return nms_boxes

@@ -14,7 +14,9 @@ The schedule is read at the step count before it increments.
 The solver runs on the card (``cuda:0``) unless the caller passes
 ``device``.  Sampling draws come from a ``torch.Generator`` on that device,
 seeded with ``RNG_SEED + 1``.  ``train_model`` takes its batches from a
-thread that runs the data layer one batch ahead of the step.
+thread that runs the data layer one batch ahead of the step.  Under
+TRAIN.IMAGE_CACHE the data layers read a ``ResizedImageCache``
+(``build_image_cache``) and the batches are uint8.
 
 With an ``output_dir``, ``train_model`` resumes from the latest snapshot
 there, logs the losses to ``train_log.jsonl`` every DISPLAY steps and
@@ -95,6 +97,21 @@ def combined_roidb(imdb_names: str, cfg, reader=None):
     return imdb, roidb
 
 
+def build_image_cache(imdb, roidb, valroidb, cfg, reader=None):
+    """The ``ResizedImageCache`` of TRAIN.IMAGE_CACHE
+    (``frcnn_tpu/engine/train.py:371-390``): every image of ``roidb`` and
+    ``valroidb`` at every TRAIN.SCALES under TRAIN.MAX_SIZE and
+    DEVICE.BUCKETS, read through ``reader`` (default ``read_image``), at
+    ``<imdb.cache_path>/<imdb.name>_resized``: at the dataset level, so
+    experiments share one copy.  A current cache there is reused."""
+    from frcnn_tpu_torch.data.cache import ResizedImageCache
+
+    paths = [r["image"] for r in roidb] + [r["image"] for r in valroidb or ()]
+    return ResizedImageCache.build(paths, osp.join(imdb.cache_path, f"{imdb.name}_resized"),
+                                   targets=cfg.TRAIN.SCALES, max_size=cfg.TRAIN.MAX_SIZE,
+                                   buckets=cfg.DEVICE.BUCKETS, reader=reader)
+
+
 def make_lr_schedule(cfg):
     """step → learning rate: LEARNING_RATE * GAMMA^(STEPSIZEs passed), with
     the optional linear warmup over WARMUP_ITERS from WARMUP_FACTOR."""
@@ -137,6 +154,8 @@ def clip_by_global_norm_(params, max_norm: float) -> None:
 
 
 def _to_device(blobs, device):
+    """The batch on ``device``; ``data`` keeps its dtype (uint8 from the
+    resized-image cache: the model casts it)."""
     return {"data": torch.as_tensor(blobs["data"]).to(device),
             "im_info": torch.as_tensor(blobs["im_info"], dtype=torch.float32).to(device),
             "gt_boxes": torch.as_tensor(blobs["gt_boxes"], dtype=torch.float32).to(device),
@@ -196,18 +215,23 @@ class SolverWrapper:
     ``valroidb`` (validation losses every SUMMARY_INTERVAL seconds),
     ``output_dir`` (snapshots, resume, ``train_log.jsonl``), ``tb_dir``
     (summaries) and ``pretrained`` (a state_dict whose tensors of matching
-    name and shape replace the model's)."""
+    name and shape replace the model's).
+
+    Under TRAIN.IMAGE_CACHE the roidbs' images are read once through
+    ``reader`` into ``build_image_cache``'s cache, before the data layers
+    are made, and the layers read the cache: uint8 batches.  DEVICE.REMAT
+    is accepted and ignored, as in the JAX package, where no module reads
+    it."""
 
     def __init__(self, model, roidb, cfg=None, reader=None, device=None, *, imdb=None,
                  valroidb=None, output_dir=None, tb_dir=None, pretrained=None):
         self.cfg = cfg or model.config
-        if self.cfg.TRAIN.IMAGE_CACHE:
-            raise NotImplementedError("TRAIN.IMAGE_CACHE (the decoded/resized image caches) "
-                                      "is not ported")
-        if self.cfg.DEVICE.REMAT:
-            raise NotImplementedError("DEVICE.REMAT (recomputing the trunk in the backward) "
-                                      "is not ported")
+        if self.cfg.TRAIN.IMAGE_CACHE and imdb is None:
+            raise ValueError("TRAIN.IMAGE_CACHE needs the imdb (imdb=...): the resized-image "
+                             "cache lives at <imdb.cache_path>/<imdb.name>_resized")
         self.device = resolve_device(device)
+        if self.cfg.TRAIN.IMAGE_CACHE:
+            reader = build_image_cache(imdb, roidb, valroidb, self.cfg, reader)
         if pretrained is not None:
             model.load_state_dict(_merge_pretrained(model.state_dict(), pretrained))
         self.model = model.to(self.device)

@@ -16,8 +16,10 @@ drivers, as one seed-pinned command with an asserted floor.
   * exit 1 when the mean AP over the classes present in the test split is
     below ``--floor`` (default 0.75).
 
-The recipe (``RECIPE``) is ``ap_regression.py``'s, except TRAIN.IMAGE_CACHE:
-the port has no image cache, which changes only the speed.
+The recipe (``RECIPE``) is ``ap_regression.py``'s, TRAIN.IMAGE_CACHE
+included: the images are read through the reader once, into the
+resized-image cache under ``<root>/cache``, and the batches go to the card
+as uint8.
 
 With ``--json-out PATH`` the result is written with the keys of
 ``AP_r05.json`` (``mean_ap``, ``per_class``, ``iters``, ``floor``, ``pass``,
@@ -54,7 +56,7 @@ RECIPE = [
     "TRAIN.IMS_PER_BATCH", "2", "TRAIN.SCALES", "(600,)", "TRAIN.MAX_SIZE", "1024",
     "TRAIN.GRAD_CLIP", "10.0", "TRAIN.WARMUP_ITERS", "500", "TRAIN.WARMUP_FACTOR", "0.1",
     "TRAIN.STEPSIZE", "(1200,)", "TRAIN.SNAPSHOT_ITERS", "10000", "TRAIN.DISPLAY", "100",
-    "TRAIN.USE_FLIPPED", "True", "TRAIN.SUMMARY_INTERVAL", "0",
+    "TRAIN.USE_FLIPPED", "True", "TRAIN.SUMMARY_INTERVAL", "0", "TRAIN.IMAGE_CACHE", "True",
     "TEST.SCALES", "(600,)", "TEST.MAX_SIZE", "1024",
     "DEVICE.BUCKETS", "((608, 1024),)", "DEVICE.MAX_GT", "8",
 ]

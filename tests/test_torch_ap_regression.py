@@ -8,13 +8,11 @@ CPU:
     mean |delta| < 4 inside the flat boxes);
   * its recipe is ``ap_regression.py``'s: the JAX script's config, taken
     where it calls ``train_net``, equals the JAX default config with the
-    port's ``RECIPE`` applied, except TRAIN.IMAGE_CACHE (on in the JAX
-    script; the port has no image cache);
+    port's ``RECIPE`` applied, TRAIN.IMAGE_CACHE included;
   * its whole run end to end at a small bucket for 2 iterations on the CPU
     (``--cpu``), down to the JSON result.
 """
 
-import dataclasses
 import importlib.util
 import os.path as osp
 import subprocess
@@ -129,16 +127,14 @@ def test_recipe_equals_ap_regression(devkits, monkeypatch):
     finally:
         np.random.set_state(np_state)
     want = stopped.value.cfg
-    assert want.TRAIN.IMAGE_CACHE                                 # the one exception
+    assert want.TRAIN.IMAGE_CACHE
     recipe = [k.replace("DEVICE.", "TPU.") for k in ap_torch.RECIPE[0::2]]
     got = jax_cfg_from_list(jax_default_config(), [
         v for pair in zip(recipe, ap_torch.RECIPE[1::2]) for v in pair]
         + ["DATA_DIR", str(tool_root)])
-    assert not got.TRAIN.IMAGE_CACHE
-    got = dataclasses.replace(got, TRAIN=dataclasses.replace(got.TRAIN, IMAGE_CACHE=True))
     assert got == want
     port = cfg_from_list(default_config(), ap_torch.RECIPE)
-    assert not port.TRAIN.IMAGE_CACHE and port.DEVICE.BUCKETS == ((608, 1024),)
+    assert port.TRAIN.IMAGE_CACHE and port.DEVICE.BUCKETS == ((608, 1024),)
     assert port.RESNET.FIXED_BLOCKS == 0 and port.TRAIN.STEPSIZE == (1200,)
 
 
@@ -162,5 +158,6 @@ def test_script_runs_on_the_cpu(tmp_path, monkeypatch):
     assert set(result["per_class"]) == set(ap_torch.CLASSES)
     assert all(0.0 <= v <= 1.0 for v in result["per_class"].values())
     assert result["iters"] == 2 and result["net"] == "res50_fpn_gn"
+    assert (tmp_path / "cache" / "voc_2007_trainval_resized.dat").exists()    # IMAGE_CACHE
     assert set(result) >= {"mean_ap", "floor", "seconds", "s_per_iter_incl_compile",
                            "s_per_iter_steady", "device", "power_limit"}

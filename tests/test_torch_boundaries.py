@@ -1,7 +1,9 @@
 """Boundaries of the PyTorch port, on the CPU: it imports no jax, its
 config keeps the JAX package's keys and defaults, its kernel wrappers run
 their plain twins (and count no launch) on CPU tensors, the ctypes
-signatures match the CUDA sources, ``chip_smoke.py`` (with or without
+signatures match the CUDA and the host libraries' sources, the port reads
+no file of the JAX package (its host libraries build from its own copies),
+``chip_smoke.py`` (with or without
 ``--only kernels`` or ``--profile``) fails without a card, the entry points
 (``Detector``, ``SolverWrapper``) raise without a card unless the caller asks
 for the CPU, and the cv2-free resize stays within a stated bound of
@@ -38,6 +40,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(frcnn_tpu_torch.__path__, "frcnn_tpu_torch.")]
     assert len(mods) >= 15
+    assert {"frcnn_tpu_torch.data.cache", "frcnn_tpu_torch.native.build",
+            "frcnn_tpu_torch.native.host_ops", "frcnn_tpu_torch.native.data_prep",
+            "frcnn_tpu_torch.tools.reval", "frcnn_tpu_torch.tools.demo"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -46,6 +51,75 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_reads_no_file_under_the_jax_package(tmp_path):
+    """Importing every module of the port, building its two host libraries
+    (into a fresh directory) and running them, and building an image cache,
+    open no file under ``frcnn_tpu/`` and pass none to a subprocess: the
+    builds compile ``frcnn_tpu_torch/native/*.cc`` (audit events ``open``,
+    ``subprocess.Popen`` and ``ctypes.dlopen``)."""
+    code = f"""
+import importlib, json, os, pkgutil, sys
+seen = []
+def hook(event, args):
+    if event == "open" and isinstance(args[0], (str, bytes)):
+        seen.append(os.fsdecode(args[0]))
+    elif event == "subprocess.Popen":
+        seen.extend(os.fsdecode(a) for a in args[1])
+    elif event == "ctypes.dlopen" and args[0]:
+        seen.append(os.fsdecode(args[0]))
+sys.addaudithook(hook)
+import numpy as np
+import frcnn_tpu_torch
+for m in pkgutil.walk_packages(frcnn_tpu_torch.__path__, "frcnn_tpu_torch."):
+    importlib.import_module(m.name)
+from frcnn_tpu_torch.data.cache import ResizedImageCache
+from frcnn_tpu_torch.native import build, data_prep, host_ops
+build.BUILD_DIR = {str(tmp_path / "_build")!r}
+dets = np.array([[0, 0, 10, 10, 0.9], [1, 1, 10, 10, 0.8]], np.float32)
+assert list(host_ops.nms_cpu(dets, 0.5)) == [0]
+assert host_ops.bbox_overlaps_cpu(dets[:, :4], dets[:, :4]).shape == (2, 2)
+built = data_prep.have_native()
+image = {str(tmp_path / "image.jpg")!r}
+open(image, "wb").close()
+ResizedImageCache.build([image], {str(tmp_path / "cache")!r}, (8,), 16, ((8, 16),),
+                        reader=lambda p: np.zeros((4, 8, 3), np.uint8), verbose=False)
+print(json.dumps({{"seen": seen, "data_prep": built}}))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    import json
+
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    jax_dir = os.path.join(ROOT, "frcnn_tpu") + os.sep
+    bad = [p for p in out["seen"] if os.path.abspath(os.path.join(ROOT, p)).startswith(jax_dir)]
+    assert not bad
+    sources = sorted({os.path.relpath(p, ROOT) for p in out["seen"] if p.endswith(".cc")})
+    want = ["frcnn_tpu_torch/native/host_ops.cc"]
+    if out["data_prep"]:
+        want = ["frcnn_tpu_torch/native/data_prep.cc", *want]
+    assert sources == want
+    assert sum(p.startswith(str(tmp_path / "_build")) and p.endswith(".so")
+               for p in out["seen"]) >= len(want)        # loaded from the fresh directory
+
+
+def test_native_ctypes_signatures_match_sources():
+    """The host libraries' extern "C" functions and their ctypes
+    signatures: the same names and the same parameter counts."""
+    from frcnn_tpu_torch.native import build as native_build
+    from frcnn_tpu_torch.native import data_prep, host_ops
+
+    for mod, name in ((host_ops, "host_ops.cc"), (data_prep, "data_prep.cc")):
+        with open(os.path.join(native_build.NATIVE, name)) as f:
+            text = f.read()
+        text = text[text.index('extern "C" {'):]
+        declared = {fn: len(params.split(",")) for fn, params in
+                    re.findall(r"^(?:int|void) (frcnn_\w+)\(([^)]*)\)", text, re.M)}
+        assert declared and set(declared) == set(mod._SIGNATURES), name
+        for fn, count in declared.items():
+            assert len(mod._SIGNATURES[fn][1]) == count, fn
 
 
 @pytest.mark.parametrize("args", [[], ["--only", "kernels"], ["--profile"]])

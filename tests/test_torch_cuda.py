@@ -586,7 +586,9 @@ def test_im_detect_on_the_card_matches_the_cpu(dev):
 def test_clis_run_on_the_card(dev, tmp_path, monkeypatch):
     """``trainval_net`` (2 iterations) and ``test_net --model`` on its
     snapshot, without ``--cpu``: both run on cuda:0.  The default reader
-    (cv2) is replaced by the devkit's, so that no image codec is needed."""
+    (cv2) is replaced by the devkit's, so that no image codec is needed, and
+    TRAIN.NATIVE_PREP is off: the native prep decodes the files itself, and
+    the devkit's are empty placeholders."""
     import pickle
 
     import chip_smoke
@@ -600,7 +602,7 @@ def test_clis_run_on_the_card(dev, tmp_path, monkeypatch):
     common = ["DATA_DIR", str(tmp_path), "ROOT_DIR", str(tmp_path), "TRAIN.SCALES", "(320,)",
               "TRAIN.MAX_SIZE", "480", "TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480",
               "DEVICE.BUCKETS", "((320, 480),)", "TRAIN.IMS_PER_BATCH", "2",
-              "TRAIN.SNAPSHOT_ITERS", "2", "TEST.SCORE_THRESH", "0.0"]
+              "TRAIN.SNAPSHOT_ITERS", "2", "TEST.SCORE_THRESH", "0.0", "TRAIN.NATIVE_PREP", "False"]
     build.reset_launch_counts()
     solver = trainval_net_cli.main(["--net", "res50", "--imdb", "voc_2007_trainval",
                                     "--imdbval", "", "--iters", "2", "--set", *common])
