@@ -184,10 +184,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (g++) and loads; ``apply_nms`` over 21's C4 detections.pkl keeps the
      rows of ``nms_fixed(..., use_kernels=False)`` at 0.3 and 0.1;
      ``tools/reval.py`` on that directory returns and prints 21's APs; whether
-     ``native.data_prep`` built (opencv4 dev files) is logged.
+     ``native.data_prep`` built (opencv4 dev files) is logged;
+ 45. the data mesh (``frcnn_tpu_torch/parallel``): 2 ranks, over NCCL with
+     a card each where the machine has two cards, else over gloo sharing
+     cuda:0 (NCCL refuses two ranks on one GPU), each phase logging the
+     backend, the world and why; then a one-rank NCCL group.  One C4 train
+     step (res50, phase 16's seeded weights, global batch 8 at 608x1024,
+     4 images a rank) over the mesh and unsharded in this process from the
+     same weights, minibatch and draws: in f32 (cudnn.deterministic, TF32
+     off), the losses within 2e-4 relative, every updated tensor within rtol
+     2e-4 / atol 2e-5, frozen tensors bit-unchanged, the replicas bit-equal;
+     in bf16, finite losses and the step bit-equal to ``two_shard_step``
+     (each rank's rows at the rank's batch shape in this process, the f32
+     gradient mean, the clip, the update), the update's cosine with the
+     global step logged; launch counts per rank and step those of 16, and 3
+     more steps timed; the one-rank NCCL group's f32 step bit-equal to the
+     unsharded one.  A witness of why bf16 is held to the two-shard step: K3
+     on each rank's rows of its 6 batch-8 launches gives those rows bit for
+     bit, while its cuDNN twin and the whole trunk differ (logged);
+ 46. the same for res50_fpn (launch counts those of 18);
+ 47. ``Detector`` over the mesh (res50 C4, 800x1216): 12's 3 requests of 8
+     and one of 5 (padded to 6); every rank returns the same list, and each
+     rank's rows are the unsharded bf16 ``Detector``'s on those rows bit for
+     bit; in f32 (TF32 off) every image matched one to one (``match_dets``)
+     with the unsharded ``Detector``'s on the whole request, in bf16 at
+     least ``MESH_BF16_MATCHED`` of the 58; launch counts per rank a batch
+     K1 2, K2 1, K3 6; ``serve.throughput`` of a global batch of 8 beside
+     12's batch time.
 Then one JSON line of per-kernel results, the card line, and, last, the
-JSON ok line.  Each kernel's line carries its launches on the twelve paths
-of 12, 14, 16, 18, 23, 25, 27, 29, 31, 33, 36 and 43 (``launches``;
+JSON ok line.  Each kernel's line carries its launches on the fifteen paths
+of 12, 14, 16, 18, 23, 25, 27, 29, 31, 33, 36, 43 and 45-47 (rank 0's)
+(``launches``;
 ``launches_by_path`` by path, with the driven runs of 20 (A), 21 and 42
 (C)), each counted from zero,
 its error against the twin, its time, the twin's, the time of the one
@@ -1338,19 +1365,27 @@ def main_path(dev, card, net="res50", per_batch=SERVE_LAUNCHES, extra=()):
     return counts, ms, detector, data, im_info
 
 
-def match_dets(want, got, label, score_atol=1e-3, box_atol=5e-2):
-    """One-to-one match of detection rows [x1, y1, x2, y2, score, class]
-    (the rule of the JAX pipeline-parity test, per class)."""
+def dets_mismatch(want, got, score_atol=1e-3, box_atol=5e-2):
+    """Why detection rows [x1, y1, x2, y2, score, class] do not match one to
+    one (the rule of the JAX pipeline-parity test, per class), or None."""
     if len(want) != len(got):
-        raise AssertionError(f"{label}: CPU kept {len(want)}, card kept {len(got)}")
+        return f"CPU kept {len(want)}, card kept {len(got)}"
     used = np.zeros(len(got), bool)
     for row in want:
         cand = np.where(~used & (got[:, 5] == row[5])
                         & (np.abs(got[:, 4] - row[4]) <= score_atol)
                         & (np.abs(got[:, :4] - row[:4]).max(axis=1) <= box_atol))[0]
         if not len(cand):
-            raise AssertionError(f"{label}: no card detection matches CPU row {row}")
+            return f"no card detection matches CPU row {row}"
         used[cand[0]] = True
+    return None
+
+
+def match_dets(want, got, label, score_atol=1e-3, box_atol=5e-2):
+    """Raise unless ``dets_mismatch`` finds the rows matched one to one."""
+    why = dets_mismatch(want, got, score_atol, box_atol)
+    if why is not None:
+        raise AssertionError(f"{label}: {why}")
 
 
 def match_im_detect(want, got, label, score_atol=1e-3, box_atol=5e-2):
@@ -2612,6 +2647,426 @@ def profile_fpn_detect(detector, data, im_info, card):
     write_profile("profile_fpn.json", "batch", card, stages, prof, top)
 
 
+# ---------------------------------------------------------------------------
+# The data mesh (phases 45-47)
+# ---------------------------------------------------------------------------
+
+# (path, net, launches per rank and step) of the mesh train phases 45 and 46
+MESH_TRAIN = (("c4_train_dp", "res50", TRAIN_LAUNCHES),
+              ("fpn_train_dp", "res50_fpn", FPN_TRAIN_LAUNCHES))
+# (net, dtype, steps) of a rank's train arms: the f32 step that is compared
+# tensor by tensor, the bf16 step that is counted, then timed over 3 more
+MESH_ARMS = tuple((net, dtype, 1 if dtype == "float32" else 4)
+                  for _, net, _ in MESH_TRAIN for dtype in ("float32", "bfloat16"))
+MESH_REQUESTS = (8, 8, 8, 5)       # phase 12's 3 requests of 8, then one of 5 (padded to 6)
+# of the ranks' 2 x 29 images served in bf16, the least that must match the
+# unsharded Detector's on the whole request (54 measured on an H100: two images
+# of the request of 5 miss on both ranks; PERF.md)
+MESH_BF16_MATCHED = 52
+
+
+def mesh_batch(rows=None):
+    """The mesh phases' global batch of 8 at 608x1024 over phase 16's
+    synthetic roidb, or its ``rows``: only their images are resized."""
+    from frcnn_tpu_torch.data.loader import get_minibatch
+    from frcnn_tpu_torch.engine.train import filter_roidb
+
+    cfg = train_config()
+    rng = np.random.RandomState(4)
+    shapes = []
+    for _ in range(16):
+        h = int(rng.choice([375, 450, 480, 600]))
+        shapes.append((h, int(h * rng.uniform(1.3, 1.66))))
+    roidb, reader = synthetic_roidb(rng, shapes)
+    roidb = filter_roidb(roidb, cfg)[:TRAIN_B]
+    return get_minibatch(roidb, cfg, np.random.RandomState(0), reader=reader, rows=rows)
+
+
+def mesh_requests():
+    """Phase 12's 3 requests of 8 (800x1216 and 600x912 images) and one of 5."""
+    bh, bw = smoke_config().DEVICE.BUCKETS[0]
+    rng = np.random.RandomState(3)
+    return [synthetic_images(rng, ([(bh, bw), (bh * 3 // 4, bw * 3 // 4)] * 4)[:n])
+            for n in MESH_REQUESTS]
+
+
+def mesh_train_step(net, dtype, blobs, mesh=None, steps=1):
+    """``steps`` train steps of the seeded ``net`` (phase 16's weights and
+    generator seed) on ``blobs``, over ``mesh`` (``blobs`` this rank's rows)
+    or unsharded on cuda:0.  Returns {losses, start, state, counts} of the
+    first step, and the host ms of the others, each ended by synchronizing
+    the card and the ranks.  An f32 step runs under ``cudnn.deterministic``:
+    cuDNN's default f32 algorithms move a weight by up to 1.5e-8 from one run
+    to the next (PERF.md), and the one-rank NCCL step is held to the
+    unsharded one bit for bit; the bf16 step is deterministic as it is."""
+    from frcnn_tpu_torch.engine.train import SolverWrapper
+    from frcnn_tpu_torch.ops.cuda import build
+    from frcnn_tpu_torch.parallel.mesh import barrier
+
+    cfg = train_config()
+    torch.backends.cudnn.deterministic = dtype == "float32"
+    try:
+        solver = SolverWrapper(build_seeded(cfg, getattr(torch, dtype), net=net), [], cfg,
+                               mesh=mesh)
+        state = solver.model.state_dict()
+        out = {"start": {k: v.detach().cpu().clone() for k, v in state.items()}}
+        blobs = {k: torch.as_tensor(v).to(solver.device) for k, v in blobs.items()}
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        out["losses"] = {k: float(v) for k, v in solver.train_step(blobs).items()}
+        torch.cuda.synchronize()
+        out["counts"] = dict(build.LAUNCH_COUNTS)
+        out["state"] = {k: v.detach().cpu().clone() for k, v in state.items()}
+        out["times"] = []
+        for _ in range(steps - 1):
+            t0 = time.perf_counter()
+            solver.train_step(blobs)
+            torch.cuda.synchronize()
+            if mesh is not None:
+                barrier(mesh)
+            out["times"].append((time.perf_counter() - t0) * 1000.0)
+        if mesh is not None and steps > 1:       # the gradient mean alone, 3 times
+            out["allreduce_ms"] = mesh_allreduce_ms(solver, mesh)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del solver, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_allreduce_ms(solver, mesh, n=3):
+    """Host ms of ``all_reduce_grads_`` over the solver's last gradients
+    (median of ``n``), the card and the ranks synchronised around each."""
+    from frcnn_tpu_torch.parallel.mesh import all_reduce_grads_, barrier
+
+    params = [p for g in solver.optimizer.param_groups for p in g["params"]]
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        barrier(mesh)
+        t0 = time.perf_counter()
+        all_reduce_grads_(params, mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    return statistics.median(times)
+
+
+def two_shard_step(net, dtype, blobs, world=2):
+    """The mesh step's arithmetic in this process: each rank's rows of
+    ``blobs`` through ``train_forward`` with that rank's ``ShardedDraws``,
+    the gradients summed in f32 and divided by ``world``, the losses' f32
+    mean, then the clip and the SGD update.  Each half runs at the rank's
+    batch shape, so where the card's kernels give an image results that
+    depend on its batch (bf16 cuDNN), this is the step the mesh must equal
+    bit for bit.  Returns {losses, state}."""
+    from frcnn_tpu_torch.engine.train import SolverWrapper, clip_by_global_norm_
+    from frcnn_tpu_torch.models.targets import ShardedDraws
+
+    cfg = train_config()
+    solver = SolverWrapper(build_seeded(cfg, getattr(torch, dtype), net=net), [], cfg)
+    for group in solver.optimizer.param_groups:
+        group["lr"] = solver.schedule(0) * group["lr_scale"]
+    params = [p for g in solver.optimizer.param_groups for p in g["params"]]
+    n = TRAIN_B // world
+    sums, losses = None, None
+    for r in range(world):
+        feed = {k: torch.as_tensor(v[r * n:(r + 1) * n]).to(solver.device)
+                for k, v in blobs.items()}
+        gen = torch.Generator(device=solver.device).manual_seed(cfg.RNG_SEED + 1)
+        step_losses, _ = solver.model.train_forward(
+            feed["data"], feed["im_info"], feed["gt_boxes"], feed["gt_labels"],
+            feed["gt_valid"], ShardedDraws(gen, r, world))
+        solver.optimizer.zero_grad(set_to_none=True)
+        step_losses["total_loss"].backward()
+        grads = [p.grad.float() for p in params if p.grad is not None]
+        sums = grads if sums is None else [a + b for a, b in zip(sums, grads)]
+        vals = torch.stack([v.detach().float() for v in step_losses.values()])
+        losses = vals if losses is None else losses + vals
+    for p, g in zip([p for p in params if p.grad is not None], sums):
+        p.grad.copy_(g / world)
+    if cfg.TRAIN.GRAD_CLIP > 0:
+        clip_by_global_norm_(params, cfg.TRAIN.GRAD_CLIP)
+    solver.optimizer.step()
+    out = {"losses": dict(zip(step_losses, (losses / world).tolist())),
+           "state": {k: v.detach().cpu().clone() for k, v in solver.model.state_dict().items()}}
+    del solver
+    torch.cuda.empty_cache()
+    return out
+
+
+def k3_batch_witness(blobs, world=2):
+    """Where the bf16 mesh step's bits part from the global step's: the
+    seeded bf16 res50 trunk on the global batch with every K3 launch's
+    inputs kept, then K3 again on each rank's rows of those inputs, which
+    must give the rows of its batch-8 output bit for bit (the kernel has no
+    term across images), and K3's plain twin, whose convolutions are
+    cuDNN's, on the same rows against its own batch-8 result; last the
+    whole trunk on rank 0's rows against its batch-8 rows.  Returns (K3
+    launches checked, twin max abs diff, trunk max abs diff)."""
+    from frcnn_tpu_torch.models.backbones import preprocess_images
+    from frcnn_tpu_torch.ops.cuda import fused_block
+
+    cfg = train_config()
+    model = build_seeded(cfg, torch.bfloat16).to("cuda")
+    x = preprocess_images(torch.as_tensor(blobs["data"]).to("cuda"), cfg,
+                          torch.bfloat16).permute(0, 3, 1, 2)
+    launches, kernel = [], fused_block.fused_bottleneck
+
+    def kept(*args):
+        out = kernel(*args)
+        launches.append((args, out))
+        return out
+
+    fused_block.fused_bottleneck = kept
+    try:
+        with torch.no_grad():
+            feat = model.backbone.extract_features(x)
+    finally:
+        fused_block.fused_bottleneck = kernel
+    n, twin_err = TRAIN_B // world, 0.0
+    with torch.no_grad():
+        for i, ((xb, w1, b1, w2cat, b2, w3, b3, wds, bds), out) in enumerate(launches):
+            w2 = w2cat.reshape(3, 3, w1.shape[1], w1.shape[1])
+            twin = fused_block.bottleneck_reference(xb, w1, b1, w2, b2, w3, b3, wds, bds)
+            for r in range(world):
+                rows = slice(r * n, (r + 1) * n)
+                if not torch.equal(kernel(xb[rows], w1, b1, w2cat, b2, w3, b3, wds, bds),
+                                   out[rows]):
+                    raise AssertionError(f"phase 45: K3 launch {i} gives rank {r}'s rows other "
+                                         "bits alone than in the batch of 8")
+                part = fused_block.bottleneck_reference(xb[rows], w1, b1, w2, b2, w3, b3,
+                                                        wds, bds)
+                twin_err = max(twin_err, (part.float() - twin[rows].float()).abs().max().item())
+        trunk_err = (model.backbone.extract_features(x[:n]).float()
+                     - feat[:n].float()).abs().max().item()
+    if len(launches) != TRAIN_LAUNCHES["fused_block"]:
+        raise AssertionError(f"phase 45: {len(launches)} K3 launches in the trunk, not "
+                             f"{TRAIN_LAUNCHES['fused_block']}")
+    del model, launches, feat
+    torch.cuda.empty_cache()
+    return TRAIN_LAUNCHES["fused_block"], twin_err, trunk_err
+
+
+def mesh_rank(mesh, arms, serve):
+    """One rank of phases 45-47: each (net, dtype, steps) train arm on the
+    rank's rows of the global batch, then, with ``serve``, ``Detector`` over
+    the mesh on the requests (launches counted) and ``serve.throughput`` of
+    a global batch of 8.  Returns per arm the losses, the replica's digest,
+    the launch counts and step times, and rank 0's state."""
+    from frcnn_tpu_torch.engine.serve import Detector, throughput
+    from frcnn_tpu_torch.ops.cuda import build
+    from frcnn_tpu_torch.parallel.dryrun import state_digest
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blobs = mesh_batch(mesh.rows(TRAIN_B))
+    out = {"device": str(mesh.device), "arms": []}
+    for net, dtype, steps in arms:
+        step = mesh_train_step(net, dtype, blobs, mesh, steps)
+        out["arms"].append({"losses": step["losses"], "digest": state_digest(step["state"]),
+                            "counts": step["counts"], "times": step["times"],
+                            "allreduce_ms": step.get("allreduce_ms"),
+                            "state": step["state"] if mesh.rank == 0 else None})
+    if serve:
+        requests = mesh_requests()
+        det = Detector(build_seeded(smoke_config(), torch.bfloat16), uint8_input=True,
+                       mesh=mesh)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        out["results"] = [det(images) for images in requests]
+        torch.cuda.synchronize()
+        out["serve_counts"] = dict(build.LAUNCH_COUNTS)
+        out["images_per_s"] = throughput(det, 8, iters=10, warmup=2)
+        del det
+        det = Detector(build_seeded(smoke_config(), torch.float32), uint8_input=True,
+                       mesh=mesh)
+        out["results_f32"] = [det(images) for images in requests]
+    return out
+
+
+def update_cosines(base, state):
+    """[(cosine, name)] of each tensor's update in ``state`` against
+    ``base``'s (both from ``base["start"]``), least first; a tensor that
+    moves on neither side is left out."""
+    rows = []
+    for name, w in base["state"].items():
+        start = base["start"][name].double().reshape(-1)
+        d_want, d_got = w.double().reshape(-1) - start, state[name].double().reshape(-1) - start
+        if d_want.any() or d_got.any():
+            rows.append((float(torch.nn.functional.cosine_similarity(d_got, d_want, dim=0)),
+                         name))
+    return sorted(rows)
+
+
+def check_mesh_train(phase, net, per_step, ranks, one, single, where, card, unsharded_ms):
+    """Phase 45 or 46 from the ranks' results (``one``: the one-rank NCCL
+    group's) against the unsharded steps ``single[dtype]``.  Returns rank
+    0's launch counts of its bf16 step."""
+    f32, bf16 = MESH_ARMS.index((net, "float32", 1)), MESH_ARMS.index((net, "bfloat16", 4))
+    for arm in (f32, bf16):
+        if len({r["arms"][arm]["digest"] for r in ranks}) != 1:
+            raise AssertionError(f"phase {phase} {net}: the replicas differ across the ranks")
+    # f32: the losses and every tensor against the unsharded step
+    got, want = ranks[0]["arms"][f32], single["float32"]
+    loss_err = max(abs(got["losses"][k] - c) / max(abs(c), 1.0)
+                   for k, c in want["losses"].items())
+    if loss_err > 2e-4:
+        raise AssertionError(f"phase {phase} {net} f32: losses {got['losses']} against the "
+                             f"unsharded {want['losses']}")
+    worst, frozen = 0.0, 0
+    for name, w in want["state"].items():
+        g = got["state"][name]
+        if torch.equal(w, want["start"][name]):          # frozen, or a buffer
+            if not torch.equal(g, w):
+                raise AssertionError(f"phase {phase} {net} f32: frozen {name} moved")
+            frozen += 1
+            continue
+        diff = (g.double() - w.double()).abs()
+        if (diff - 2e-4 * w.double().abs()).max().item() > 2e-5:
+            raise AssertionError(f"phase {phase} {net} f32: {name} off the unsharded step "
+                                 f"beyond rtol 2e-4 / atol 2e-5 (max abs {diff.max().item():.3g})")
+        worst = max(worst, diff.max().item())
+    # bf16: finite losses; the two-shard step in this process bit for bit; the
+    # cosines against the global step recorded (bf16 cuDNN gives an image other
+    # bits in a batch of 4 than in one of 8, which moves proposals and the
+    # sampled rois, so only the two-shard step is the mesh's exact reference)
+    got16, want16, shards = ranks[0]["arms"][bf16], single["bfloat16"], single["two_shard"]
+    if not all(np.isfinite(v) for v in got16["losses"].values()):
+        raise AssertionError(f"phase {phase} {net} bf16: losses {got16['losses']}")
+    if (got16["losses"] != shards["losses"]
+            or not all(torch.equal(got16["state"][k], v) for k, v in shards["state"].items())):
+        raise AssertionError(f"phase {phase} {net} bf16: the mesh step is not the two-shard "
+                             "step of this process bit for bit")
+    cos, cos_shards = update_cosines(want16, got16["state"]), update_cosines(want16,
+                                                                             shards["state"])
+    counts = got16["counts"]
+    if counts != per_step:
+        raise AssertionError(f"phase {phase} {net}: launches {counts} per rank and step, not "
+                             f"{per_step}")
+    # NCCL, world 1: the unsharded f32 step bit for bit
+    nccl = one["arms"][[a for a in MESH_ARMS if a[1] == "float32"].index((net, "float32", 1))]
+    if (nccl["losses"] != want["losses"]
+            or not all(torch.equal(nccl["state"][k], v) for k, v in want["state"].items())):
+        raise AssertionError(f"phase {phase} {net}: the one-rank NCCL step is not the "
+                             "unsharded f32 step bit for bit")
+    step_ms = statistics.median(got16["times"])
+    log(f"phase {phase} {net} over the mesh ({where}; global batch {TRAIN_B}, {TRAIN_H}x"
+        f"{TRAIN_W}): f32 losses within {loss_err:.2e} relative of the unsharded step, every "
+        f"updated tensor within rtol 2e-4 / atol 2e-5 (max abs diff {worst:.3g}), {frozen} "
+        f"frozen tensors and buffers bit-unchanged, replicas bit-equal; bf16 losses finite "
+        f"(total {got16['losses']['total_loss']:.6f} against {want16['losses']['total_loss']:.6f} "
+        f"unsharded), the step bit-equal to the two-shard step of one process; updates against "
+        f"the unsharded global step: least cosine {cos[0][0]:.6f} ({cos[0][1]}), next "
+        f"{cos[1][0]:.6f} ({cos[1][1]}); the two-shard step's own: {cos_shards[0][0]:.6f} "
+        f"({cos_shards[0][1]}); launches per rank and step {counts}; NCCL world 1 bit-equal "
+        f"to the unsharded f32 step; bf16 step {step_ms:.3f} ms (median of 3, host clock, "
+        f"card and ranks synchronised), of which the f32 gradient all-reduce alone "
+        f"{got16['allreduce_ms']:.3f} ms, against {unsharded_ms:.3f} ms unsharded (CUDA "
+        f"events) on {card}")
+    return counts
+
+
+def mesh_phases(card, serve_detector, serve_ms, train_ms):
+    """Phases 45-47 (module docstring).  ``train_ms``: phases 16 and 18's
+    unsharded bf16 step ms by net.  Returns rank 0's launch counts by path."""
+    from frcnn_tpu_torch.engine.serve import Detector
+    from frcnn_tpu_torch.parallel.mesh import spawn
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        backend, why, where = "nccl", f"{cards} cards, one a rank", "2 ranks on 2 cards"
+    else:
+        backend = "gloo"
+        why = ("one card: NCCL refuses two ranks on one GPU; gloo all-reduces and "
+               "broadcasts CUDA tensors")
+        where = "2 ranks sharing one card over gloo: not a scaling figure"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    blobs = mesh_batch()
+    single = {net: {dtype: mesh_train_step(net, dtype, blobs)
+                    for dtype in ("float32", "bfloat16")}
+              for _, net, _ in MESH_TRAIN}
+    for _, net, _ in MESH_TRAIN:
+        single[net]["two_shard"] = two_shard_step(net, "bfloat16", blobs)
+    k3_checked, twin_err, trunk_err = k3_batch_witness(blobs)
+    log(f"phase 45 witness: K3 at its {k3_checked} launches of the bf16 res50 trunk (global "
+        f"batch {TRAIN_B}) gives each rank's {TRAIN_B // 2} rows the same bits alone as in the "
+        f"batch; its plain twin (cuDNN's convolutions) on the same rows differs by up to "
+        f"{twin_err:.6g}, the whole trunk on rank 0's rows by up to {trunk_err:.6g}")
+    requests = mesh_requests()
+    want_served = [serve_detector(images) for images in requests]
+    f32_detector = Detector(build_seeded(smoke_config(), torch.float32), uint8_input=True)
+    want_f32 = [f32_detector(images) for images in requests]
+    del f32_detector
+    # each rank's rows (a request padded to an even count with its last image)
+    # served alone: the batches the ranks' kernels see
+    want_rows = [[serve_detector([images[min(i, len(images) - 1)]
+                                  for i in range(r * m, (r + 1) * m)])
+                  for r in range(2)]
+                 for images in requests for m in [(len(images) + 1) // 2]]
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    log(f"mesh: the unsharded references in {t1 - t0:.1f} s; backend {backend}, world 2 "
+        f"({why}); then backend nccl, world 1 (the NCCL path on one card)")
+    ranks = spawn(mesh_rank, 2, backend, MESH_ARMS, True, device="cuda", timeout_s=600)
+    t2 = time.perf_counter()
+    one = spawn(mesh_rank, 1, "nccl", [a for a in MESH_ARMS if a[1] == "float32"], False,
+                device="cuda", timeout_s=600)[0]
+    log(f"mesh: ranks on {[r['device'] for r in ranks]} in {t2 - t1:.1f} s, the NCCL rank on "
+        f"{one['device']} in {time.perf_counter() - t2:.1f} s")
+
+    counts = {}
+    for phase, (path, net, per_step) in zip((45, 46), MESH_TRAIN):
+        counts[path] = check_mesh_train(phase, net, per_step, ranks, one, single[net], where,
+                                        card, train_ms[net])
+    # 47: every rank returns the same list; each rank's rows are the unsharded
+    # Detector's on those rows bit for bit; in f32 every image is matched one to
+    # one with the unsharded Detector's on the whole request; in bf16 at least
+    # MESH_BF16_MATCHED images are (bf16 cuDNN gives an image other bits in a
+    # batch of 3 than in one of 5; K3 does not, phase 45's witness)
+    for rank, r in enumerate(ranks):
+        for req, (want, got) in enumerate(zip(want_f32, r["results_f32"])):
+            for i, (w, g) in enumerate(zip(want, got)):
+                match_dets(w, g, f"phase 47 f32 rank {rank} request {req} image {i}")
+    misses = []
+    for rank, r in enumerate(ranks):
+        for req, (want, got) in enumerate(zip(want_served, r["results"])):
+            if len(got) != len(want):
+                raise AssertionError(f"phase 47 rank {rank} request {req}: {len(got)} results "
+                                     f"for {len(want)} images")
+            m = (len(want) + 1) // 2
+            for i, (w, g) in enumerate(zip(want, got)):
+                if not np.array_equal(g, ranks[0]["results"][req][i]):
+                    raise AssertionError(f"phase 47 request {req} image {i}: rank {rank}'s "
+                                         "list differs from rank 0's")
+                if not np.array_equal(g, want_rows[req][i // m][i % m]):
+                    raise AssertionError(f"phase 47 request {req} image {i}: not the unsharded "
+                                         f"Detector's detections on rank {i // m}'s rows")
+                why = dets_mismatch(w, g)
+                if why is not None:
+                    misses.append(f"rank {rank} request {req} image {i}: {why}")
+    if 2 * sum(MESH_REQUESTS) - len(misses) < MESH_BF16_MATCHED:
+        raise AssertionError(f"phase 47 bf16: {len(misses)} of the ranks' images unmatched with "
+                             f"the unsharded Detector's on the whole request, fewer than "
+                             f"{MESH_BF16_MATCHED} matched: {misses[:4]}")
+    want = {name: n * len(MESH_REQUESTS) for name, n in SERVE_LAUNCHES.items()}
+    counts["c4_serve_dp"] = ranks[0]["serve_counts"]
+    if counts["c4_serve_dp"] != want:
+        raise AssertionError(f"phase 47: launches {counts['c4_serve_dp']} per rank, not {want} "
+                             f"({SERVE_LAUNCHES} a batch)")
+    rate = ranks[0]["images_per_s"]
+    n_images = 2 * sum(MESH_REQUESTS)
+    log(f"phase 47 Detector over the mesh ({where}; res50 C4, bf16 trunk, 800x1216): requests "
+        f"of {list(MESH_REQUESTS)} (5 padded to 6): every rank's list the same, each rank's "
+        f"rows the unsharded Detector's on those rows bit for bit; {n_images - len(misses)} "
+        f"of the ranks' {n_images} images matched one to one with the unsharded Detector's on "
+        f"the whole request (at least {MESH_BF16_MATCHED} must; {misses[:2]}); in f32 (TF32 off) all {n_images}; launches per "
+        f"rank {counts['c4_serve_dp']}; serve.throughput over the mesh, global batch 8: "
+        f"{rate:.2f} images/s, {8000.0 / rate:.3f} ms a batch, against {serve_ms:.3f} ms unsharded (phase 12) on "
+        f"{card}")
+    return counts
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description="Smoke run of frcnn_tpu_torch on one card.")
     parser.add_argument("--only", choices=("kernels",),
@@ -2693,7 +3148,8 @@ def main(argv=None) -> int:
     fpn_end_to_end(dev)
     train_counts, solver, train_ms = train_path(dev, card)
     train_card_vs_cpu(dev)
-    fpn_train_counts, fpn_solver, _ = train_path(dev, card, "res50_fpn", FPN_TRAIN_LAUNCHES)
+    fpn_train_counts, fpn_solver, fpn_train_ms = train_path(dev, card, "res50_fpn",
+                                                            FPN_TRAIN_LAUNCHES)
     train_card_vs_cpu(dev, "res50_fpn")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_voc_")
     try:
@@ -2726,6 +3182,9 @@ def main(argv=None) -> int:
     new_paths["vgg16_top_serve"] = top_path(dev, card)[0]
     # 300 rois an image: VGG-16's fc6 over the full 5000 would take the CPU copy ~10 s
     end_to_end(dev, "vgg16", ("TEST.MODE", "top", "TEST.RPN_TOP_N", "300"), TOP_SERVE_LAUNCHES)
+    # the data mesh: rank 0's counts of phases 45-47
+    new_paths.update(mesh_phases(card, serve_detector, serve_ms,
+                                 {"res50": train_ms, "res50_fpn": fpn_train_ms}))
     if args.profile:
         profile_train_step(solver, card)
         profile_fpn_detect(fpn_detector, fpn_data, fpn_info, card)
@@ -2735,8 +3194,9 @@ def main(argv=None) -> int:
     # the TPU kernels served by a kernel that stands for another one
     also = {"nms": ("frcnn_tpu/ops/pallas/nms_kernel.py:128", k1b),
             "roi_align_ml": ("frcnn_tpu/ops/pallas/roi_align_kernel.py:609", None)}
-    # launches: the twelve paths of 12, 14, 16, 18, 23, 25, 27, 29, 31, 33, 36 and 43,
-    # each counted from zero; the driven runs of 20 (A), 21 and 42 (C) beside them by path
+    # launches: the fifteen paths of 12, 14, 16, 18, 23, 25, 27, 29, 31, 33, 36, 43 and
+    # 45-47 (rank 0), each counted from zero; the driven runs of 20 (A), 21 and 42 (C)
+    # beside them by path
     paths = {"c4_serve": serve_counts, "fpn_serve": fpn_counts, "c4_train": train_counts,
              "fpn_train": fpn_train_counts, "fpn_gn_detect": gn_counts,
              "fpn_gn_train": gn_train_counts, **new_paths, "c4_throughput": throughput_counts}

@@ -119,15 +119,17 @@ def im_list_to_blob(ims):
     return blob
 
 
-def _cached_batch(roidb, targets, cache, t, buckets):
-    """The resized-cache route: (uint8 data, scales), or None on a miss (an
-    entry absent or cached under another MAX_SIZE or BUCKETS).  Flipped
-    entries take a negative-stride view; the views are zero-padded into one
-    batch buffer at ``snap_to_bucket`` of their sizes."""
+def _cached_batch(roidb, targets, cache, t, buckets, rows):
+    """The resized-cache route: (uint8 data, scales) of the batch's
+    ``rows``, or None on a miss anywhere in the batch (an entry absent or
+    cached under another MAX_SIZE or BUCKETS).  Flipped entries take a
+    negative-stride view; the views are zero-padded into one batch buffer at
+    ``snap_to_bucket`` of the whole batch's sizes."""
     got = [cache.get(e["image"], target, t.MAX_SIZE, buckets) for e, target in zip(roidb, targets)]
     if any(g is None for g in got):
         return None
     bh, bw = snap_to_bucket([im.shape[:2] for im, _ in got], buckets)
+    got, roidb = got[rows], roidb[rows]
     data = np.zeros((len(got), bh, bw, 3), np.uint8)
     for blob, entry, (im, _) in zip(data, roidb, got):
         if entry.get("flipped", False):
@@ -136,42 +138,55 @@ def _cached_batch(roidb, targets, cache, t, buckets):
     return data, [scale for _, scale in got]
 
 
-def _native_batch(roidb, targets, t, buckets):
-    """The native route: (f32 data, scales), the scale and bucket from the
-    entries' stored sizes; None where the library is unavailable."""
+def _native_batch(roidb, targets, t, buckets, rows):
+    """The native route: (f32 data, scales) of the batch's ``rows``, the
+    scale and bucket from the entries' stored sizes; None where the library
+    is unavailable."""
     from frcnn_tpu_torch.native import data_prep
 
     picked = [pick_scale_and_bucket(e["height"], e["width"], target, t.MAX_SIZE, buckets)
               for e, target in zip(roidb, targets)]
+    bucket = snap_to_bucket([bucket for _, bucket in picked], buckets)
+    picked, roidb = picked[rows], roidb[rows]
     res = data_prep.prep_batch([e["image"] for e in roidb],
                                [1 if e.get("flipped", False) else 0 for e in roidb],
-                               [scale for scale, _ in picked],
-                               snap_to_bucket([bucket for _, bucket in picked], buckets))
+                               [scale for scale, _ in picked], bucket)
     return None if res is None else (res[0], [scale for scale, _ in picked])
 
 
-def _decoded_batch(roidb, targets, reader, t, buckets):
-    """The Python route: (f32 data, scales, image sizes): each image read,
-    flipped, resized and padded here."""
-    prepped, scales = [], []
-    for entry, target in zip(roidb, targets):
+def _decoded_batch(roidb, targets, reader, t, buckets, rows):
+    """The Python route: (f32 data, scales, image sizes) of the batch's
+    ``rows``: each of their images read, flipped, resized and padded here."""
+    def read(entry):
         im = reader(entry["image"])
         if im is None:
             raise ValueError(f"failed to read {entry['image']}")
+        return im
+
+    prepped, scales = [], []
+    for entry, target in zip(roidb[rows], targets[rows]):
+        im = read(entry)
         if entry.get("flipped", False):
             im = im[:, ::-1, :]
         padded, scale = prep_im_for_blob(im, target, t.MAX_SIZE, buckets)
         prepped.append((im.shape[:2], padded))
         scales.append(scale)
-    # one static shape per batch: the smallest bucket covering every image's
-    bucket_hw = snap_to_bucket([p[1].shape[:2] for p in prepped], buckets)
+    # one static shape per batch: the smallest bucket covering every image's,
+    # the other rows' from their sizes (read where an entry has none)
+    hws = [p[1].shape[:2] for p in prepped]
+    for i, e in enumerate(roidb):
+        if rows.start <= i < rows.stop:
+            continue
+        h, w = (e["height"], e["width"]) if "height" in e else read(e).shape[:2]
+        hws.append(pick_scale_and_bucket(h, w, targets[i], t.MAX_SIZE, buckets)[1])
+    bucket_hw = snap_to_bucket(hws, buckets)
     data = np.zeros((len(prepped), *bucket_hw, 3), np.float32)
     for blob, (_, padded) in zip(data, prepped):
         blob[: padded.shape[0], : padded.shape[1]] = padded
     return data, scales, [hw for hw, _ in prepped]
 
 
-def get_minibatch(roidb, cfg, rng=None, reader=None):
+def get_minibatch(roidb, cfg, rng=None, reader=None, rows=None):
     """One fixed-shape minibatch from roidb entries: data (B, bh, bw, 3)
     raw BGR (float32, or uint8 from a ``ResizedImageCache``), im_info (B, 3)
     [h, w, scale] of the scaled unpadded image, gt_boxes (B, MAX_GT, 4)
@@ -181,10 +196,16 @@ def get_minibatch(roidb, cfg, rng=None, reader=None):
     falls through to the routes below), or a callable that maps
     ``entry["image"]`` to a BGR uint8 array.  With none, the native prep
     runs where TRAIN.NATIVE_PREP is set, the entries carry their sizes and
-    the library builds; else ``read_image`` reads each image."""
+    the library builds; else ``read_image`` reads each image.
+
+    ``rows`` (a slice; default all): the rows of the batch to prepare, as
+    a rank of a data mesh does.  The draws, the route and the bucket are the
+    whole batch's, so the rows equal those rows of the whole batch; only
+    the rows' images are decoded, resized and padded."""
     from frcnn_tpu_torch.data.cache import ResizedImageCache
 
     rng = rng or np.random
+    rows = slice(*(rows or slice(None)).indices(len(roidb)))
     t = cfg.TRAIN
     buckets = cfg.DEVICE.BUCKETS
     max_gt = cfg.DEVICE.MAX_GT
@@ -195,20 +216,21 @@ def get_minibatch(roidb, cfg, rng=None, reader=None):
 
     batch = None
     if isinstance(reader, ResizedImageCache):
-        batch = _cached_batch(roidb, targets, reader, t, buckets) if sized else None
+        batch = _cached_batch(roidb, targets, reader, t, buckets, rows) if sized else None
         reader = None                     # a miss: the decode routes, not a callable
     if batch is None and reader is None and t.NATIVE_PREP and sized:
-        batch = _native_batch(roidb, targets, t, buckets)
+        batch = _native_batch(roidb, targets, t, buckets, rows)
     if batch is not None:
         data, scales = batch
-        dims = [(e["height"], e["width"]) for e in roidb]
+        dims = [(e["height"], e["width"]) for e in roidb[rows]]
     else:
-        data, scales, dims = _decoded_batch(roidb, targets, reader or read_image, t, buckets)
+        data, scales, dims = _decoded_batch(roidb, targets, reader or read_image, t, buckets,
+                                            rows)
     infos = [[np.round(h * scale), np.round(w * scale), scale]
              for (h, w), scale in zip(dims, scales)]
 
     gtb, gtl, gtv = [], [], []
-    for entry, scale in zip(roidb, scales):
+    for entry, scale in zip(roidb[rows], scales):
         gt_inds = np.where(entry["gt_classes"] > 0)[0] \
             if "gt_classes" in entry else np.arange(len(entry["boxes"]))
         boxes = entry["boxes"][gt_inds].astype(np.float32) * scale
@@ -234,15 +256,18 @@ class RoIDataLayer:
     orientation-pure, as in the JAX package.  ``random=True`` (the
     validation layer) reseeds each epoch from the global numpy RNG.
     ``get_state``/``set_state`` carry the cursor, the permutation and the
-    RNG for an exact resume."""
+    RNG for an exact resume.  ``rows`` (a slice of the batch): a rank's
+    shard; the layer draws as for the whole batch (``get_minibatch``), so
+    its state equals the unsharded layer's."""
 
     def __init__(self, roidb, cfg, random: bool = False, batch_size: int | None = None,
-                 reader=None):
+                 reader=None, rows: slice | None = None):
         self._roidb = roidb
         self._cfg = cfg
         self._random = random
         self._batch = batch_size or cfg.TRAIN.IMS_PER_BATCH
         self._reader = reader
+        self._rows = rows
         self._rng = np.random.RandomState(cfg.RNG_SEED)
         self._shuffle_roidb_inds()
 
@@ -287,7 +312,7 @@ class RoIDataLayer:
     def forward(self):
         inds = self._get_next_minibatch_inds()
         return get_minibatch([self._roidb[i] for i in inds], self._cfg, self._rng,
-                             reader=self._reader)
+                             reader=self._reader, rows=self._rows)
 
     def get_state(self):
         return {"cur": self._cur, "perm": np.array(self._perm), "rng": self._rng.get_state()}

@@ -1,4 +1,4 @@
-"""Training on one device (``frcnn_tpu/engine/train.py``): roidb
+"""Training (``frcnn_tpu/engine/train.py``): roidb
 assembly, the SGD + momentum optimizer with the reference's parameter
 groups, ``SolverWrapper`` with ``train_step``, ``train_model``, snapshots
 and exact resume, and the ``train_net`` driver.
@@ -28,6 +28,17 @@ the step consumed, and the state of the sampling generator.  The JAX run
 derives each step's key from the step; here the draws come from a
 stateful generator, so its state is part of the snapshot, and a run
 stopped at a snapshot and resumed equals the straight run bit for bit.
+
+Under a ``mesh`` (``frcnn_tpu_torch/parallel/mesh.py``) each rank holds a
+replica of the model on the mesh's device and trains on its rows of every
+global batch of IMS_PER_BATCH images (which must be a multiple of the mesh
+size): its data layer makes the whole batch's draws but prepares only its
+rows, its sampling draws are the whole batch's rows for its images
+(``ShardedDraws``), and the gradients are averaged over the ranks in f32
+after ``backward()`` and before the clip and the update.  The step then
+equals the one-device step on the global batch up to the order of the
+gradient reduction.  Rank 0 alone writes snapshots, ``train_log.jsonl``,
+summaries and the log; every rank restores from a snapshot.
 """
 
 from __future__ import annotations
@@ -48,6 +59,9 @@ import torch
 from frcnn_tpu_torch.data.loader import RoIDataLayer
 from frcnn_tpu_torch.data.roidb import prepare_roidb
 from frcnn_tpu_torch.engine import resolve_device
+from frcnn_tpu_torch.models.targets import ShardedDraws
+from frcnn_tpu_torch.parallel.mesh import (all_reduce_grads_, all_reduce_mean, barrier,
+                                           broadcast_flag, rank0_first, replicate)
 from frcnn_tpu_torch.utils.timer import Timer
 
 
@@ -204,8 +218,8 @@ class _Prefetcher:
 
 
 class SolverWrapper:
-    """Training orchestrator (reference SolverWrapper) for a model on one
-    device.  The model is moved to ``device`` before the optimizer is made:
+    """Training orchestrator (reference SolverWrapper).  The model is moved
+    to ``device`` before the optimizer is made:
     ``cuda:0`` by default (a ``RuntimeError`` when there is no card),
     ``"cpu"`` on request.  ``reader`` maps a roidb entry's ``image`` to a
     BGR array (default ``read_image``).  ``aux`` holds the last step's
@@ -221,25 +235,36 @@ class SolverWrapper:
     ``reader`` into ``build_image_cache``'s cache, before the data layers
     are made, and the layers read the cache: uint8 batches.  DEVICE.REMAT
     is accepted and ignored, as in the JAX package, where no module reads
-    it."""
+    it.
+
+    ``mesh``: train data-parallel as one rank of it (the module docstring);
+    the model is replicated from rank 0, ``device`` defaults to the mesh's,
+    and IMS_PER_BATCH must be a multiple of the mesh size (``ValueError``)."""
 
     def __init__(self, model, roidb, cfg=None, reader=None, device=None, *, imdb=None,
-                 valroidb=None, output_dir=None, tb_dir=None, pretrained=None):
+                 valroidb=None, output_dir=None, tb_dir=None, pretrained=None, mesh=None):
         self.cfg = cfg or model.config
         if self.cfg.TRAIN.IMAGE_CACHE and imdb is None:
             raise ValueError("TRAIN.IMAGE_CACHE needs the imdb (imdb=...): the resized-image "
                              "cache lives at <imdb.cache_path>/<imdb.name>_resized")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device, mesh)
+        rows = None if mesh is None else mesh.rows(self.cfg.TRAIN.IMS_PER_BATCH)
+        self._lead = mesh is None or mesh.rank == 0
         if self.cfg.TRAIN.IMAGE_CACHE:
-            reader = build_image_cache(imdb, roidb, valroidb, self.cfg, reader)
+            reader = rank0_first(
+                lambda: build_image_cache(imdb, roidb, valroidb, self.cfg, reader), mesh)
         if pretrained is not None:
             model.load_state_dict(_merge_pretrained(model.state_dict(), pretrained))
         self.model = model.to(self.device)
+        if mesh is not None:
+            replicate(self.model, mesh)
         self.imdb = imdb
         self.output_dir = output_dir
         self.tb_dir = tb_dir
-        self.data_layer = RoIDataLayer(roidb, self.cfg, reader=reader)
-        self.data_layer_val = (RoIDataLayer(valroidb, self.cfg, random=True, reader=reader)
+        self.data_layer = RoIDataLayer(roidb, self.cfg, reader=reader, rows=rows)
+        self.data_layer_val = (RoIDataLayer(valroidb, self.cfg, random=True, reader=reader,
+                                            rows=rows)
                                if valroidb is not None else None)
         self.optimizer, self.schedule = make_optimizer(model, self.cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(self.cfg.RNG_SEED + 1)
@@ -249,21 +274,31 @@ class SolverWrapper:
         if output_dir:
             os.makedirs(output_dir, exist_ok=True)
 
+    def _draws(self, generator):
+        return (generator if self.mesh is None
+                else ShardedDraws(generator, self.mesh.rank, self.mesh.size))
+
     def train_step(self, blobs, draws=None):
         """One SGD step on a minibatch (numpy or tensors).  ``draws``: the
-        sampling draws (default: from the solver's generator).  Returns the
-        step's losses as detached scalars."""
+        sampling draws (default: from the solver's generator).  Under a mesh
+        ``blobs`` and ``draws`` are this rank's rows (``shard_batch``,
+        ``shard_draws``).  Returns the step's losses as detached scalars,
+        under a mesh their mean over the ranks."""
         cfg = self.cfg
         feed = _to_device(blobs, self.device)
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.step) * group["lr_scale"]
         losses, aux = self.model.train_forward(
             feed["data"], feed["im_info"], feed["gt_boxes"], feed["gt_labels"],
-            feed["gt_valid"], self.generator if draws is None else draws)
+            feed["gt_valid"], self._draws(self.generator) if draws is None else draws)
         self.optimizer.zero_grad(set_to_none=True)
         losses["total_loss"].backward()
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        if self.mesh is not None:
+            # before the clip, so that every rank clips the same global norm
+            all_reduce_grads_(params, self.mesh)
+            losses = all_reduce_mean(losses, self.mesh)
         if cfg.TRAIN.GRAD_CLIP > 0:
-            params = [p for g in self.optimizer.param_groups for p in g["params"]]
             clip_by_global_norm_(params, cfg.TRAIN.GRAD_CLIP)
         self.optimizer.step()
         self.step += 1
@@ -274,12 +309,16 @@ class SolverWrapper:
     def val_losses(self, blobs):
         """``train_forward``'s losses on a validation batch, as floats.  The
         draws come from a generator of their own seeded from the step, so
-        validation leaves the training draws alone."""
+        validation leaves the training draws alone.  Under a mesh: this rank's
+        rows, and the losses' mean over the ranks."""
         feed = _to_device(blobs, self.device)
         draws = torch.Generator(device=self.device).manual_seed(
             self.cfg.RNG_SEED + 10**9 + self.step)
         losses, _ = self.model.train_forward(feed["data"], feed["im_info"], feed["gt_boxes"],
-                                             feed["gt_labels"], feed["gt_valid"], draws)
+                                             feed["gt_labels"], feed["gt_valid"],
+                                             self._draws(draws))
+        if self.mesh is not None:
+            losses = all_reduce_mean(losses, self.mesh)
         return {name: float(v) for name, v in losses.items()}
 
     # -- snapshots (reference snapshot / find_previous / from_snapshot) -----
@@ -289,8 +328,20 @@ class SolverWrapper:
         return sorted(pkls, key=lambda p: int(p.rsplit("_", 1)[1][:-4]))
 
     def snapshot(self, step: int) -> str:
-        """Write ``<prefix>_iter_<step>.pth`` and its ``.pkl``; prune."""
+        """Write ``<prefix>_iter_<step>.pth`` and its ``.pkl``; prune.  Under
+        a mesh rank 0 writes and prunes (the replicas and their states are
+        equal), with a barrier between, so no rank reads a part-written
+        snapshot."""
         path = osp.join(self.output_dir, f"{self.cfg.TRAIN.SNAPSHOT_PREFIX}_iter_{step}")
+        if self._lead:
+            self._write_snapshot(step, path)
+        if self.mesh is not None:
+            barrier(self.mesh)
+        if self._lead:
+            self._prune_snapshots()
+        return path + ".pth"
+
+    def _write_snapshot(self, step, path):
         torch.save({"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
                     "step": step}, path + ".pth")
         layer_state = self._layer_state_consumed
@@ -303,8 +354,6 @@ class SolverWrapper:
                                              if self.data_layer_val is not None else None),
                          "generator": self.generator.get_state()}, f)
         print(f"Wrote snapshot to: {path}.pth")
-        self._prune_snapshots()
-        return path + ".pth"
 
     def _prune_snapshots(self):
         kept = self.cfg.TRAIN.SNAPSHOT_KEPT
@@ -336,7 +385,8 @@ class SolverWrapper:
         if self.data_layer_val is not None and meta.get("val_layer_state") is not None:
             self.data_layer_val.set_state(meta["val_layer_state"])
         self.generator.set_state(meta["generator"])
-        print(f"Restored from {pkl_path} (iter {meta['iter']})")
+        if self._lead:
+            print(f"Restored from {pkl_path} (iter {meta['iter']})")
         return self.step
 
     # -- the loop -------------------------------------------------------------
@@ -385,9 +435,11 @@ class SolverWrapper:
             if last:
                 self.from_snapshot(last)
         start = self.step
-        log_f = open(osp.join(self.output_dir, "train_log.jsonl"), "a") if self.output_dir else None
+        lead = self._lead
+        log_f = (open(osp.join(self.output_dir, "train_log.jsonl"), "a")
+                 if self.output_dir and lead else None)
         writer = None
-        if self.tb_dir:
+        if self.tb_dir and lead:
             from frcnn_tpu_torch.utils.summary import SummaryWriter
 
             writer = SummaryWriter(self.tb_dir)
@@ -397,14 +449,15 @@ class SolverWrapper:
         try:
             with torch.autograd.set_detect_anomaly(cfg.DEVICE.DEBUG_NANS):
                 while self.step < max_iters:
-                    profiler = self._profile_window(profiler)
+                    if lead:
+                        profiler = self._profile_window(profiler)
                     timer.tic()
                     blobs, self._layer_state_consumed = batches.get()
                     values = {name: float(v) for name, v in self.train_step(blobs).items()}
                     timer.toc()
                     history.append(values)
                     step = self.step
-                    if step % t.DISPLAY == 0:
+                    if step % t.DISPLAY == 0 and lead:
                         lr = self.schedule(step)
                         print(f"iter: {step} / {max_iters}, total loss: {values['total_loss']:.6f}\n"
                               f" >>> rpn_loss_cls: {values['rpn_cross_entropy']:.6f}\n"
@@ -422,10 +475,13 @@ class SolverWrapper:
                                             "speed_s_per_iter": timer.average_time}, step)
                     if self.output_dir and step % t.SNAPSHOT_ITERS == 0:
                         self.snapshot(step)
-                    if ((self.data_layer_val is not None or writer is not None)
-                            and time.time() - last_summary > t.SUMMARY_INTERVAL):
-                        self._summarize(blobs, writer, log_f)
-                        last_summary = time.time()
+                    if self.data_layer_val is not None or self.tb_dir:
+                        due = time.time() - last_summary > t.SUMMARY_INTERVAL
+                        if self.mesh is not None:   # val_losses is collective: rank 0 decides
+                            due = broadcast_flag(due, self.mesh)
+                        if due:
+                            self._summarize(blobs, writer, log_f)
+                            last_summary = time.time()
             if self.output_dir and self.step > start and self.step % t.SNAPSHOT_ITERS != 0:
                 self.snapshot(self.step)
         finally:
@@ -456,12 +512,14 @@ class SolverWrapper:
 
 
 def train_net(model, imdb, roidb, valroidb, output_dir: str, tb_dir: str | None = None,
-              cfg=None, pretrained=None, max_iters: int = 40000, reader=None, device=None):
+              cfg=None, pretrained=None, max_iters: int = 40000, reader=None, device=None,
+              mesh=None):
     """Train entry point (reference train_val.train_net): filter the
     roidbs, resume from ``output_dir`` if it holds a snapshot, train to
     ``max_iters``.  With no ``pretrained`` weights a GroupNorm net starts
-    from ``init_reference_`` (its generator seeded with RNG_SEED).  Returns
-    the SolverWrapper."""
+    from ``init_reference_`` (its generator seeded with RNG_SEED).  Under a
+    ``mesh`` this process trains as one rank of it (``SolverWrapper``).
+    Returns the SolverWrapper."""
     cfg = cfg or model.config
     if pretrained is None and model.backbone.norm == "group":
         # from scratch: the weights the JAX package's model.init draws
@@ -478,10 +536,12 @@ def train_net(model, imdb, roidb, valroidb, output_dir: str, tb_dir: str | None 
     valroidb = filter_roidb(valroidb, cfg) if valroidb is not None else None
     sw = SolverWrapper(model, roidb, cfg, reader=reader, device=device, imdb=imdb,
                        valroidb=valroidb, output_dir=output_dir, tb_dir=tb_dir,
-                       pretrained=pretrained)
-    print("Solving...")
+                       pretrained=pretrained, mesh=mesh)
+    if sw._lead:
+        print("Solving...")
     sw.train_model(max_iters)
-    print("done solving")
+    if sw._lead:
+        print("done solving")
     return sw
 
 

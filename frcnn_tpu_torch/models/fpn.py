@@ -356,11 +356,11 @@ class FasterRCNNFPN(nn.Module):
     def train_forward(self, images, im_info, gt_boxes, gt_labels, gt_valid, draws):
         """TRAIN forward, the C4 model's signature: images (B, H, W, 3) BGR,
         im_info (B, 3), gt_boxes (B, G, 4) padded, gt_labels (B, G), gt_valid
-        (B, G); ``draws`` is a ``torch.Generator`` on the model's device, or a
-        dict of the uniform draws ``uniform_draws`` makes (anchor_fg,
-        anchor_bg (B, K) over all K level anchors; roi_fg, roi_bg (B, P + G)
-        for the P proposals ``_propose`` returns).  Returns (losses dict of
-        batch-mean scalars, aux dict)."""
+        (B, G); ``draws`` is a ``torch.Generator`` on the model's device (or a
+        ``ShardedDraws`` over one), or a dict of the uniform draws
+        ``uniform_draws`` makes (anchor_fg, anchor_bg (B, K) over all K level
+        anchors; roi_fg, roi_bg (B, P + G) for the P proposals ``_propose``
+        returns).  Returns (losses dict of batch-mean scalars, aux dict)."""
         cfg = self.config
         a_n = self._A
         pyramid = self._pyramid(images)
@@ -369,7 +369,7 @@ class FasterRCNNFPN(nn.Module):
         rois, roi_scores, roi_valid = self._propose(
             pyramid, fg_prob.detach(), [c.detach() for c in box_cells], anchors, im_info,
             train=True)
-        if isinstance(draws, torch.Generator):
+        if not isinstance(draws, dict):
             draws = uniform_draws(draws, images.shape[0], anchors.shape[0],
                                   rois.shape[1] + gt_boxes.shape[1])
 

@@ -238,12 +238,12 @@ class FasterRCNN(nn.Module):
     def train_forward(self, images, im_info, gt_boxes, gt_labels, gt_valid, draws):
         """TRAIN forward: images (B, H, W, 3) BGR, im_info (B, 3), gt_boxes
         (B, G, 4) padded, gt_labels (B, G), gt_valid (B, G); ``draws`` is a
-        ``torch.Generator`` on the model's device, or a dict of the uniform
-        draws ``uniform_draws`` makes (anchor_fg, anchor_bg (B, K); roi_fg,
-        roi_bg (B, P + G) for P = min(RPN_POST_NMS_TOP_N, RPN_PRE_NMS_TOP_N,
-        K) proposals; for a tail with dropout (VGG-16) also dropout (2, B *
-        BATCH_SIZE, tail_dim)).  Returns (losses dict of batch-mean scalars,
-        aux dict)."""
+        ``torch.Generator`` on the model's device (or a ``ShardedDraws`` over
+        one), or a dict of the uniform draws ``uniform_draws`` makes
+        (anchor_fg, anchor_bg (B, K); roi_fg, roi_bg (B, P + G) for P =
+        min(RPN_POST_NMS_TOP_N, RPN_PRE_NMS_TOP_N, K) proposals; for a tail
+        with dropout (VGG-16) also dropout (2, B * BATCH_SIZE, tail_dim)).
+        Returns (losses dict of batch-mean scalars, aux dict)."""
         cfg = self.config
         t = cfg.TRAIN
         b = images.shape[0]
@@ -251,7 +251,7 @@ class FasterRCNN(nn.Module):
         feat = self.backbone.extract_features(x)
         anchors = self._anchors(feat.shape[2], feat.shape[3], feat.device)
         layers = self.backbone.tail_dropout
-        if isinstance(draws, torch.Generator):
+        if not isinstance(draws, dict):
             n_rois = min(t.RPN_POST_NMS_TOP_N, t.RPN_PRE_NMS_TOP_N, anchors.shape[0])
             drop = (layers, b * t.BATCH_SIZE, self.backbone.tail_dim) if layers else None
             draws = uniform_draws(draws, b, anchors.shape[0], n_rois + gt_boxes.shape[1], drop)

@@ -33,12 +33,44 @@ def _f32(value, device):
     return torch.tensor(value, dtype=torch.float32, device=device)
 
 
-def uniform_draws(generator: torch.Generator, b: int, k: int, n: int,
-                  dropout: tuple | None = None) -> dict:
+class ShardedDraws(NamedTuple):
+    """The draws of rank ``rank`` of ``world`` equal shards of a batch:
+    ``uniform_draws`` draws the whole batch's from ``generator`` and keeps
+    the rank's rows, so every rank's generator advances as the unsharded
+    run's does."""
+
+    generator: torch.Generator
+    rank: int
+    world: int
+
+
+def shard_draws(draws: dict, rank: int, world: int) -> dict:
+    """Rank ``rank``'s rows of a batch's draws: rows of the (B, ...)
+    priorities, and of the dropout uniforms (layers, B * rows an image,
+    width), which are image-major, the blocks of its images."""
+    b = draws["anchor_fg"].shape[0]
+    if b % world:
+        raise ValueError(f"batch size {b} is not a multiple of the mesh size {world}")
+    n = b // world
+    out = {k: v[rank * n:(rank + 1) * n] for k, v in draws.items() if k != "dropout"}
+    if "dropout" in draws:
+        per_image = draws["dropout"].shape[1] // b
+        out["dropout"] = draws["dropout"][:, rank * n * per_image:(rank + 1) * n * per_image]
+    return out
+
+
+def uniform_draws(generator, b: int, k: int, n: int, dropout: tuple | None = None) -> dict:
     """The uniform draws of a train step on the generator's device: anchor
     fg/bg priorities (B, K), RoI fg/bg priorities (B, N) and, for a tail
     with dropout, its uniforms of shape ``dropout`` (layers, rows, width),
-    drawn last."""
+    drawn last.  ``generator``: a ``torch.Generator``, or a
+    ``ShardedDraws`` for a rank's B images of a sharded batch."""
+    if isinstance(generator, ShardedDraws):
+        g, rank, world = generator
+        if dropout is not None:
+            dropout = (dropout[0], dropout[1] * world, dropout[2])
+        return shard_draws(uniform_draws(g, b * world, k, n, dropout), rank, world)
+
     def rand(*size):
         return torch.rand(size, generator=generator, device=generator.device)
 

@@ -140,10 +140,20 @@ def launch(name: str, *args) -> None:
 
 
 def check_cuda(name: str, t, dtype=None, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of the given dtype/shape
-    whose data pointer is 32-byte aligned (vector loads, wmma tiles)."""
+    """Raise unless ``t`` is a contiguous CUDA tensor on the current card, of
+    the given dtype/shape, whose data pointer is 32-byte aligned (vector
+    loads, wmma tiles).  ``launch`` runs on the current card's stream: a
+    tensor of another card would be read through pointers of another
+    context."""
+    import torch
+
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    current = torch.cuda.current_device()
+    if t.device.index != current:
+        raise ValueError(f"{name}: the tensor lies on {t.device} but the current card is "
+                         f"cuda:{current}: the kernel would launch there "
+                         "(torch.cuda.set_device, or torch.cuda.device(...))")
     if dtype is not None and t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain twins on a card (marker ``cuda``),
 gradients through the autograd Functions of K2, K3 and K6 (backward K6b),
 K6 (the multilevel RoIAlign) bit-equal to K2 on one level, K2b / K6b
-bit-deterministic, whatever their plan, and ``test_net`` on the card
-matched to a CPU copy.
+bit-deterministic, whatever their plan, ``test_net`` on the card
+matched to a CPU copy, a two-rank mesh step on one card against the
+unsharded step, and the launcher's refusal of a tensor of another card.
 
 Run on a machine with an NVIDIA H100 (which has no jax, so without the
 suite's conftest):  pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -529,6 +530,62 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):                 # 3 x 3 bins against output_size 7
         roi_align_multilevel_backward(torch.randn(1, 1, 3, 3, 16, device=dev), rois, levels,
                                       [(8, 8), (4, 4)], [4, 8])
+
+
+def _mesh_rank(mesh, jobs):
+    """A rank on the card: TF32 off and cuDNN deterministic, as the parent."""
+    from frcnn_tpu_torch.parallel.dryrun import run_jobs
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    return run_jobs(mesh, jobs)
+
+
+def test_two_rank_step_on_one_card_matches_the_unsharded_step(dev, monkeypatch):
+    """Two gloo ranks sharing the card (NCCL refuses two ranks on one GPU)
+    take ``dryrun_multichip``'s mobile train step on a global batch of 2 and
+    serve its detect batch: the replicas bit-equal, the step within rtol
+    2e-4 / atol 2e-5 of the unsharded step on the card, the detections
+    within 1e-4, the kernels launched in the ranks."""
+    from frcnn_tpu_torch.parallel.dryrun import _arm_inputs, run_jobs
+    from frcnn_tpu_torch.parallel.mesh import spawn
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    spec, blobs, data, im_info = _arm_inputs("mobile", [], 2)
+    jobs = [("train_step", {**spec, "blobs": blobs}),
+            ("detect", {**spec, "data": data, "im_info": im_info})]
+    ranks = spawn(_mesh_rank, 2, "gloo", jobs, device="cuda", timeout_s=300)
+    single = run_jobs(None, jobs, dev)
+    (step0, det0), (step1, det1) = ranks
+    assert step0["digest"] == step1["digest"] and step0["losses"] == step1["losses"]
+    for name, want in single[0]["losses"].items():
+        assert abs(step0["losses"][name] - want) <= 2e-4 * max(abs(want), 1.0), name
+    for name, want in single[0]["state"].items():
+        np.testing.assert_allclose(step0["state"][name], want, rtol=2e-4, atol=2e-5,
+                                   err_msg=name)
+    valid = np.concatenate([det0["valid"], det1["valid"]])
+    np.testing.assert_array_equal(valid, single[1]["valid"])
+    np.testing.assert_allclose(np.concatenate([det0["dets"], det1["dets"]]), single[1]["dets"],
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_kernels_refuse_a_tensor_of_another_card(dev, monkeypatch):
+    """The launcher runs on the current card's stream: a tensor of another
+    card raises before the launch.  With one card, the current device is
+    made to read 1."""
+    boxes = torch.rand(1, 64, 4, device=dev) * 100
+    boxes[..., 2:] += boxes[..., :2]
+    valid = torch.ones(1, 64, dtype=torch.bool, device=dev)
+    if torch.cuda.device_count() > 1:
+        boxes, valid = boxes.to("cuda:1"), valid.to("cuda:1")
+        torch.cuda.set_device(0)
+    else:
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    build.reset_launch_counts()
+    with pytest.raises(ValueError, match="the current card is cuda:"):
+        nms_mask_batched(boxes, 0.7, valid)
+    assert build.LAUNCH_COUNTS["nms"] == 0
 
 
 def test_test_net_on_the_card_matches_the_cpu(dev, tmp_path):

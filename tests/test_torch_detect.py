@@ -112,7 +112,7 @@ def test_detector_serves_same_results(both):
 
 def test_detector_dispatches_every_group_before_reading_back():
     """A request that mixes landscape and portrait images under the default
-    two buckets: ``Detector.__call__`` calls ``detect_blobs`` for both bucket
+    two buckets: ``Detector.__call__`` calls ``_detect`` for both bucket
     groups before its first device-to-host read, and serves what the
     per-group form (detect, read back, next group) serves."""
     cfg = cfg_from_list(default_config(), [
@@ -135,24 +135,24 @@ def test_detector_dispatches_every_group_before_reading_back():
             want[i] = dets[bi][valid[bi]]
 
     calls = []
-    plain_detect, plain_cpu = det.detect_blobs, torch.Tensor.cpu
+    plain_detect, plain_cpu = det._detect, torch.Tensor.cpu
 
-    def detect_blobs(data, im_info):
-        calls.append("detect_blobs")
+    def detect(data, im_info):
+        calls.append("detect")
         return plain_detect(data, im_info)
 
     def cpu(tensor, *args, **kwargs):
         calls.append("read")
         return plain_cpu(tensor, *args, **kwargs)
 
-    det.detect_blobs = detect_blobs
+    det._detect = detect
     torch.Tensor.cpu = cpu
     try:
         got = det(ims)
     finally:
         torch.Tensor.cpu = plain_cpu
-        del det.detect_blobs
-    assert calls[:2] == ["detect_blobs"] * 2 and calls.count("detect_blobs") == 2
+        del det._detect
+    assert calls[:2] == ["detect"] * 2 and calls.count("detect") == 2
     assert calls[2:] and set(calls[2:]) == {"read"}
     assert sum(len(g) for g in got) > 0
     for g, w in zip(got, want):

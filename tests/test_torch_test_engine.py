@@ -14,7 +14,8 @@ carried to the port by ``convert_fpn_from_jax``):
   * ``apply_nms`` keeps JAX's rows;
   * the CLIs in-process with ``--cpu``: ``trainval_net`` for 2 iterations,
     then ``test_net --model`` on its snapshot; detections.pkl and the AP
-    files are written.
+    files are written; ``trainval_net --data-parallel 2 --cpu`` on two gloo
+    ranks, and its refusals (more ranks than cards, a negative count).
 """
 
 import os.path as osp
@@ -213,6 +214,35 @@ def test_clis_train_then_test(devkit, tmp_path):
         assert osp.exists(osp.join(test_out, f"{cls}_pr.pkl"))
 
 
-def test_cli_refuses_data_parallel():
+def test_cli_refuses_data_parallel(capsys):
+    """More ranks than cards (here: none) over NCCL: refused, never run on
+    fewer devices or on the CPU."""
+    assert torch.cuda.device_count() < 4
     with pytest.raises(SystemExit):
         trainval_net_cli.parse_args(["--data-parallel", "4"])
+    assert "needs 4 CUDA cards" in capsys.readouterr().err
+
+
+def test_cli_refuses_a_negative_data_parallel(capsys):
+    with pytest.raises(SystemExit):
+        trainval_net_cli.parse_args(["--data-parallel", "-1", "--cpu"])
+    assert "must be >= 0" in capsys.readouterr().err
+
+
+def test_cli_data_parallel_on_the_cpu(voc_root, tmp_path):
+    """``--data-parallel 2 --cpu``: two gloo ranks on the CPU train 2
+    iterations over the synthetic VOC devkit; rank 0 writes the snapshot."""
+    args = ["--cpu", "--data-parallel", "2", "--net", "mobile", "--imdb", "voc_2007_trainval",
+            "--imdbval", "", "--iters", "2"]
+    assert trainval_net_cli.parse_args(args).data_parallel == 2
+    out = trainval_net_cli.main(args + [
+        "--set", "DATA_DIR", voc_root[0], "ROOT_DIR", str(tmp_path),
+        "MOBILENET.DEPTH_MULTIPLIER", "0.25", "TRAIN.SCALES", "(160,)", "TRAIN.MAX_SIZE", "256",
+        "TPU.BUCKETS", "((160, 256),)", "TRAIN.IMS_PER_BATCH", "2",
+        "TRAIN.RPN_PRE_NMS_TOP_N", "256", "TRAIN.RPN_POST_NMS_TOP_N", "32",
+        "TRAIN.BATCH_SIZE", "32", "TRAIN.RPN_BATCHSIZE", "64", "TRAIN.SNAPSHOT_ITERS", "2"])
+    assert out == [{"rank": r, "step": 2, "device": "cpu"} for r in range(2)]
+    run = osp.join(str(tmp_path), "output", "default", "voc_2007_trainval", "default")
+    assert osp.exists(osp.join(run, "default_iter_2.pth"))
+    with open(osp.join(run, "train_log.jsonl")) as f:
+        assert len(f.read().splitlines()) == 0      # DISPLAY 10: no line at step 2
