@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only kernels   # stop after the kernel phases (1-11)
+    python3 chip_smoke.py --only coco      # the kernel phases, 12 and the COCO
+                                           # phases 48-50 alone
     python3 chip_smoke.py --profile        # and stage breakdowns of the three train
                                            # steps and of FPN detect (38-41)
 
@@ -11,7 +13,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. build the hand-written kernels from frcnn_tpu_torch/csrc with nvcc;
   2. K1 (batched NMS) against its plain twin at the C4 proposal shape (8 x
      6000), the FPN proposal shape (8 x 4741, an invalid NEG_INF tail) and
-     the per-class shape (168 x 300, and 168 x 5000 under TEST.MODE top):
+     the per-class shape (168 x 300, 168 x 5000 under TEST.MODE top, and
+     COCO's 648 x 300 with softmax scores over 81 classes, most of each row
+     below SCORE_THRESH 0.05):
      nms_fixed_batched indices and valid masks equal; the capped keep masks
      (the form the main path runs) bit-equal to the twin's mask cut after its
      first ``cap`` kept boxes, also with the cap inside the first chunk of 64
@@ -35,8 +39,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      level empty (exactly zero), and with every roi on one level bit-equal to
      K2b on that level; each called twice with bit-equal results; both timed
      under a few tile and chunk plans beside the default;
-  7. K4 (anchor-overlap stats) bit-equal to its twin at the C4 and FPN
-     train shapes (21888 and 155520 anchors, 8 x 64 padded gt), with an
+  7. K4 (anchor-overlap stats) bit-equal to its twin at the C4, FPN and
+     COCO C4 train shapes (21888, 155520 and 29184 anchors, 8 x 64 padded
+     gt), with an
      image with no valid gt, one with every anchor outside and gts whose
      edge touches a chunk's box exactly; a device profile of one call lists
      one kernel and no memset; the bound counts the pairs with inter > 0;
@@ -44,8 +49,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and 256, on rows of ties, NaN and +-inf, and k = S, on rows whose ties
      at the cut fall in several segments of the kernel's cluster (8 and 1 x
      182400), at a row length that is no multiple of 4 and at S = 5, at the
-     FPN serving rows (8, 182400) and (8, 45600), k 1000, and at the FPN
-     train rows (8, 155520), k 128 and 256, and (8, 116736), k 2000;
+     FPN serving rows (8, 182400) and (8, 45600), k 1000, at the FPN
+     train rows (8, 155520), k 128 and 256, and (8, 116736), k 2000, at the
+     COCO C4 train rows (8, 29184), k 128 and 256, and at the C4 proposal
+     rows of the threshold route, (8, 45600) and (8, 34200) with NEG_INF
+     tails, k 1000, timed beside ``torch.topk``, ``torch.sort`` and the
+     stable sort the route replaces (its output the sort's first 1000);
   9. K6 (multilevel RoIAlign forward) against its twin, f32 and bf16, at
      the FPN serving shape (P2-P5 of 800x1216, 256 channels, 8 x 300
      rois), every level populated and with one level empty; and K6 with
@@ -210,13 +219,42 @@ Phases, each of which raises on failure (the script then exits non-zero):
      with the unsharded ``Detector``'s on the whole request, in bf16 at
      least ``MESH_BF16_MATCHED`` of the 58; launch counts per rank a batch
      K1 2, K2 1, K3 6; ``serve.throughput`` of a global batch of 8 beside
-     12's batch time.
+     12's batch time;
+ 48. (C) COCO serving: res101 C4, 81 classes, ANCHOR_SCALES (4, 8, 16, 32)
+     (12 anchors a cell, 45600 at 800x1216), seeded weights, bf16 trunk, the
+     bucket and 3 requests of 8 of 12 through ``Detector``: launch counts
+     per batch K1 2 (the per-class NMS over 648 problems), K2 1, K3 6, K5 0
+     (45600 < 24 x 6000 misses the gate), the steady-state batch time,
+     images/s and peak memory; then one image in f32 on the card and on a
+     CPU copy, matched one to one as in 13;
+ 49. (D) the C4 threshold route: 48's model and then 12's at
+     TEST.RPN_PRE_NMS_TOP_N 1000 (45600 and 34200 >= 24 x 1000 open K5's
+     gate), one batch of 8 with DEVICE.THRESHOLD_SELECT on and off: bf16
+     detections and valid masks bit-equal, K5 1 a batch on and 0 off, the
+     batch time of each;
+ 50. (E) COCO train -> test -> evaluate over a synthetic COCO written into a
+     temporary directory (``write_coco_dataset``: instances_train2014.json
+     and instances_minival2014.json with the 80 categories at their COCO
+     ids, crowds, a zero-area annotation, one image of 70 annotations;
+     empty placeholder images, pixels from a seeded reader; 16 training
+     images and their flips, 16 minival images): the roidb's class map and
+     crowds, the 70 gts cut to DEVICE.MAX_GT 64 in a minibatch;
+     ``train_net`` (res101, 81 classes, four scales, batch 8, 608x1024,
+     bf16) for 6 iterations, launches per step K4 1, K5 2 (29184 anchors),
+     K1 1, K2 1, K2b 1, K3 6, finite losses, frozen tensors bit-unchanged,
+     the median iteration beside the bare step and its peak memory; one f32
+     train step on the card and on a CPU copy as 17; ``test_net`` over
+     minival from the final snapshot (batch 8, 800x1216, SCORE_THRESH 0.0):
+     the results json at COCO's category ids, the 12 stats finite in [-1,
+     1], images/s beside 48's ``detect_blobs``; COCOEval's host seconds on
+     those detections and on a minival-sized set (5000 images, 80
+     categories, 100 dets an image), with the host's CPU model.
 Then one JSON line of per-kernel results, the card line, and, last, the
-JSON ok line.  Each kernel's line carries its launches on the fifteen paths
-of 12, 14, 16, 18, 23, 25, 27, 29, 31, 33, 36, 43 and 45-47 (rank 0's)
+JSON ok line.  Each kernel's line carries its launches on the paths of 12,
+14, 16, 18, 23, 25, 27, 29, 31, 33, 36, 43, 45-47 (rank 0's), 48 and 49
 (``launches``;
-``launches_by_path`` by path, with the driven runs of 20 (A), 21 and 42
-(C)), each counted from zero,
+``launches_by_path`` by path, with the driven runs of 20 (A), 21, 42 (C)
+and 50), each counted from zero,
 its error against the twin, its time, the twin's, the time of the one
 library call that computes the same function where there is one, and its
 bound: the least time the card could take for the timed launches, from the
@@ -447,6 +485,22 @@ def check_nms(dev):
     valid[::21] = False                                # the background class
     top_args, top_kw = fixed("per-class, TEST.MODE top (168, 5000, t=0.3, cap 100)", boxes,
                              scores, valid, 0.3, 100, False)
+    # the COCO per-class shape: 8 images x 81 classes of 300 rois, the class
+    # probabilities a softmax over 81 logits with one to three lifted per roi,
+    # valid above TEST.SCORE_THRESH 0.05: most of each row is invalid
+    coco_rng = np.random.RandomState(17)
+    b, n = 8 * COCO_CLASSES, 300
+    logits = coco_rng.normal(0, 1.5, (8, n, COCO_CLASSES))
+    lifted = coco_rng.randint(0, COCO_CLASSES, (8, n, 3))
+    np.put_along_axis(logits, lifted, coco_rng.uniform(2, 6, (8, n, 3)), axis=2)
+    prob = np.exp(logits - logits.max(2, keepdims=True))
+    prob /= prob.sum(2, keepdims=True)
+    scores = prob.transpose(0, 2, 1).reshape(b, n).astype(np.float32)
+    boxes = random_boxes(coco_rng, b, n, size=1216.0, clusters=40)
+    valid = scores > 0.05
+    coco_args, coco_kw = fixed(f"per-class COCO ({b}, {n}, t=0.3, cap 100; "
+                               f"{valid.mean():.3f} of the rows valid)", boxes, scores, valid,
+                               0.3, 100, False)
 
     # uncapped keep masks, bit-equal: duplicates and integer boxes whose IoU
     # lands exactly on the threshold
@@ -482,7 +536,8 @@ def check_nms(dev):
     for name, args, kw, sort, iters in (("proposals", prop_args, prop_kw, False, 3),
                                         ("per_class", cls_args, cls_kw, True, 5),
                                         ("FPN proposals", fpn_args, fpn_kw, False, 3),
-                                        ("per_class top", top_args, top_kw, True, 2)):
+                                        ("per_class top", top_args, top_kw, True, 2),
+                                        ("per_class COCO", coco_args, coco_kw, True, 3)):
         bx, thresh, vd, cap = mask_args(args, kw, sort)
         # the main path's cap, one inside the first chunk of 64 candidates, one
         # never reached, then the main path's again (the mask the bound counts)
@@ -993,9 +1048,11 @@ def check_overlap(dev):
     from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
 
     rng = np.random.RandomState(8)
-    parts = []
+    parts = {}
     for name, anchors in (("C4 train", generate_anchors_pre(*TRAIN_FEAT, 16)[0]),
-                          ("FPN train", fpn_train_anchors())):
+                          ("FPN train", fpn_train_anchors()),
+                          ("COCO C4 train", generate_anchors_pre(*TRAIN_FEAT, 16,
+                                                                 scales=(4, 8, 16, 32))[0])):
         args = overlap_inputs(rng, dev, anchors)
         got = anchor_overlap_stats(*args)
         want = anchor_overlap_stats_reference(*args)
@@ -1017,16 +1074,20 @@ def check_overlap(dev):
             f"1); kernel {k_ms:.4f} ms a call, on the device {device_ms:.4f} ms in one "
             f"kernel and no memset; plain twin {t_ms:.4f} ms; bound {bound.ms:.4f} ms "
             f"({pairs} pairs with inter > 0)")
-        parts.append({"ms": k_ms, "plain_ms": t_ms, **bound.result(),
-                      "max_abs_err": (got[0] - want[0]).abs().max().item(),
-                      "device_ms": device_ms})
-    out = merge_results(*parts)
-    out["device_ms"] = sum(p["device_ms"] for p in parts)
+        parts[name] = {"ms": k_ms, "plain_ms": t_ms, **bound.result(),
+                       "max_abs_err": (got[0] - want[0]).abs().max().item(),
+                       "device_ms": device_ms}
+    out = merge_results(*parts.values())
+    out["device_ms"] = sum(p["device_ms"] for p in parts.values())
+    out["by_shape"] = parts
     return out
 
 
 def check_select(dev):
-    from frcnn_tpu_torch.ops.cuda.select_kernel import topk_threshold, topk_threshold_reference
+    from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
+    from frcnn_tpu_torch.ops.cuda.select_kernel import (topk_descending, topk_threshold,
+                                                        topk_threshold_reference)
+    from frcnn_tpu_torch.ops.nms import NEG_INF
 
     rng = np.random.RandomState(9)
     b, n = TRAIN_B, TRAIN_FEAT[0] * TRAIN_FEAT[1] * 9
@@ -1119,11 +1180,55 @@ def check_select(dev):
     log(f"K5 FPN train rows (8, {n}) k 128 and 256, (8, 116736) k 2000: indices and value bits "
         f"equal to the twin; kernel {tk_ms:.4f} ms, plain twin (stable sort) {tt_ms:.4f} ms for "
         f"the three launches")
+    # the COCO C4 train rows: the anchor subsampling priorities over 38 x 64 x
+    # 12 = 29184 anchors (four scales), k 128 and 256
+    n = TRAIN_FEAT[0] * TRAIN_FEAT[1] * 12
+    ramp = np.arange(n, dtype=np.float32) * np.float32(2.0 ** -17)
+    u = rng.uniform(0, 1, (b, n)).astype(np.float32)
+    coco_rows = []
+    for frac, k in ((0.004, 128), (0.6, 256)):
+        mask = rng.uniform(0, 1, (b, n)) < frac
+        pri = np.where(mask, np.float32(1.0) + u, np.float32(-1.0) - ramp).astype(np.float32)
+        coco_rows.append((torch.from_numpy(pri).to(dev), k))
+    # the C4 proposal rows under the threshold route (TEST.RPN_PRE_NMS_TOP_N
+    # 1000): RPN probabilities over 50 x 76 x 12 = 45600 (COCO) and 50 x 76 x 9
+    # = 34200 (VOC) anchors at 800x1216, on a grid (runs of ties), NEG_INF on
+    # the anchors centred on the padding of the 600x912 images (every other row)
+    prop_rows = []
+    for scales in ((4, 8, 16, 32), (8, 16, 32)):
+        anchors = generate_anchors_pre(50, 76, 16, scales=scales)[0]
+        cx, cy = (anchors[:, 0] + anchors[:, 2]) / 2, (anchors[:, 1] + anchors[:, 3]) / 2
+        p = (np.round(rng.uniform(0, 1, (b, len(anchors))) * 4096) / 4096).astype(np.float32)
+        p[1::2, (cx >= 912) | (cy >= 600)] = NEG_INF
+        prop_rows.append((torch.from_numpy(p).to(dev), 1000))
+    for v, k in coco_rows + prop_rows:
+        same(f"C4 row {tuple(v.shape)}", v, k)
+    ck_ms = sum(cuda_ms(lambda v=v, k=k: topk_threshold(v, k)) for v, k in coco_rows)
+    ct_ms = sum(cuda_ms(lambda v=v, k=k: topk_threshold_reference(v, k)) for v, k in coco_rows)
+    pk_ms = sum(cuda_ms(lambda v=v, k=k: topk_threshold(v, k)) for v, k in prop_rows)
+    pt_ms = sum(cuda_ms(lambda v=v, k=k: topk_threshold_reference(v, k)) for v, k in prop_rows)
+    for v, k in prop_rows:                 # the proposal layer's route: K5, the k re-ranked
+        sc, idx = topk_descending(v, k, use_threshold=True)
+        want_sc, want_idx = torch.sort(v, dim=1, descending=True, stable=True)
+        if not (torch.equal(idx, want_idx[:, :k]) and torch.equal(sc, want_sc[:, :k])):
+            raise AssertionError(f"K5 route {tuple(v.shape)} k {k}: not the stable sort's first k")
+    route_ms = sum(cuda_ms(lambda v=v, k=k: topk_descending(v, k, use_threshold=True))
+                   for v, k in prop_rows)
+    stable_ms = sum(cuda_ms(lambda v=v: torch.sort(v, dim=1, descending=True, stable=True))
+                    for v, _ in prop_rows)
+    log(f"K5 COCO train rows (8, {n}) k 128 and 256, C4 proposal rows (8, 45600) and (8, 34200) "
+        f"k 1000 with a NEG_INF tail: indices and value bits equal to the twin; kernel "
+        f"{ck_ms:.4f} and {pk_ms:.4f} ms, plain twin (stable sort) {ct_ms:.4f} and {pt_ms:.4f} "
+        f"ms for the two launches each; the proposal route (kernel + stable re-rank of the "
+        f"1000) {route_ms:.4f} ms, the first 1000 of its full stable sort bit for bit, against "
+        f"that sort's {stable_ms:.4f} ms")
     # every timed launch once more: its bound (the row read once, k values
     # and indices written) and the library's calls for the same top-k
     groups = (("C4 train rows", [(prios["fg"], 128), (prios["bg"], 256)], k_ms),
               ("FPN serving rows", [(v, 1000) for v in fpn.values()], fk_ms),
-              ("FPN train rows", rows, tk_ms))
+              ("FPN train rows", rows, tk_ms),
+              ("COCO C4 train rows", coco_rows, ck_ms),
+              ("C4 proposal rows", prop_rows, pk_ms))
     bound = Bound()
     topk_ms = sort_ms = 0.0
     by_group = {}
@@ -1137,10 +1242,11 @@ def check_select(dev):
         sort_ms += g_sort
         by_group[name] = {"ms": kernel_ms, "library_ms": g_topk, "library_sort_ms": g_sort,
                           "bound_ms": g_bound}
-    total = k_ms + fk_ms + tk_ms
-    log(f"K5 over its 7 timed launches: kernel {total:.4f} ms, torch.topk {topk_ms:.4f} ms, "
+    by_group["C4 proposal rows"].update(route_ms=route_ms, stable_sort_ms=stable_ms)
+    total = k_ms + fk_ms + tk_ms + ck_ms + pk_ms
+    log(f"K5 over its 11 timed launches: kernel {total:.4f} ms, torch.topk {topk_ms:.4f} ms, "
         f"torch.sort {sort_ms:.4f} ms, bound {bound.ms:.4f} ms")
-    return {"ms": total, "plain_ms": t_ms + ft_ms + tt_ms, "library_ms": topk_ms,
+    return {"ms": total, "plain_ms": t_ms + ft_ms + tt_ms + ct_ms + pt_ms, "library_ms": topk_ms,
             "library_sort_ms": sort_ms, "max_abs_err": 0.0, **bound.result(),
             "by_group": by_group}
 
@@ -1270,6 +1376,12 @@ def synthetic_images(rng, shapes):
     return ims
 
 
+# the COCO recipe (experiments/scripts/train_faster_rcnn.sh coco): 80 classes and
+# the background, four anchor scales (12 anchors a cell)
+COCO_CLASSES = 81
+COCO_CONFIG = ("ANCHOR_SCALES", "(4, 8, 16, 32)")
+
+
 def smoke_config(extra=()):
     from frcnn_tpu_torch import cfg_from_list, default_config
 
@@ -1278,14 +1390,14 @@ def smoke_config(extra=()):
         "DEVICE.BUCKETS", "((800, 1216),)", "TEST.SCORE_THRESH", "0.0", *extra])
 
 
-def build_seeded(cfg, dtype, seed=0, net="res50"):
+def build_seeded(cfg, dtype, seed=0, net="res50", classes=21):
     """``net`` with seeded weights: a GroupNorm net the JAX package's
     from-scratch init (``init_reference_``), a frozen-BN net
     ``init_random_``'s (activations O(1) at full size)."""
     from frcnn_tpu_torch.models.fpn import init_reference_
     from frcnn_tpu_torch.models.network import build_model, init_random_
 
-    model = build_model(net, 21, cfg, dtype=dtype)
+    model = build_model(net, classes, cfg, dtype=dtype)
     init = init_reference_ if net.endswith("_gn") else init_random_
     init(model, torch.Generator().manual_seed(seed))
     return model.eval()
@@ -1300,16 +1412,17 @@ C4_PLAIN_SERVE_LAUNCHES = {"nms": 2, "roi_align": 1}
 TOP_SERVE_LAUNCHES = {"nms": 1, "roi_align": 1}
 
 
-def main_path(dev, card, net="res50", per_batch=SERVE_LAUNCHES, extra=()):
+def main_path(dev, card, net="res50", per_batch=SERVE_LAUNCHES, extra=(), classes=21):
     """A C4 net's serving path at full width: 3 requests of 8 through
     ``Detector`` with the launch counts per batch, then the steady-state batch
     time and peak device memory."""
     from frcnn_tpu_torch.engine.serve import Detector, iter_bucket_batches
     from frcnn_tpu_torch.ops.cuda import build
 
-    label = "main path" if net == "res50" and not extra else f"{net} serving path {list(extra)}"
+    label = ("main path" if net == "res50" and not extra else
+             f"{net} ({classes} classes) serving path {list(extra)}")
     cfg = smoke_config(extra)
-    model = build_seeded(cfg, torch.bfloat16, net=net)
+    model = build_seeded(cfg, torch.bfloat16, net=net, classes=classes)
     detector = Detector(model, uint8_input=True)          # no device given: the card
     if detector.device != dev or next(model.parameters()).device != dev:
         raise AssertionError(f"Detector did not move the model to {dev}: {detector.device}")
@@ -1408,7 +1521,7 @@ def match_im_detect(want, got, label, score_atol=1e-3, box_atol=5e-2):
 E2E_LAUNCHES = {"nms": 2, "roi_align": 1}
 
 
-def end_to_end(dev, net="res50", extra=(), launches=E2E_LAUNCHES):
+def end_to_end(dev, net="res50", extra=(), launches=E2E_LAUNCHES, classes=21):
     """One image through a C4 net's f32 ``detect`` on the card and on a CPU
     copy of the same model (320x480), detections matched one to one;
     ``launches`` the kernels the card's detect must run."""
@@ -1417,8 +1530,8 @@ def end_to_end(dev, net="res50", extra=(), launches=E2E_LAUNCHES):
 
     cfg = smoke_config(["TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480",
                         "DEVICE.BUCKETS", "((320, 480),)", "TEST.SCORE_THRESH", "0.05", *extra])
-    cpu_model = build_seeded(cfg, torch.float32, seed=1, net=net)
-    card_model = build_seeded(cfg, torch.float32, seed=1, net=net)
+    cpu_model = build_seeded(cfg, torch.float32, seed=1, net=net, classes=classes)
+    card_model = build_seeded(cfg, torch.float32, seed=1, net=net, classes=classes)
     im = synthetic_images(np.random.RandomState(5), [(320, 480)])
     before = dict(build.LAUNCH_COUNTS)
     got = Detector(card_model)(im)[0]
@@ -1641,9 +1754,10 @@ GN_TRAIN_CONFIG = GN_CONFIG + ("TRAIN.GRAD_CLIP", "10.0", "TRAIN.WARMUP_ITERS", 
 PEAK_WITH_F32_ACCUMULATOR_GIB = {"res50": 2.279, "res50_fpn": 3.427}
 
 
-def synthetic_roidb(rng, shapes, max_boxes=20):
+def synthetic_roidb(rng, shapes, max_boxes=20, classes=21):
     """In-memory roidb over synthetic images: each entry has 3-max_boxes gt
-    boxes, painted as flat rectangles.  Returns (roidb, reader)."""
+    boxes of classes 1..classes-1, painted as flat rectangles.  Returns
+    (roidb, reader)."""
     images = synthetic_images(rng, shapes)
     roidb = []
     for i, (im, (h, w)) in enumerate(zip(images, shapes)):
@@ -1654,7 +1768,7 @@ def synthetic_roidb(rng, shapes, max_boxes=20):
         for x1, y1, x2, y2 in boxes.astype(int):
             im[y1:y2, x1:x2] = rng.randint(0, 255, 3)
         roidb.append({"image": f"synthetic/{i}", "boxes": boxes, "flipped": False,
-                      "gt_classes": rng.randint(1, 21, n).astype(np.int32),
+                      "gt_classes": rng.randint(1, classes, n).astype(np.int32),
                       "height": h, "width": w, "max_overlaps": np.ones(n, np.float32)})
     table = {e["image"]: im for e, im in zip(roidb, images)}
     return roidb, table.__getitem__
@@ -1779,10 +1893,16 @@ CARD_VS_CPU = {
                       "roi_align_ml_bwd": 1},
                      ("rpn_net.weight", "rpn_cls_w", "cls_score.weight", "box_head.fc1.weight",
                       "neck.output2.weight", "neck.lateral5.weight")),
+    # the COCO recipe's model (phase 50, at classes=COCO_CLASSES): res101, four anchor scales
+    "res101": (["TRAIN.RPN_PRE_NMS_TOP_N", "400", "TRAIN.RPN_POST_NMS_TOP_N", "64",
+                *COCO_CONFIG], (320 // 16) * (480 // 16) * 12, 64,
+               {"nms": 1, "roi_align": 1, "roi_align_bwd": 1, "overlap": 1},
+               ("rpn_net.weight", "cls_score.weight", "bbox_pred.weight",
+                "layer3.22.conv2.weight", "layer2.1.conv2.weight")),
 }
 
 
-def train_card_vs_cpu(dev, net="res50", pooling="align"):
+def train_card_vs_cpu(dev, net="res50", pooling="align", classes=21):
     """One f32 train step on the card (kernels) and on a CPU copy (twins)
     from the same weights, minibatch and draws (VGG-16's dropout uniforms
     too).  The proposal and RoI counts are cut (C4: pre-NMS 400; FPN: 200 a
@@ -1802,7 +1922,7 @@ def train_card_vs_cpu(dev, net="res50", pooling="align"):
                         "TRAIN.SCALES", "(320,)", "TRAIN.MAX_SIZE", "480", "POOLING_MODE",
                         pooling, *cuts])
     rng = np.random.RandomState(5)
-    roidb, reader = synthetic_roidb(rng, [(320, 480), (320, 480)])
+    roidb, reader = synthetic_roidb(rng, [(320, 480), (320, 480)], classes=classes)
     blobs = get_minibatch(roidb, cfg, np.random.RandomState(0), reader=reader)
     n = post + cfg.DEVICE.MAX_GT
     draws = {name: torch.from_numpy(rng.uniform(0, 1, (2, size)).astype(np.float32))
@@ -1813,7 +1933,7 @@ def train_card_vs_cpu(dev, net="res50", pooling="align"):
             rng.uniform(0, 1, (2, 2 * cfg.TRAIN.BATCH_SIZE, 4096)).astype(np.float32))
     results = []
     for device in (None, "cpu"):                         # None: the card
-        model = build_seeded(cfg, torch.float32, seed=2, net=net)
+        model = build_seeded(cfg, torch.float32, seed=2, net=net, classes=classes)
         solver = SolverWrapper(model, roidb, cfg, reader=reader, device=device)
         before = {name: p.detach().clone() for name, p in model.named_parameters()}
         start = dict(build.LAUNCH_COUNTS)
@@ -3067,10 +3187,353 @@ def mesh_phases(card, serve_detector, serve_ms, train_ms):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The COCO recipe: res101 C4 at 81 classes and four anchor scales, the C4
+# threshold route, train_net -> test_net -> COCOEval
+# ---------------------------------------------------------------------------
+
+# the 80 COCO categories at their ids (1-90, ten ids unused)
+COCO_CATEGORIES = tuple(zip(
+    (i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)),
+    ("person", "bicycle", "car", "motorcycle", "airplane", "bus", "train", "truck", "boat",
+     "traffic light", "fire hydrant", "stop sign", "parking meter", "bench", "bird", "cat",
+     "dog", "horse", "sheep", "cow", "elephant", "bear", "zebra", "giraffe", "backpack",
+     "umbrella", "handbag", "tie", "suitcase", "frisbee", "skis", "snowboard", "sports ball",
+     "kite", "baseball bat", "baseball glove", "skateboard", "surfboard", "tennis racket",
+     "bottle", "wine glass", "cup", "fork", "knife", "spoon", "bowl", "banana", "apple",
+     "sandwich", "orange", "broccoli", "carrot", "hot dog", "pizza", "donut", "cake", "chair",
+     "couch", "potted plant", "bed", "dining table", "toilet", "tv", "laptop", "mouse",
+     "remote", "keyboard", "cell phone", "microwave", "oven", "toaster", "sink",
+     "refrigerator", "book", "clock", "vase", "scissors", "teddy bear", "hair drier",
+     "toothbrush")))
+
+
+def write_coco_dataset(root, splits, rng, many=None):
+    """A COCO-format dataset under DATA_DIR ``root`` for a machine without an
+    image codec: coco/annotations/instances_<split>.json for each split of
+    ``splits`` ({split: [(h, w), ...]}: "train2014", "minival2014",
+    "valminusminival2014"), the 80 categories at their COCO ids, an empty
+    placeholder for each image path (images/train2014/..., and
+    images/val2014/... for the val splits, as ``data.coco`` reads them), and
+    a reader (image path → BGR uint8 array) that serves the pixels:
+    ``synthetic_images`` with each annotated box painted flat.  An image has
+    3-12 annotations of one to four categories, float xywh boxes, about one
+    in six a crowd (iscrowd 1); each split's image 1 also has a zero-area
+    annotation, which the roidb drops.  ``many`` = (split, n): that split's
+    image 0 has n annotations."""
+    pixels = {}
+    image_id, ann_id = 1, 1
+    ann_dir = os.path.join(root, "coco", "annotations")
+    os.makedirs(ann_dir, exist_ok=True)
+    categories = [{"id": i, "name": name, "supercategory": ""} for i, name in COCO_CATEGORIES]
+    for split, shapes in splits.items():
+        folder = "val2014" if split.startswith(("minival", "valminusminival")) else split
+        img_dir = os.path.join(root, "coco", "images", folder)
+        os.makedirs(img_dir, exist_ok=True)
+        images, anns = [], []
+        for i, (im, (h, w)) in enumerate(zip(synthetic_images(rng, shapes), shapes)):
+            n = many[1] if many and many[0] == split and i == 0 else rng.randint(3, 13)
+            cats = [COCO_CATEGORIES[j][0] for j in rng.choice(80, rng.randint(1, 5), replace=False)]
+            for _ in range(n):
+                bw, bh = rng.uniform(w / 12, w / 2), rng.uniform(h / 12, h / 2)
+                x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+                im[int(y):int(y + bh), int(x):int(x + bw)] = rng.randint(0, 255, 3)
+                anns.append({"id": ann_id, "image_id": image_id,
+                             "category_id": int(cats[rng.randint(len(cats))]),
+                             "bbox": [round(x, 2), round(y, 2), round(bw, 2), round(bh, 2)],
+                             "area": round(bw * bh * rng.uniform(0.5, 0.9), 2),
+                             "iscrowd": int(rng.uniform() < 1 / 6)})
+                ann_id += 1
+            if i == 1:
+                anns.append({"id": ann_id, "image_id": image_id, "category_id": int(cats[0]),
+                             "bbox": [10.0, 10.0, 0.0, 20.0], "area": 0.0, "iscrowd": 0})
+                ann_id += 1
+            name = f"COCO_{folder}_{image_id:012d}.jpg"
+            path = os.path.join(img_dir, name)
+            open(path, "wb").close()
+            pixels[path] = im
+            images.append({"id": image_id, "file_name": name, "width": w, "height": h})
+            image_id += 1
+        with open(os.path.join(ann_dir, f"instances_{split}.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns, "categories": categories}, f)
+    return pixels.__getitem__
+
+
+# the C4 threshold route's config: a pre-NMS list short enough for the K5 gate
+# (K >= 24 x 1000) at 800x1216, 45600 anchors (COCO) and 34200 (VOC)
+ROUTE_CONFIG = ("TEST.RPN_PRE_NMS_TOP_N", "1000")
+
+
+def threshold_route_path(dev, card, detector, label, extra=()):
+    """The C4 threshold route: ``detector``'s model (bf16, 800x1216) at
+    TEST.RPN_PRE_NMS_TOP_N 1000 with DEVICE.THRESHOLD_SELECT on and off, one
+    batch of 8 (half the images 600x912, so that the anchors centred on
+    their padding give each row a NEG_INF tail): K5 once a batch with the
+    route on and never with it off, the detections and valid masks
+    bit-equal, the batch time of each.  Returns {True: launches on, False:
+    launches off}."""
+    from frcnn_tpu_torch.engine.serve import Detector, iter_bucket_batches
+    from frcnn_tpu_torch.ops.cuda import build
+
+    model, saved = detector.model, detector.model.config
+    bh, bw = saved.DEVICE.BUCKETS[0]
+    images = synthetic_images(np.random.RandomState(18), [(bh, bw), (bh * 3 // 4, bw * 3 // 4)] * 4)
+    (_, blob, info), = iter_bucket_batches(images, saved, keep_uint8=True)
+    data, im_info = torch.from_numpy(blob).to(dev), torch.from_numpy(info).to(dev)
+    counts, outs, times = {}, {}, {}
+    try:
+        for route in (True, False):
+            model.config = smoke_config([*extra, *ROUTE_CONFIG, "DEVICE.THRESHOLD_SELECT",
+                                         str(route)])
+            det = Detector(model, uint8_input=True)
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            dets, valid = det.detect_blobs(data, im_info)
+            torch.cuda.synchronize()
+            counts[route] = dict(build.LAUNCH_COUNTS)
+            outs[route] = (dets.clone(), valid.clone())
+            times[route] = cuda_ms(lambda: det.detect_blobs(data, im_info), iters=10, warmup=2)
+    finally:
+        model.config = saved
+    want = {True: {**SERVE_LAUNCHES, "select": 1}, False: SERVE_LAUNCHES}
+    if counts != want:
+        raise AssertionError(f"{label} threshold route: launches on {counts[True]} off "
+                             f"{counts[False]}, want {want}")
+    (d_on, v_on), (d_off, v_off) = outs[True], outs[False]
+    if not (torch.equal(d_on, d_off) and torch.equal(v_on, v_off)):
+        raise AssertionError(f"{label} threshold route: detections differ with the route on "
+                             f"({(d_on != d_off).any(-1).sum().item()} rows)")
+    log(f"{label} threshold route (TEST.RPN_PRE_NMS_TOP_N 1000, bf16, batch 8, {bh}x{bw}): "
+        f"detections ({int(v_on.sum())} valid) and valid masks bit-equal with "
+        f"DEVICE.THRESHOLD_SELECT on and off; K5 1 a batch on, 0 off; {times[True]:.3f} ms a "
+        f"batch on, {times[False]:.3f} off (median of 10, CUDA events) on {card}")
+    return counts
+
+
+def coco_shapes(rng):
+    """The synthetic COCO's splits, each image's short side at its split's
+    scale (nothing resized): train2014 16 images at the train path's 600
+    (32 entries with the flips), minival2014 16 at the serving bucket's 800."""
+    return {"train2014": [(600, int(w)) for w in rng.randint(800, 1001, 16)],
+            "minival2014": [(800, int(w)) for w in rng.randint(1000, 1217, 16)]}
+
+
+def host_cpu() -> str:
+    """The host's CPU for host times (COCOEval's): lscpu's vendor, model name
+    and architecture (a virtual CPU may name its model "unknown"), and the
+    core count."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    fields = dict(line.split(":", 1) for line in out.splitlines() if ":" in line)
+    named = [fields.get(k, "").strip() for k in ("Vendor ID", "Model name", "Architecture")]
+    return f"{' '.join(v for v in named if v and v != 'unknown') or 'an unnamed CPU'}, " \
+           f"{os.cpu_count()} cores"
+
+
+def coco_eval_load(rng, n_images=5000, per_image=100):
+    """A minival-sized COCOEval input: ``n_images`` images, a count of gts an
+    image drawn geometric with the COCO paper's mean of 7.7 instances (at
+    most 90) over one to six of the 80 categories, float xywh boxes 8-400
+    px, 1% crowds; ``per_image`` dets an image, 60 of them near gts of the
+    image (jittered by 10%) and the rest anywhere in any category, scores
+    uniform.  Returns (gts, dets, categories)."""
+    ids = [i for i, _ in COCO_CATEGORIES]
+    gts, dets = [], []
+    ann_id = 1
+    for img in range(n_images):
+        cats = rng.choice(ids, rng.randint(1, 7), replace=False)
+        n = min(int(rng.geometric(1 / 7.7)), 90)
+        wh = np.exp(rng.uniform(np.log(8), np.log(400), (n, 2)))
+        xy = rng.uniform(0, 1, (n, 2)) * (np.array([640.0, 480.0]) - wh).clip(1)
+        labels = cats[rng.randint(0, len(cats), n)]
+        for k in range(n):
+            gts.append({"id": ann_id, "image_id": img, "category_id": int(labels[k]),
+                        "bbox": [*map(float, xy[k]), *map(float, wh[k])],
+                        "area": float(wh[k, 0] * wh[k, 1] * 0.8),
+                        "iscrowd": int(rng.uniform() < 0.01)})
+            ann_id += 1
+        near = min(60, per_image) if n else 0
+        pick = rng.randint(0, max(n, 1), near)
+        jit = rng.normal(0, 0.1, (near, 4)) * np.tile(wh[pick], 2) if n else np.zeros((0, 4))
+        boxes = np.concatenate([np.concatenate([xy[pick], wh[pick]], 1) + jit,
+                                np.concatenate([rng.uniform(0, 600, (per_image - near, 2)),
+                                                np.exp(rng.uniform(np.log(8), np.log(400),
+                                                                   (per_image - near, 2)))], 1)])
+        boxes[:, 2:] = boxes[:, 2:].clip(1)
+        cat = np.concatenate([labels[pick], rng.choice(ids, per_image - near)])
+        for box, c, score in zip(boxes.tolist(), cat.tolist(), rng.uniform(0, 1, per_image)):
+            dets.append({"image_id": img, "category_id": int(c), "bbox": box,
+                         "score": float(score)})
+    return gts, dets, [{"id": i, "name": name} for i, name in COCO_CATEGORIES]
+
+
+def coco_train_test_path(dev, card, serve_ms):
+    """The COCO recipe at full width over a synthetic COCO written into a
+    temporary directory: the roidb (80 categories, crowds, the zero-area
+    annotation dropped, one image of 70 annotations cut to DEVICE.MAX_GT in
+    its minibatch); ``train_net`` (res101, 81 classes, four anchor scales,
+    batch 8, 608x1024, bf16) for 6 iterations with the launches of phase 16
+    a step, finite losses, frozen tensors bit-unchanged, the median iteration
+    beside the bare step and the peak memory; one f32 train step card vs
+    CPU; ``test_net`` over minival2014 from the final snapshot (batch 8,
+    800x1216, SCORE_THRESH 0.0): the results json and the 12 stats finite in
+    [-1, 1], images/s beside ``serve_ms``'s; COCOEval's host seconds on those
+    detections and on a minival-sized set (``coco_eval_load``).  Returns the
+    launch counts of ``train_net`` and ``test_net``."""
+    import pickle
+
+    from frcnn_tpu_torch.data.coco_eval import COCOEval
+    from frcnn_tpu_torch.data.factory import get_imdb
+    from frcnn_tpu_torch.data.loader import get_minibatch
+    from frcnn_tpu_torch.engine.checkpoint import load_params
+    from frcnn_tpu_torch.engine.test import test_net
+    from frcnn_tpu_torch.engine.train import combined_roidb, train_net
+    from frcnn_tpu_torch.models.network import build_model
+    from frcnn_tpu_torch.ops.cuda import build
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_coco_")
+    try:
+        rng = np.random.RandomState(19)
+        reader = write_coco_dataset(workdir, coco_shapes(rng), rng, many=("train2014", 70))
+        cfg = train_config(["DATA_DIR", workdir, "TRAIN.SNAPSHOT_ITERS", "100", *COCO_CONFIG])
+        imdb, roidb = combined_roidb("coco_2014_train", cfg, reader=reader)
+        ids = [i for i, _ in COCO_CATEGORIES]
+        maps = [imdb._class_to_coco_cat_id[imdb.classes[c]] for c in range(1, 81)]
+        crowds = sum(int((e["gt_overlaps"] == -1).all(1).sum()) for e in roidb)
+        many = max(len(e["boxes"]) for e in roidb)
+        if (imdb.num_classes != COCO_CLASSES or maps != ids or len(roidb) != 32 or not crowds
+                or many != 70):
+            raise AssertionError(f"COCO roidb: {imdb.num_classes} classes, {len(roidb)} entries, "
+                                 f"{crowds} crowds, at most {many} gts an entry")
+        cut = get_minibatch([e for e in roidb if len(e["boxes"]) == 70][:1], cfg,
+                            np.random.RandomState(0), reader=reader)
+        if int(cut["gt_valid"].sum()) != cfg.DEVICE.MAX_GT:
+            raise AssertionError(f"COCO minibatch: {int(cut['gt_valid'].sum())} valid gts of 70, "
+                                 f"not DEVICE.MAX_GT {cfg.DEVICE.MAX_GT}")
+        log(f"COCO roidb (coco_2014_train, synthetic): {imdb.num_classes} classes over the "
+            f"category ids {ids[0]}-{ids[-1]} ({len(ids)} of them), {len(roidb)} entries with the "
+            f"flips, {crowds} crowd gts (gt_overlaps -1, kept as gts), an image of {many} gts cut "
+            f"to DEVICE.MAX_GT {cfg.DEVICE.MAX_GT} in its minibatch")
+
+        model = build_seeded(cfg, torch.bfloat16, net="res101", classes=COCO_CLASSES)
+        frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if not p.requires_grad}
+        out = os.path.join(workdir, "train")
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        solver = train_net(model, imdb, roidb, None, out, cfg=cfg, max_iters=6,
+                           reader=reader)                           # no device given: the card
+        torch.cuda.synchronize()
+        train_counts = dict(build.LAUNCH_COUNTS)
+        want = {name: 6 * n for name, n in TRAIN_LAUNCHES.items()}
+        if train_counts != want or solver.device != dev:
+            raise AssertionError(f"COCO train_net on {solver.device}: launch counts "
+                                 f"{train_counts} != {want} ({TRAIN_LAUNCHES} per step)")
+        params = dict(model.named_parameters())
+        moved = [n for n, p in frozen.items() if not torch.equal(params[n].cpu(), p)]
+        records = read_train_log(out)
+        if moved or [r["iter"] for r in records] != list(range(1, 7)) or not all(
+                np.isfinite(v) for r in records for k, v in r.items() if k not in ("iter", "ts")):
+            raise AssertionError(f"COCO train_net: frozen tensors moved {moved}; log {records}")
+        iter_ms = statistics.median(1000.0 * (records[k]["ts"] - records[k - 1]["ts"])
+                                    for k in range(2, 6))
+        blobs = {k: torch.as_tensor(v).to(dev) for k, v in solver.data_layer.forward().items()}
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(lambda: solver.train_step(blobs), iters=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"COCO train_net (res101 C4, 81 classes, ANCHOR_SCALES (4, 8, 16, 32), batch "
+            f"{TRAIN_B}, {TRAIN_H}x{TRAIN_W}, bf16 trunk): 6 iterations, launches per step "
+            f"{ {k: v // 6 for k, v in train_counts.items()} }, losses finite "
+            f"({records[0]['total_loss']:.4f} -> {records[-1]['total_loss']:.4f}), {len(frozen)} "
+            f"frozen tensors bit-unchanged; iteration {iter_ms:.3f} ms (median of iterations 3-6) "
+            f"against a bare train_step of {step_ms:.3f} ms (median of 10, CUDA events), peak "
+            f"device memory {peak:.3f} GiB on {card}")
+        del solver, model, blobs
+        train_card_vs_cpu(dev, "res101", classes=COCO_CLASSES)
+
+        test_cfg = smoke_config(["DATA_DIR", workdir, *COCO_CONFIG])
+        val = get_imdb("coco_2014_minival", data_dir=workdir)
+        model = build_model("res101", COCO_CLASSES, test_cfg, dtype=torch.bfloat16)
+        model.load_state_dict(load_params(os.path.join(out, "default_iter_6.pth")))
+        test_out = os.path.join(workdir, "test")
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = test_net(model.eval(), val, test_cfg, test_out, max_per_image=100, batch=8,
+                         reader=reader)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        test_counts = dict(build.LAUNCH_COUNTS)
+        want = {name: 2 * n for name, n in SERVE_LAUNCHES.items()}
+        if test_counts != want:
+            raise AssertionError(f"COCO test_net: launch counts {test_counts} != {want}")
+        with open(os.path.join(test_out, f"detections_{val.name}_results.json")) as f:
+            results = json.load(f)
+        bad = {r["category_id"] for r in results} - set(ids)
+        if not results or bad or len(stats) != 12 or not all(
+                np.isfinite(v) and -1.0 <= v <= 1.0 for v in stats.values()):
+            raise AssertionError(f"COCO test_net: {len(results)} results (unknown category ids "
+                                 f"{bad}), stats {stats}")
+        with open(os.path.join(test_out, "detections.pkl"), "rb") as f:
+            all_boxes = pickle.load(f)
+        t1 = time.perf_counter()
+        again = val.evaluate_detections(all_boxes)
+        eval_s = time.perf_counter() - t1
+        if again != stats:
+            raise AssertionError(f"COCO evaluate_detections again: {again} != {stats}")
+        log(f"COCO test_net (res101 from the train_net snapshot, minival2014: 16 images at "
+            f"800x1216, batch 8, bf16, SCORE_THRESH 0.0): {len(results)} results in the json at "
+            f"their COCO category ids, the 12 stats finite in [-1, 1] (AP {stats['AP']:.4f}, "
+            f"AR100 {stats['AR100']:.4f}); launches per batch "
+            f"{ {k: v // 2 for k, v in test_counts.items()} }; {16 / seconds:.2f} images/s end "
+            f"to end ({seconds:.3f} s: reader, prep thread, detect, readback, COCOEval) against "
+            f"detect_blobs' {8000.0 / serve_ms:.2f} on a device-resident batch; on {card}")
+
+        t2 = time.perf_counter()
+        gts, dets, categories = coco_eval_load(np.random.RandomState(20))
+        made_s = time.perf_counter() - t2
+        t3 = time.perf_counter()
+        ev = COCOEval(gts, dets, categories)
+        ev.evaluate()
+        ev.accumulate()
+        big = ev.summarize(verbose=False)
+        big_s = time.perf_counter() - t3
+        if not all(np.isfinite(v) and -1.0 <= v <= 1.0 for v in big.values()):
+            raise AssertionError(f"COCOEval on the minival-sized set: stats {big}")
+        log(f"COCOEval host time: {eval_s:.3f} s over test_net's {len(results)} detections of "
+            f"16 images; {big_s:.3f} s over a minival-sized set (5000 images, 80 categories, "
+            f"{len(gts)} gts, {len(dets)} dets; made in {made_s:.3f} s; AP {big['AP']:.4f}) on "
+            f"{host_cpu()}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return train_counts, test_counts
+
+
+def coco_phases(dev, card, serve_detector):
+    """Phases 48-50: res101 at 81 classes and four anchor scales served, the
+    C4 threshold route on it and on phase 12's res50 (``serve_detector``),
+    then train_net -> test_net -> COCOEval.  Returns the launch counts by
+    path (48, 49 on and off for each model, and 50's driven runs)."""
+    paths = {}
+    paths["coco_serve"], coco_ms, coco_detector = main_path(dev, card, "res101", SERVE_LAUNCHES,
+                                                            COCO_CONFIG, COCO_CLASSES)[:3]
+    end_to_end(dev, "res101", COCO_CONFIG, classes=COCO_CLASSES)
+    for name, det, extra in (("coco", coco_detector, COCO_CONFIG), ("voc", serve_detector, ())):
+        label = "res101 COCO" if name == "coco" else "res50 VOC"
+        route = threshold_route_path(dev, card, det, label, extra)
+        paths[f"c4_route_{name}_on"], paths[f"c4_route_{name}_off"] = route[True], route[False]
+    del coco_detector
+    paths["coco_train_net"], paths["coco_test_net"] = coco_train_test_path(dev, card, coco_ms)
+    return paths
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description="Smoke run of frcnn_tpu_torch on one card.")
-    parser.add_argument("--only", choices=("kernels",),
-                        help="stop after the kernel phases (a partial run: no ok line)")
+    parser.add_argument("--only", choices=("kernels", "coco"),
+                        help="kernels: stop after the kernel phases; coco: the kernel phases, "
+                             "12 and the COCO phases 48-50 (a partial run: no ok line)")
     parser.add_argument("--profile", action="store_true",
                         help="time each stage of the C4, FPN and GroupNorm FPN train steps "
                              "and of an FPN detect batch and profile the device (chiprun_out/"
@@ -3143,6 +3606,14 @@ def main(argv=None) -> int:
         return 0
 
     serve_counts, serve_ms, serve_detector = main_path(dev, card)[:3]
+    if args.only == "coco":
+        # a partial run: 12, then the COCO phases alone; no ok line
+        coco_paths = coco_phases(dev, card, serve_detector)
+        print(json.dumps({"kernel_checks": [{"name": name, **results[name]}
+                                            for name, _, _ in KERNELS],
+                          "launches_by_path": coco_paths}))
+        print(card)
+        return 0
     end_to_end(dev)
     fpn_counts, fpn_detector, fpn_data, fpn_info, fpn_ms = fpn_path(dev, card)
     fpn_end_to_end(dev)
@@ -3185,6 +3656,10 @@ def main(argv=None) -> int:
     # the data mesh: rank 0's counts of phases 45-47
     new_paths.update(mesh_phases(card, serve_detector, serve_ms,
                                  {"res50": train_ms, "res50_fpn": fpn_train_ms}))
+    coco_paths = coco_phases(dev, card, serve_detector)
+    coco_train_counts = coco_paths.pop("coco_train_net")
+    coco_test_counts = coco_paths.pop("coco_test_net")
+    new_paths.update(coco_paths)
     if args.profile:
         profile_train_step(solver, card)
         profile_fpn_detect(fpn_detector, fpn_data, fpn_info, card)
@@ -3194,14 +3669,15 @@ def main(argv=None) -> int:
     # the TPU kernels served by a kernel that stands for another one
     also = {"nms": ("frcnn_tpu/ops/pallas/nms_kernel.py:128", k1b),
             "roi_align_ml": ("frcnn_tpu/ops/pallas/roi_align_kernel.py:609", None)}
-    # launches: the fifteen paths of 12, 14, 16, 18, 23, 25, 27, 29, 31, 33, 36, 43 and
-    # 45-47 (rank 0), each counted from zero; the driven runs of 20 (A), 21 and 42 (C)
-    # beside them by path
+    # launches: the paths of 12, 14, 16, 18, 23, 25, 27, 29, 31, 33, 36, 43, 45-47
+    # (rank 0), 48 and 49, each counted from zero; the driven runs of 20 (A), 21, 42 (C)
+    # and 50 beside them by path
     paths = {"c4_serve": serve_counts, "fpn_serve": fpn_counts, "c4_train": train_counts,
              "fpn_train": fpn_train_counts, "fpn_gn_detect": gn_counts,
              "fpn_gn_train": gn_train_counts, **new_paths, "c4_throughput": throughput_counts}
     driven = {"c4_train_net": straight["counts"], "c4_test_net": c4_test_counts,
-              "fpn_test_net": fpn_test_counts, "c4_train_net_cached": cached_counts}
+              "fpn_test_net": fpn_test_counts, "c4_train_net_cached": cached_counts,
+              "coco_train_net": coco_train_counts, "coco_test_net": coco_test_counts}
     kernels = []
     for name, src, rep in KERNELS:
         by_path = {path: c.get(name, 0) for path, c in {**paths, **driven}.items()}

@@ -3,6 +3,12 @@ pycocotools: 10 IoU thresholds 0.50:0.05:0.95, 101-point interpolated
 precision over recall, the all/small/medium/large area ranges, maxDets
 (1, 10, 100), crowd-aware IoU and the standard 12-number summary.
 
+The JAX module's loops, vectorised with the same results (``eval_imgs``
+entry for entry, the stats bit for bit): the IoU by broadcasting, once per
+(image, category) for the four area ranges; the greedy match over all
+ranges and thresholds at once, a det at a time, visiting only the dets
+with an IoU of at least 0.5; the precision envelope by a running maximum.
+
 API:
     ev = COCOEval(gt_annotations, detections, categories)
     ev.evaluate(); ev.accumulate(); stats = ev.summarize()
@@ -27,26 +33,24 @@ AREA_RNG = {
     "large": (96.0**2, 1e10),
 }
 MAX_DETS = (1, 10, 100)
+_RANGES = np.array(list(AREA_RNG.values()))                             # (A, 2)
+_THR = np.minimum(IOU_THRS, 1 - 1e-10)[None, :, None]                   # (1, T, 1)
 
 
 def bbox_iou_xywh(dt, gt, iscrowd):
-    """IoU of xywh boxes; for crowd gt, intersection over det area
-    (pycocotools maskUtils.iou semantics)."""
-    n, k = len(dt), len(gt)
-    out = np.zeros((n, k))
-    for j in range(k):
-        gx, gy, gw, gh = gt[j]
-        garea = gw * gh
-        for i in range(n):
-            dx, dy, dw, dh = dt[i]
-            iw = min(dx + dw, gx + gw) - max(dx, gx)
-            ih = min(dy + dh, gy + gh) - max(dy, gy)
-            if iw <= 0 or ih <= 0:
-                continue
-            inter = iw * ih
-            union = dw * dh if iscrowd[j] else dw * dh + garea - inter
-            out[i, j] = inter / union
-    return out
+    """IoU of xywh boxes (D, 4) x (G, 4) → (D, G) f64; for crowd gt,
+    intersection over det area (pycocotools maskUtils.iou semantics).  Each
+    entry is the loop form's ``inter / union`` in the same f64 steps."""
+    d = np.asarray(dt, dtype=np.float64).reshape(-1, 4)[:, None, :]
+    g = np.asarray(gt, dtype=np.float64).reshape(-1, 4)[None, :, :]
+    crowd = np.asarray(iscrowd, dtype=bool).reshape(1, -1)
+    iw = np.minimum(d[..., 0] + d[..., 2], g[..., 0] + g[..., 2]) - np.maximum(d[..., 0], g[..., 0])
+    ih = np.minimum(d[..., 1] + d[..., 3], g[..., 1] + g[..., 3]) - np.maximum(d[..., 1], g[..., 1])
+    inter = iw * ih
+    d_area = d[..., 2] * d[..., 3]
+    union = np.where(crowd, d_area, d_area + g[..., 2] * g[..., 3] - inter)
+    live = (iw > 0) & (ih > 0)
+    return np.divide(inter, union, out=np.zeros(inter.shape), where=live)
 
 
 class COCOEval:
@@ -65,71 +69,82 @@ class COCOEval:
         for d in dts:
             self._dts[d["image_id"], d["category_id"]].append(d)
         self.eval_imgs = {}
+        self._cells = {}       # (area, cat) → the non-empty evals in image order
         self.eval = None
 
     # -- per-(img, cat) matching --------------------------------------------
-    def _evaluate_img(self, img_id, cat_id, area_rng, max_det):
-        gt = self._gts[img_id, cat_id]
-        dt = self._dts[img_id, cat_id]
-        if len(gt) == 0 and len(dt) == 0:
+    def _evaluate_pair(self, img_id, cat_id, max_det):
+        """The evals of one (image, category) under every area range, as
+        pycocotools' evaluateImg gives them, or None with no gt and no det.
+
+        The IoU matrix is computed once for the four ranges.  The greedy
+        match walks the dets in score order; for each it takes, under every
+        (range, threshold) at once, the best gt it may still take: among the
+        gts not yet matched (a crowd may take many dets) with IoU >= the
+        threshold, those the range does not ignore first, the highest IoU,
+        and on a tie the last in the gts' order (non-ignored first, each
+        part in input order): the per-det loop's choice, break rule
+        included."""
+        gt = self._gts.get((img_id, cat_id), [])
+        dt = self._dts.get((img_id, cat_id), [])
+        if not gt and not dt:
             return None
-        for g in gt:
-            g["_ignore"] = 1 if (g["ignore"] or g["area"] < area_rng[0]
-                                 or g["area"] > area_rng[1]) else 0
-        # sort gt: non-ignored first; dt by descending score, truncate maxDet
-        gtind = np.argsort([g["_ignore"] for g in gt], kind="mergesort")
-        gt = [gt[i] for i in gtind]
-        dtind = np.argsort([-d["score"] for d in dt], kind="mergesort")
-        dt = [dt[i] for i in dtind[:max_det]]
-        iscrowd = [int(g["iscrowd"]) for g in gt]
+        T, A, G = len(IOU_THRS), len(_RANGES), len(gt)
+        scores = np.array([d["score"] for d in dt])
+        order = np.argsort(-scores, kind="mergesort")[:max_det]
+        D = len(order)
+        d_scores = scores[order] if D else np.array([])
+        d_boxes = np.array([dt[i]["bbox"] for i in order], dtype=np.float64).reshape(-1, 4)
+        d_area = d_boxes[:, 2] * d_boxes[:, 3]
+        outside = (d_area[None] < _RANGES[:, :1]) | (d_area[None] > _RANGES[:, 1:])  # (A, D)
+        if not G:                  # nothing to match: a det is ignored where outside the range
+            return [{"dtMatches": np.zeros((T, D)), "dtScores": d_scores,
+                     "gtIgnore": np.array([]), "dtIgnore": np.repeat(outside[a:a + 1], T, 0)}
+                    for a in range(A)]
+        g_area = np.array([g["area"] for g in gt], dtype=np.float64)
+        ignore = (np.array([bool(g["ignore"]) for g in gt], dtype=bool)[None]
+                  | (g_area[None] < _RANGES[:, :1]) | (g_area[None] > _RANGES[:, 1:]))  # (A, G)
+        crowd = np.array([bool(int(g["iscrowd"])) for g in gt], dtype=bool)
+        g_ids = np.array([g["id"] for g in gt], dtype=np.float64)
 
-        ious = bbox_iou_xywh([d["bbox"] for d in dt], [g["bbox"] for g in gt],
-                             iscrowd) if dt and gt else np.zeros((len(dt), len(gt)))
-
-        T = len(IOU_THRS)
-        G, D = len(gt), len(dt)
-        gtm = np.zeros((T, G))
-        dtm = np.zeros((T, D))
-        gt_ig = np.array([g["_ignore"] for g in gt])
-        dt_ig = np.zeros((T, D))
-        for ti, t in enumerate(IOU_THRS):
-            for di in range(D):
-                iou = min(t, 1 - 1e-10)
-                m = -1
-                for gi in range(G):
-                    # gi already matched (crowds can absorb many dets)
-                    if gtm[ti, gi] > 0 and not iscrowd[gi]:
-                        continue
-                    # non-ignored gts exhausted; stop at first ignored match
-                    if m > -1 and gt_ig[m] == 0 and gt_ig[gi] == 1:
-                        break
-                    if ious[di, gi] < iou:
-                        continue
-                    iou = ious[di, gi]
-                    m = gi
-                if m == -1:
+        dtm = np.zeros((A, T, D))
+        dt_ig = np.zeros((A, T, D), dtype=bool)
+        if D:
+            ious = bbox_iou_xywh(d_boxes, [g["bbox"] for g in gt], crowd)
+            taken = np.zeros((A, T, G), dtype=bool)
+            ign = ignore[:, None, :]
+            for di in np.flatnonzero(ious.max(axis=1) >= _THR.min()):
+                cand = (~taken | crowd) & (ious[di] >= _THR)                   # (A, T, G)
+                keep = cand & ~ign
+                part = np.where(keep.any(-1, keepdims=True), keep, cand & ign)
+                found = part.any(-1)
+                if not found.any():
                     continue
-                dt_ig[ti, di] = gt_ig[m]
-                dtm[ti, di] = gt[m]["id"]
-                gtm[ti, m] = 1
+                # the last maximum: argmax over the reversed gts
+                m = G - 1 - np.where(part, ious[di], -1.0)[..., ::-1].argmax(-1)  # (A, T)
+                a, t = np.nonzero(found)
+                m = m[a, t]
+                taken[a, t, m] = True
+                dtm[a, t, di] = g_ids[m]
+                dt_ig[a, t, di] = ignore[a, m]
         # unmatched dets outside the area range are ignored too
-        a = np.array([d["bbox"][2] * d["bbox"][3] < area_rng[0]
-                      or d["bbox"][2] * d["bbox"][3] > area_rng[1]
-                      for d in dt]).reshape(1, -1) if D else np.zeros((1, 0), bool)
-        dt_ig = np.logical_or(dt_ig, np.logical_and(dtm == 0, np.repeat(a, T, 0)))
-        return {
-            "dtMatches": dtm,
-            "dtScores": np.array([d["score"] for d in dt]),
-            "gtIgnore": gt_ig,
-            "dtIgnore": dt_ig,
-        }
+        dt_ig |= (dtm == 0) & outside[:, None, :]
+        return [{"dtMatches": dtm[a], "dtScores": d_scores,
+                 "gtIgnore": np.sort(ignore[a]).astype(int), "dtIgnore": dt_ig[a]}
+                for a in range(A)]
 
     def evaluate(self):
-        for area_name, area_rng in AREA_RNG.items():
-            for img_id in self.img_ids:
-                for cat_id in self.cat_ids:
-                    self.eval_imgs[area_name, img_id, cat_id] = \
-                        self._evaluate_img(img_id, cat_id, area_rng, MAX_DETS[-1])
+        self.eval_imgs = dict.fromkeys(
+            (area, img_id, cat_id) for area in AREA_RNG for img_id in self.img_ids
+            for cat_id in self.cat_ids)
+        self._cells = {}
+        cats = set(self.cat_ids)
+        pairs = sorted(key for key in set(self._gts) | set(self._dts) if key[1] in cats)
+        for img_id, cat_id in pairs:                    # image order within each category
+            evals = self._evaluate_pair(img_id, cat_id, MAX_DETS[-1])
+            for area, e in zip(AREA_RNG, evals):
+                self.eval_imgs[area, img_id, cat_id] = e
+                self._cells.setdefault((area, cat_id), []).append(e)
 
     # -- accumulation ----------------------------------------------------------
     def accumulate(self):
@@ -139,42 +154,42 @@ class COCOEval:
         recall = -np.ones((T, K, A, M))
         for ki, cat_id in enumerate(self.cat_ids):
             for ai, area_name in enumerate(AREA_RNG):
+                E = self._cells.get((area_name, cat_id))
+                if not E:
+                    continue
+                gt_ig = np.concatenate([e["gtIgnore"] for e in E])
+                npig = np.count_nonzero(gt_ig == 0)
+                if npig == 0:
+                    continue
+                # every image's dets once, with their rank in the image: the
+                # first max_det of each image are those of rank < max_det
+                all_scores = np.concatenate([e["dtScores"] for e in E])
+                all_dtm = np.concatenate([e["dtMatches"] for e in E], axis=1)
+                all_ig = np.concatenate([e["dtIgnore"] for e in E], axis=1)
+                counts = np.array([len(e["dtScores"]) for e in E])
+                rank = np.arange(len(all_scores)) - np.repeat(np.cumsum(counts) - counts, counts)
                 for mi, max_det in enumerate(MAX_DETS):
-                    E = [self.eval_imgs[area_name, img_id, cat_id]
-                         for img_id in self.img_ids]
-                    E = [e for e in E if e is not None]
-                    if not E:
-                        continue
-                    scores = np.concatenate([e["dtScores"][:max_det] for e in E])
-                    inds = np.argsort(-scores, kind="mergesort")
-                    dtm = np.concatenate(
-                        [e["dtMatches"][:, :max_det] for e in E], axis=1)[:, inds]
-                    dt_ig = np.concatenate(
-                        [e["dtIgnore"][:, :max_det] for e in E], axis=1)[:, inds]
-                    gt_ig = np.concatenate([e["gtIgnore"] for e in E])
-                    npig = np.count_nonzero(gt_ig == 0)
-                    if npig == 0:
-                        continue
+                    cut = rank < max_det
+                    scores = all_scores[cut]
+                    inds = np.flatnonzero(cut)[np.argsort(-scores, kind="mergesort")]
+                    dtm = all_dtm[:, inds]
+                    dt_ig = all_ig[:, inds]
                     tps = np.logical_and(dtm, np.logical_not(dt_ig))
                     fps = np.logical_and(np.logical_not(dtm),
                                          np.logical_not(dt_ig))
                     tp_sum = np.cumsum(tps, axis=1).astype(float)
                     fp_sum = np.cumsum(fps, axis=1).astype(float)
+                    rc = tp_sum / npig
+                    pr = tp_sum / np.maximum(tp_sum + fp_sum, np.finfo(float).eps)
+                    n = rc.shape[1]
+                    recall[:, ki, ai, mi] = rc[:, -1] if n else 0
+                    # monotone precision envelope from the right
+                    pr = np.maximum.accumulate(pr[:, ::-1], axis=1)[:, ::-1]
                     for ti in range(T):
-                        tp, fp = tp_sum[ti], fp_sum[ti]
-                        rc = tp / npig
-                        pr = tp / np.maximum(tp + fp, np.finfo(float).eps)
-                        recall[ti, ki, ai, mi] = rc[-1] if len(rc) else 0
-                        # monotone precision envelope from the right
-                        pr = pr.tolist()
-                        for i in range(len(pr) - 1, 0, -1):
-                            if pr[i] > pr[i - 1]:
-                                pr[i - 1] = pr[i]
-                        inds_r = np.searchsorted(rc, REC_THRS, side="left")
+                        inds_r = np.searchsorted(rc[ti], REC_THRS, side="left")
+                        hit = inds_r < n
                         q = np.zeros(R)
-                        for ri, pi in enumerate(inds_r):
-                            if pi < len(pr):
-                                q[ri] = pr[pi]
+                        q[hit] = pr[ti, inds_r[hit]]
                         precision[ti, :, ki, ai, mi] = q
         self.eval = {"precision": precision, "recall": recall}
 

@@ -51,7 +51,7 @@ from frcnn_tpu_torch.models.targets import (anchor_target_compact, proposal_targ
                                             uniform_draws)
 from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
 from frcnn_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
-from frcnn_tpu_torch.ops.cuda.select_kernel import topk_threshold, use_threshold_select
+from frcnn_tpu_torch.ops.cuda.select_kernel import threshold_route, topk_descending
 from frcnn_tpu_torch.ops.nms import NEG_INF, nms_fixed_batched
 from frcnn_tpu_torch.ops.roi_align import extract_multilevel_features
 
@@ -79,13 +79,8 @@ def select_pre_nms(fg_prob, box_cells, sizes, per: int, a_n: int, use_threshold:
         if k >= s:
             sc = lvl
             idx = torch.arange(s, device=lvl.device).expand(b, s)
-        elif use_threshold and use_threshold_select(s, k):
-            tv, ti = topk_threshold(lvl.contiguous(), k)
-            sc, pos = torch.sort(tv, dim=1, descending=True, stable=True)
-            idx = torch.take_along_dim(ti.long(), pos, dim=1)
         else:
-            sc, idx = torch.sort(lvl, dim=1, descending=True, stable=True)
-            sc, idx = sc[:, :k], idx[:, :k]
+            sc, idx = topk_descending(lvl, k, use_threshold)
         a = torch.div(idx, hw, rounding_mode="floor")
         cell = idx - a * hw
         sel.append(cell * a_n + a + off)
@@ -266,9 +261,9 @@ class FasterRCNNFPN(nn.Module):
             per, post, thresh = (cfg.FPN.PRE_NMS_PER_LEVEL_TEST, cfg.TEST.RPN_POST_NMS_TOP_N,
                                  cfg.TEST.RPN_NMS_THRESH)
         sizes = [p.shape[2] * p.shape[3] * self._A for p in pyramid]
-        use_threshold = (self.use_kernels and cfg.DEVICE.THRESHOLD_SELECT and fg_prob.is_cuda)
         sel, sel_scores, sel_deltas = select_pre_nms(
-            fg_prob, box_cells, sizes, per, self._A, use_threshold=use_threshold)
+            fg_prob, box_cells, sizes, per, self._A,
+            use_threshold=threshold_route(cfg, self.use_kernels, fg_prob))
         sel_anchors = anchors[sel]                                      # (B, n, 4)
         proposals = clip_boxes(bbox_transform_inv(sel_anchors, sel_deltas), im_info[:, :2])
         scores = torch.where(_anchor_validity(sel_anchors, im_info), sel_scores, NEG_INF)

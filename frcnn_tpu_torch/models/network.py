@@ -2,15 +2,16 @@
 Faster R-CNN with fixed output shapes.
 
   * ``predict``: preprocess → backbone trunk → RPN → proposal layer
-    (K1; under TEST.MODE "top" the top RPN_TOP_N anchors, no NMS) → RoI
-    pool (POOLING_MODE "align": K2; "pool", "crop": plain PyTorch, as the
-    JAX package) → tail + heads; raw outputs.
+    (K1, and K5 for the pre-NMS top-k where DEVICE.THRESHOLD_SELECT and
+    its gate let it; under TEST.MODE "top" the top RPN_TOP_N anchors, no
+    NMS) → RoI pool (POOLING_MODE "align": K2; "pool", "crop": plain
+    PyTorch, as the JAX package) → tail + heads; raw outputs.
   * ``detect``: predict + delta decode, clip, rescale to original image
     coordinates, per-class threshold + NMS (K1), global top-k → (B, D, 6).
-  * ``train_forward``: the trunk and RPN, the train proposal layer (K1),
-    anchor targets (K4, K5) and proposal targets, RoIAlign (K2 forward,
-    K2b backward), the tail (VGG-16: dropout on drawn uniforms) and heads,
-    and the four losses.
+  * ``train_forward``: the trunk and RPN, the train proposal layer (K1,
+    K5 as in ``predict``), anchor targets (K4, K5) and proposal targets,
+    RoIAlign (K2 forward, K2b backward), the tail (VGG-16: dropout on drawn
+    uniforms) and heads, and the four losses.
 
 Backbones: ``vgg16``, ``res{50,101,152}``, ``mobile`` (``build_backbone``).
 
@@ -34,6 +35,7 @@ from frcnn_tpu_torch.models.targets import (anchor_target_compact, proposal_targ
                                             uniform_draws)
 from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
 from frcnn_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
+from frcnn_tpu_torch.ops.cuda.select_kernel import threshold_route
 from frcnn_tpu_torch.ops.nms import batched_class_nms
 from frcnn_tpu_torch.ops.roi_align import extract_roi_features
 
@@ -217,7 +219,8 @@ class FasterRCNN(nn.Module):
                 fg_prob, deltas, anchors, im_info,
                 pre_nms_top_n=cfg.TEST.RPN_PRE_NMS_TOP_N,
                 post_nms_top_n=cfg.TEST.RPN_POST_NMS_TOP_N,
-                nms_thresh=cfg.TEST.RPN_NMS_THRESH, use_kernels=self.use_kernels)
+                nms_thresh=cfg.TEST.RPN_NMS_THRESH, use_kernels=self.use_kernels,
+                use_threshold=threshold_route(cfg, self.use_kernels, fg_prob))
         _, cls_prob, bbox_pred = self._classify(self._pool(feat, rois))
         return {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid,
                 "cls_prob": cls_prob, "bbox_pred": bbox_pred}
@@ -262,7 +265,8 @@ class FasterRCNN(nn.Module):
         rois, roi_scores, roi_valid = proposal_layer_batch(
             fg_prob.detach(), deltas.detach(), anchors, im_info,
             pre_nms_top_n=t.RPN_PRE_NMS_TOP_N, post_nms_top_n=t.RPN_POST_NMS_TOP_N,
-            nms_thresh=t.RPN_NMS_THRESH, use_kernels=self.use_kernels)
+            nms_thresh=t.RPN_NMS_THRESH, use_kernels=self.use_kernels,
+            use_threshold=threshold_route(cfg, self.use_kernels, fg_prob))
         pt = proposal_target_layer(rois, roi_valid, gt_boxes, gt_labels, gt_valid,
                                    draws["roi_fg"], draws["roi_bg"], cfg, self.num_classes)
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from frcnn_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
+from frcnn_tpu_torch.ops.cuda.select_kernel import topk_descending
 from frcnn_tpu_torch.ops.nms import NEG_INF, nms_fixed_batched
 
 
@@ -22,17 +23,19 @@ def _anchor_validity(anchors, im_info):
 
 def proposal_layer_batch(scores, deltas, anchors, im_info, *, pre_nms_top_n: int,
                          post_nms_top_n: int, nms_thresh: float,
-                         use_kernels: bool = True):
+                         use_kernels: bool = True, use_threshold: bool = False):
     """scores (B, K) foreground probabilities, deltas (B, K, 4), anchors
     (K, 4), im_info (B, 3) [h, w, scale] → (rois (B, P, 4), scores (B, P),
-    valid (B, P)), P = post_nms_top_n; padding rois are zero boxes."""
+    valid (B, P)), P = post_nms_top_n; padding rois are zero boxes.
+
+    With ``use_threshold``, a row that passes the K5 gate takes its pre-NMS
+    set from K5 and re-ranks only the pre_n winners (``topk_descending``):
+    the full stable sort's first pre_n, bit for bit, ties and the NEG_INF
+    tail of anchors centred on padding included."""
     k = scores.shape[1]
     proposals = clip_boxes(bbox_transform_inv(anchors, deltas), im_info[:, :2])
     scores = torch.where(_anchor_validity(anchors, im_info), scores, NEG_INF)
-    pre_n = min(pre_nms_top_n, k)
-    # stable descending sort: ties take the lowest index first, as lax.top_k
-    top_scores, top_idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    top_scores, top_idx = top_scores[:, :pre_n], top_idx[:, :pre_n]
+    top_scores, top_idx = topk_descending(scores, min(pre_nms_top_n, k), use_threshold)
     top_boxes = torch.take_along_dim(proposals, top_idx[..., None], dim=1)
     top_valid = top_scores > NEG_INF / 2
 
@@ -68,9 +71,7 @@ def proposal_top_layer(scores, deltas, anchors, im_info, *, rpn_top_n: int):
     valid (B, n)).  Where fewer anchors are valid than n, the rest are zero
     boxes with valid False (the lineage pads at random)."""
     scores = torch.where(_anchor_validity(anchors, im_info), scores, NEG_INF)
-    n = min(rpn_top_n, scores.shape[1])
-    top_scores, top_idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    top_scores, top_idx = top_scores[:, :n], top_idx[:, :n]
+    top_scores, top_idx = topk_descending(scores, min(rpn_top_n, scores.shape[1]))
     valid = top_scores > NEG_INF / 2
     boxes = bbox_transform_inv(anchors[top_idx], torch.take_along_dim(deltas, top_idx[..., None],
                                                                         dim=1))

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from frcnn_tpu_torch.ops.boxes import bbox_overlaps, bbox_transform
 from frcnn_tpu_torch.ops.cuda.overlap_kernel import (MAX_GT, anchor_overlap_stats,
                                                      anchor_overlap_stats_reference)
-from frcnn_tpu_torch.ops.cuda.select_kernel import topk_threshold, use_threshold_select
+from frcnn_tpu_torch.ops.cuda.select_kernel import threshold_route, topk_descending
 
 
 def _f32(value, device):
@@ -105,13 +105,7 @@ def _subsample_idx(mask, max_quota: int, quota, uniform, use_threshold: bool = F
     n = mask.shape[-1]
     ramp = torch.arange(n, dtype=torch.float32, device=mask.device) * 2.0 ** -17
     pri = torch.where(mask, 1.0 + uniform, -1.0 - ramp)
-    if use_threshold and use_threshold_select(n, max_quota):
-        tv, ti = topk_threshold(pri, max_quota)
-        vals, pos = torch.sort(tv, dim=-1, descending=True, stable=True)
-        idx = torch.take_along_dim(ti.long(), pos, dim=-1)
-    else:
-        vals, idx = torch.sort(pri, dim=-1, descending=True, stable=True)
-        vals, idx = vals[:, :max_quota], idx[:, :max_quota]
+    vals, idx = topk_descending(pri, max_quota, use_threshold)
     quota = torch.as_tensor(quota, device=mask.device).reshape(-1, 1)
     take = (torch.arange(max_quota, device=mask.device) < quota) & (vals > 0.0)
     return idx, take
@@ -162,7 +156,7 @@ def anchor_target_compact(anchors, gt_boxes, gt_valid, im_info, u_fg, u_bg,
     labels0, argmax = _anchor_pre_labels(anchors, gt_boxes, gt_valid, im_info, cfg)
     num_fg = int(t.RPN_FG_FRACTION * t.RPN_BATCHSIZE)
     fg_mask, bg_mask = labels0 == 1, labels0 == 0
-    use_th = cfg.DEVICE.USE_KERNELS and cfg.DEVICE.THRESHOLD_SELECT and anchors.is_cuda
+    use_th = threshold_route(cfg, cfg.DEVICE.USE_KERNELS, anchors)
     fg_idx, fg_take = _subsample_idx(fg_mask, num_fg, num_fg, u_fg, use_th)
     n_fg = torch.clamp(fg_mask.sum(-1), max=num_fg)
     bg_idx, bg_take = _subsample_idx(bg_mask, t.RPN_BATCHSIZE, t.RPN_BATCHSIZE - n_fg, u_bg,

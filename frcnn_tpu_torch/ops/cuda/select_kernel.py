@@ -64,6 +64,28 @@ def use_threshold_select(n: int, k: int) -> bool:
     return n >= THRESHOLD_SELECT_MIN_S and n >= THRESHOLD_SELECT_MIN_RATIO * k
 
 
+def threshold_route(config, use_kernels: bool, scores) -> bool:
+    """Whether a top-k call site takes the K5 route: the JAX call sites'
+    condition (kernels on, DEVICE.THRESHOLD_SELECT) with the card in place
+    of the TPU.  The row-length gate is ``use_threshold_select``'s."""
+    return bool(use_kernels and config.DEVICE.THRESHOLD_SELECT and scores.is_cuda)
+
+
+def topk_descending(scores, k: int, use_threshold: bool = False):
+    """``lax.top_k`` of each row of ``scores`` (B, S): (values (B, k),
+    indices (B, k) int64) in descending order, the lowest index first on a
+    tie.  With ``use_threshold`` and a row that passes the gate, the set
+    comes from ``topk_threshold`` (index-ascending) and a stable descending
+    sort of the k winners restores that order, bit for bit; else a stable
+    sort of the whole row."""
+    if use_threshold and use_threshold_select(scores.shape[1], k):
+        tv, ti = topk_threshold(scores, k)
+        vals, pos = torch.sort(tv, dim=1, descending=True, stable=True)
+        return vals, torch.take_along_dim(ti.long(), pos, dim=1)
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
 def select_plan(s: int, cluster: int = CLUSTER_BLOCKS) -> dict:
     """Launch geometry for rows of length ``s``: ``cluster`` blocks a row,
     block j owning ``[j * segment, (j + 1) * segment)`` (a multiple of 4, so

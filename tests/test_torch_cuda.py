@@ -719,3 +719,38 @@ def test_new_nets_and_modes_train_step_on_the_card_matches_the_cpu(dev, net, poo
     import chip_smoke
 
     chip_smoke.train_card_vs_cpu(torch.device("cuda", 0), net, pooling)
+
+
+def test_proposal_threshold_route_on_the_card(dev, rng):
+    """The C4 proposal layer's K5 route (``use_threshold``) on the card at the
+    COCO serving shape (45600 anchors, pre-NMS 1000, a NEG_INF tail): K5 once,
+    and the rois, scores and valid masks bit-equal to the sorted route's."""
+    from frcnn_tpu_torch.models.proposals import proposal_layer_batch
+    from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
+
+    anchors = generate_anchors_pre(50, 76, 16, scales=(4, 8, 16, 32))[0]
+    k = len(anchors)
+    scores = np.round(rng.uniform(0, 1, (8, k)) * 256) / 256               # ties
+    deltas = rng.randn(8, k, 4) * 0.1
+    im_info = np.array([[800.0, 1216.0, 1.0], [600.0, 912.0, 1.0]] * 4)    # NEG_INF tails
+    args = [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (scores, deltas, anchors, im_info)]
+    kw = dict(pre_nms_top_n=1000, post_nms_top_n=300, nms_thresh=0.7)
+    build.reset_launch_counts()
+    on = proposal_layer_batch(*args, use_threshold=True, **kw)
+    assert build.LAUNCH_COUNTS["select"] == 1 and build.LAUNCH_COUNTS["nms"] == 1
+    off = proposal_layer_batch(*args, use_threshold=False, **kw)
+    assert build.LAUNCH_COUNTS["select"] == 1
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+
+
+def test_coco_model_detects_and_trains_on_the_card_matching_the_cpu(dev):
+    """``chip_smoke``'s COCO model (res101, 81 classes, four anchor scales):
+    f32 ``detect`` at 320x480 matched to a CPU copy, and one f32 train step
+    on the card and on a CPU copy (losses and compared updates)."""
+    import chip_smoke
+
+    chip_smoke.end_to_end(dev, "res101", chip_smoke.COCO_CONFIG, classes=chip_smoke.COCO_CLASSES)
+    chip_smoke.train_card_vs_cpu(torch.device("cuda", 0), "res101",
+                                 classes=chip_smoke.COCO_CLASSES)
