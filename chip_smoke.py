@@ -5,8 +5,16 @@
     python3 chip_smoke.py --only kernels   # stop after the kernel phases (1-11)
     python3 chip_smoke.py --only coco      # the kernel phases, 12 and the COCO
                                            # phases 48-50 alone
+    python3 chip_smoke.py --only graphs    # 12, then phase 51 on models built
+                                           # for it (no kernel checks)
     python3 chip_smoke.py --profile        # and stage breakdowns of the three train
                                            # steps and of FPN detect (38-41)
+
+On the card every ``Detector`` replays one CUDA graph captured per batch
+shape (``frcnn_tpu_torch/engine/graphs.py``): the kernel wrappers count at
+its eager warm-up and at the capture, and a replay calls no wrapper, so the
+serving phases check each graph's capture-time launches, its replays and
+the wrappers' counts of the warm-up and the capture (``check_graphed``).
 
 Phases, each of which raises on failure (the script then exits non-zero):
   0. the card: name and power limit from nvidia-smi, torch/CUDA versions;
@@ -66,8 +74,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and stop; a partial run prints no ok line);
  12. the serving path: res50 C4, 21 classes, seeded random weights, bf16
      trunk, one 800x1216 bucket; 3 requests of 8 images through
-     ``Detector``, with the kernels' launch counts, then the steady-state
-     batch time;
+     ``Detector`` (one graph captured, replayed 3 times), with the kernels'
+     launch counts, then the steady-state batch time (graphed);
  13. one image through ``detect`` in f32 on the card and on a CPU copy of
      the same model; detections matched one to one;
  14. the FPN serving path: res50_fpn, the same bucket, batch, weights seed
@@ -109,9 +117,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
  21. (b) ``test_net`` at full width over the devkit's test split (16 images
      at 800x1216, batch 8, bf16, TEST.SCORE_THRESH 0.0): 20's model loaded
      from its final snapshot, and a seeded res50_fpn; detections.pkl read
-     back, the per-class APs and the mAP finite in [0, 1], the launch
-     counts per batch those of 12 and 14; images/s of each beside
-     ``Detector``'s;
+     back, the per-class APs and the mAP finite in [0, 1], one graph
+     replayed for the 2 batches with the launches of 12 and 14; images/s
+     of each graphed, beside the same run eager and ``Detector``'s;
  22. (c) ``test_net`` in f32 over the devkit's 4 val images (320x480) on the
      card and on a CPU copy of the same model: detections matched one to
      one per image and class (the tolerances of 13); then ``im_detect`` of
@@ -186,9 +194,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      one cached batch through ``train_step`` against the same batch cast to
      f32 from the same state and draws: losses and updates bit-equal;
  43. ``serve.throughput`` on 12's seeded res50 C4 (batch 8, 800x1216, bf16):
-     images/s > 0 beside 8000 / 12's batch time and 12's timing of its own
-     noise batch, launch counts 22 x 12's per batch (2 warm-up and 20 timed
-     batches);
+     images/s > 0, graphed beside eager, beside 8000 / 12's batch time and
+     12's timing of its own noise batch, one graph replayed 22 times (2
+     warm-up and 20 timed batches) with 12's launches;
  44. the host libraries on the card's machine: ``native.host_ops`` builds
      (g++) and loads; ``apply_nms`` over 21's C4 detections.pkl keeps the
      rows of ``nms_fixed(..., use_kernels=False)`` at 0.3 and 0.1;
@@ -217,9 +225,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      rank's rows are the unsharded bf16 ``Detector``'s on those rows bit for
      bit; in f32 (TF32 off) every image matched one to one (``match_dets``)
      with the unsharded ``Detector``'s on the whole request, in bf16 at
-     least ``MESH_BF16_MATCHED`` of the 58; launch counts per rank a batch
-     K1 2, K2 1, K3 6; ``serve.throughput`` of a global batch of 8 beside
-     12's batch time;
+     least ``MESH_BF16_MATCHED`` of the 58; per rank two graphs (rows of 4
+     and 3) launching K1 2, K2 1, K3 6 a replay; ``serve.throughput`` of a
+     global batch of 8, graphed and eager, beside 12's batch time;
  48. (C) COCO serving: res101 C4, 81 classes, ANCHOR_SCALES (4, 8, 16, 32)
      (12 anchors a cell, 45600 at 800x1216), seeded weights, bf16 trunk, the
      bucket and 3 requests of 8 of 12 through ``Detector``: launch counts
@@ -248,13 +256,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the results json at COCO's category ids, the 12 stats finite in [-1,
      1], images/s beside 48's ``detect_blobs``; COCOEval's host seconds on
      those detections and on a minival-sized set (5000 images, 80
-     categories, 100 dets an image), with the host's CPU model.
+     categories, 100 dets an image), with the host's CPU model;
+ 51. graphed serving, on the models of 12, 14, 23, 27, 31, 36 and 48: for
+     each a new ``Detector``, 3 requests of 8 at 800x1216 whose detections
+     and (dets, valid) are bit-equal to eager ``model.detect`` on the same
+     batches; the capture-time launches equal to eager detect's and to the
+     device kernels of a profiled replay; eager and graphed batch ms (median
+     of 10 after 2, CUDA events), the host ms of 10 queued calls, the
+     device's idle share (torch.profiler), the capture's seconds and the
+     peak memory with the graph captured; then two keys in one ``Detector``
+     (B 8 at 800x1216 and B 3 at 1216x800, one pool) captured in one order
+     and replayed in the other inside one request, bit-equal to eager, with
+     the peak memory after the two captures; then a capture that fails (a
+     host read in a toy ``detect``) raises naming its key and line, keeps
+     and replays nothing, and a new capture still serves bit-equal; all in
+     chiprun_out/graphed_serving.json.
 Then one JSON line of per-kernel results, the card line, and, last, the
 JSON ok line.  Each kernel's line carries its launches on the paths of 12,
 14, 16, 18, 23, 25, 27, 29, 31, 33, 36, 43, 45-47 (rank 0's), 48 and 49
-(``launches``;
-``launches_by_path`` by path, with the driven runs of 20 (A), 21, 42 (C)
-and 50), each counted from zero,
+(``launches``, as the wrappers count them: eager calls, and a graph's
+warm-up and capture; ``launches_by_path`` by path, with the driven runs of
+20 (A), 21, 42 (C) and 50), each counted from zero; ``replayed_launches``
+(by path: ``replayed_launches_by_path``), the launches the serving
+phases' graph replays made,
 its error against the twin, its time, the twin's, the time of the one
 library call that computes the same function where there is one, and its
 bound: the least time the card could take for the timed launches, from the
@@ -267,6 +291,8 @@ convolutions and matmuls throughout, so f32 comparisons are f32.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import json
 import os
 import shutil
@@ -1412,6 +1438,79 @@ C4_PLAIN_SERVE_LAUNCHES = {"nms": 2, "roi_align": 1}
 TOP_SERVE_LAUNCHES = {"nms": 1, "roi_align": 1}
 
 
+# ---------------------------------------------------------------------------
+# Graphed serving: on the card a Detector replays one captured CUDA graph per
+# (B, bh, bw, input dtype, max_per_image) (frcnn_tpu_torch/engine/graphs.py)
+# ---------------------------------------------------------------------------
+
+# label -> the launches the replays of a checked run made (the wrappers count
+# only the eager warm-up and the capture of each key)
+REPLAYED: dict = {}
+
+
+def launches_during(fn):
+    """(fn(), the launches the kernel wrappers counted during it)."""
+    from frcnn_tpu_torch.ops.cuda import build
+
+    before = dict(build.LAUNCH_COUNTS)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before.get(k, 0) for k, v in build.LAUNCH_COUNTS.items()
+                 if v != before.get(k, 0)}
+
+
+def check_graphed(label, detector, per_batch, batches, counts):
+    """A run through a new graphed ``detector``: every key it replayed was
+    captured with ``per_batch`` wrapper calls (the kernels one replay
+    launches), the wrappers counted ``counts`` = the eager warm-up and the
+    capture of every key (a replay calls no wrapper), and it replayed
+    ``batches`` times.  Records and returns the launches the replays made."""
+    g = detector.graphs
+    if g is None:
+        raise AssertionError(f"{label}: the Detector on the card replays no graph")
+    captured, replays = sum(g.captures.values()), dict(g.replays)
+    off = {k: g.launches[k] for k in replays if g.launches[k] != per_batch}
+    want = {name: 2 * n * captured for name, n in per_batch.items()}
+    if off or counts != want or sum(replays.values()) != batches:
+        raise AssertionError(f"{label}: {sum(replays.values())} replays ({batches} batches); "
+                             f"capture-time launches {off or per_batch} (want {per_batch} a "
+                             f"batch); the wrappers counted {counts}, want {want} (the warm-up "
+                             f"and the capture of {captured} keys)")
+    REPLAYED[label] = {name: n * batches for name, n in per_batch.items()}
+    return REPLAYED[label]
+
+
+@contextlib.contextmanager
+def made_detectors(eager=False):
+    """The list of every ``Detector`` that ``test_net`` makes inside the
+    block; with ``eager`` their executors are removed (``detect`` runs op
+    by op: the figure graphed serving is compared with)."""
+    from frcnn_tpu_torch.engine import serve, test
+
+    made, plain = [], test.Detector
+
+    class Recorded(serve.Detector):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            if eager:
+                self.graphs = None
+            made.append(self)
+
+    test.Detector = Recorded
+    try:
+        yield made
+    finally:
+        test.Detector = plain
+
+
+def eager_copy(detector):
+    """``detector`` without its executor: the same model and settings, with
+    ``detect`` run op by op."""
+    eager = copy.copy(detector)
+    eager.graphs = None
+    return eager
+
+
 def main_path(dev, card, net="res50", per_batch=SERVE_LAUNCHES, extra=(), classes=21):
     """A C4 net's serving path at full width: 3 requests of 8 through
     ``Detector`` with the launch counts per batch, then the steady-state batch
@@ -1447,10 +1546,15 @@ def main_path(dev, card, net="res50", per_batch=SERVE_LAUNCHES, extra=(), classe
 
     torch.cuda.synchronize()
     build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     results = [detector(images) for images in requests]
     torch.cuda.synchronize()
+    # the requests' peak: the eager warm-up, the capture and the replays (a replay
+    # allocates nothing: its memory is the graph's pool, held since the capture)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = dict(build.LAUNCH_COUNTS)
-    log(f"{label}: 3 requests x 8 images served; kernel launches {counts}")
+    log(f"{label}: 3 requests x 8 images served; kernel launches counted by the wrappers "
+        f"{counts}")
     n_det = 0
     for req in results:
         for dets in req:
@@ -1459,22 +1563,19 @@ def main_path(dev, card, net="res50", per_batch=SERVE_LAUNCHES, extra=(), classe
             n_det += len(dets)
     if n_det == 0:
         raise AssertionError(f"{label}: no detections at SCORE_THRESH 0.0")
-    want = {name: 3 * n for name, n in per_batch.items()}
-    if counts != want:
-        raise AssertionError(f"{label} launch counts {counts} != {want} ({per_batch} per batch; "
-                             "a kernel not named launches 0 times)")
-    log(f"{label}: {n_det} finite detections of shape (k, 6) over 24 images; per batch "
-        f"K1 {per_batch.get('nms', 0)}, K2 {per_batch.get('roi_align', 0)}, "
-        f"K3 {per_batch.get('fused_block', 0)} launches")
+    check_graphed(label, detector, per_batch, 3, counts)
+    (key, seconds), = detector.graphs.capture_seconds.items()
+    log(f"{label}: {n_det} finite detections of shape (k, 6) over 24 images; one graph "
+        f"captured ({seconds:.3f} s) and replayed 3 times, per batch K1 "
+        f"{per_batch.get('nms', 0)}, K2 {per_batch.get('roi_align', 0)}, K3 "
+        f"{per_batch.get('fused_block', 0)} launches")
 
     data = torch.from_numpy(blob).to(dev)
     im_info = torch.tensor([[float(bh), float(bw), 1.0]] * 8, device=dev)
-    torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: detector.detect_blobs(data, im_info), iters=10, warmup=2)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"{label} steady state ({net}, batch 8, {bh}x{bw}, bf16 trunk): {ms:.3f} ms per batch "
-        f"(median of 10, CUDA events), {8000.0 / ms:.2f} images/s, peak device memory "
-        f"{peak:.3f} GiB on {card}")
+    log(f"{label} steady state ({net}, batch 8, {bh}x{bw}, bf16 trunk, graphed): {ms:.3f} ms "
+        f"per batch (median of 10, CUDA events), {8000.0 / ms:.2f} images/s, peak device memory "
+        f"{peak:.3f} GiB over the requests (warm-up, capture, replays) on {card}")
     return counts, ms, detector, data, im_info
 
 
@@ -1533,18 +1634,19 @@ def end_to_end(dev, net="res50", extra=(), launches=E2E_LAUNCHES, classes=21):
     cpu_model = build_seeded(cfg, torch.float32, seed=1, net=net, classes=classes)
     card_model = build_seeded(cfg, torch.float32, seed=1, net=net, classes=classes)
     im = synthetic_images(np.random.RandomState(5), [(320, 480)])
-    before = dict(build.LAUNCH_COUNTS)
-    got = Detector(card_model)(im)[0]
-    after = dict(build.LAUNCH_COUNTS)
+    card = Detector(card_model)
+    first, ran = launches_during(lambda: card(im)[0])
+    got = card(im)[0]                  # replayed again: the outputs are the replay's own
     want = Detector(cpu_model, device="cpu")(im)[0]
-    ran = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
-    if ran != launches:
-        raise AssertionError(f"f32 {net} {list(extra)} card detect ran {ran}, not {launches}")
+    check_graphed(f"f32 {net} {list(extra)} card detect", card, launches, 2, ran)
+    if not np.array_equal(first, got):
+        raise AssertionError(f"f32 {net} {list(extra)}: a second replay differs from the first")
     if len(want) == 0:
         raise AssertionError(f"f32 {net} {list(extra)} detect: no detections to compare")
     match_dets(want, got, f"f32 {net} {list(extra)} detect, card vs CPU")
-    log(f"{net} {list(extra)} end to end (f32, TF32 off, 320x480): card detect ({ran}) matches "
-        f"the CPU copy (twins): {len(want)} detections, score atol 1e-3, box atol 5e-2")
+    log(f"{net} {list(extra)} end to end (f32, TF32 off, 320x480): card detect (graphed, "
+        f"{launches} a replay) matches the CPU copy (twins): {len(want)} detections, score atol "
+        f"1e-3, box atol 5e-2")
 
 
 def top_path(dev, card):
@@ -1582,7 +1684,7 @@ def top_path(dev, card):
         f"through K1 equals its twin's: detections and valid masks equal "
         f"({int(got[1].sum())} detections); postprocess_detections {k_ms:.4f} ms with K1, "
         f"{t_ms:.4f} ms with the twin")
-    return counts, ms
+    return counts, ms, detector
 
 
 # per FPN detect batch at 800x1216: the 6 stride-1 blocks of layer1-2, K5 on
@@ -1665,10 +1767,13 @@ def fpn_path(dev, card, net="res50_fpn", per_batch=FPN_LAUNCHES):
 
     torch.cuda.synchronize()
     build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     results = [detector(images) for images in requests]
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30        # as in main_path
     counts = dict(build.LAUNCH_COUNTS)
-    log(f"{net} path: 3 requests x 8 images served; kernel launches {counts}")
+    log(f"{net} path: 3 requests x 8 images served; kernel launches counted by the wrappers "
+        f"{counts}")
     n_det = 0
     for req in results:
         for dets in req:
@@ -1677,23 +1782,20 @@ def fpn_path(dev, card, net="res50_fpn", per_batch=FPN_LAUNCHES):
             n_det += len(dets)
     if n_det == 0:
         raise AssertionError(f"{net}: no detections at SCORE_THRESH 0.0")
-    want = {name: 3 * n for name, n in per_batch.items()}
-    if counts != want:
-        raise AssertionError(f"{net} launch counts {counts} != {want} ({per_batch} per batch; "
-                             "a kernel not named launches 0 times)")
-    log(f"{net} path: {n_det} finite detections of shape (k, 6) over 24 images; per batch "
+    check_graphed(f"{net} serving path", detector, per_batch, 3, counts)
+    (_, seconds), = detector.graphs.capture_seconds.items()
+    log(f"{net} path: {n_det} finite detections of shape (k, 6) over 24 images; one graph "
+        f"captured ({seconds:.3f} s) and replayed 3 times, per batch "
         + ", ".join(f"{name} {per_batch.get(name, 0)}" for name in ("fused_block", "select",
                                                                      "nms", "roi_align_ml"))
         + " launches")
 
     data = torch.from_numpy(blob).to(dev)
     im_info = torch.tensor([[float(bh), float(bw), 1.0]] * 8, device=dev)
-    torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: detector.detect_blobs(data, im_info), iters=10, warmup=2)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"FPN serving path steady state ({net}, batch 8, {bh}x{bw}, bf16 trunk): {ms:.3f} ms "
+    log(f"FPN serving path steady state ({net}, batch 8, {bh}x{bw}, bf16 trunk, graphed): {ms:.3f} ms "
         f"per batch (median of 10, CUDA events), {8000.0 / ms:.2f} images/s, peak device memory "
-        f"{peak:.3f} GiB on {card}")
+        f"{peak:.3f} GiB over the requests (warm-up, capture, replays) on {card}")
     return counts, detector, data, im_info, ms
 
 
@@ -1707,18 +1809,17 @@ def fpn_end_to_end(dev, net="res50_fpn"):
     cpu_model = build_seeded(cfg, torch.float32, seed=1, net=net)
     card_model = build_seeded(cfg, torch.float32, seed=1, net=net)
     im = synthetic_images(np.random.RandomState(5), [(320, 480)])
-    before = dict(build.LAUNCH_COUNTS)
-    got = Detector(card_model)(im)[0]
-    after = dict(build.LAUNCH_COUNTS)
+    card = Detector(card_model)
+    got, ran = launches_during(lambda: card(im)[0])
     want = Detector(cpu_model, device="cpu")(im)[0]
-    ran = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
     # P2 of 320x480 (28800 anchors) passes the K5 gate, P3 (7200) does not
-    if ran != {"nms": 2, "roi_align_ml": 1, "select": 1}:
-        raise AssertionError(f"f32 {net} card detect did not run K1 x2, K6 x1, K5 x1: {ran}")
+    check_graphed(f"f32 {net} card detect", card, {"nms": 2, "roi_align_ml": 1, "select": 1},
+                  1, ran)
     if len(want) == 0:
         raise AssertionError(f"f32 {net} detect: no detections to compare")
     match_dets(want, got, f"f32 {net} detect, card vs CPU")
-    log(f"{net} end to end (f32, TF32 off, 320x480): card detect (K1 x2, K5 x1, K6 x1) matches "
+    log(f"{net} end to end (f32, TF32 off, 320x480): card detect (graphed; K1 x2, K5 x1, K6 x1 "
+        f"a replay) matches "
         f"the CPU copy (twins): {len(want)} detections, score atol 1e-3, box atol 5e-2")
 
 
@@ -2214,17 +2315,25 @@ def test_net_path(dev, card, workdir, reader, snapshot, serve_ms):
     all_counts, all_aps = [], []
     for net, model, per_batch, batch_ms in nets:
         out = os.path.join(workdir, "test_" + net)
+        # eager first (the figure before graphs), then graphed, which is counted
+        with made_detectors(eager=True):
+            t0 = time.perf_counter()
+            test_net(model, imdb, cfg, out + "_eager", max_per_image=100, batch=8,
+                     reader=reader)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         build.reset_launch_counts()
-        t0 = time.perf_counter()
-        aps = test_net(model, imdb, cfg, out, max_per_image=100, batch=8, reader=reader)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        with made_detectors() as made:
+            t0 = time.perf_counter()
+            aps = test_net(model, imdb, cfg, out, max_per_image=100, batch=8, reader=reader)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
         counts = dict(build.LAUNCH_COUNTS)
-        want = {name: 2 * n for name, n in per_batch.items()}
-        if counts != want or next(model.parameters()).device != dev:
-            raise AssertionError(f"test_net {net}: launch counts {counts} != {want} ({per_batch} "
-                                 f"per batch), model on {next(model.parameters()).device}")
+        check_graphed(f"test_net {net}", made[0], per_batch, 2, counts)
+        capture_s = sum(made[0].graphs.capture_seconds.values())
+        if next(model.parameters()).device != dev:
+            raise AssertionError(f"test_net {net}: model on {next(model.parameters()).device}")
         with open(os.path.join(out, "detections.pkl"), "rb") as f:
             all_boxes = pickle.load(f)
         if len(all_boxes) != 21 or any(len(c) != 16 for c in all_boxes) or not all(
@@ -2237,10 +2346,12 @@ def test_net_path(dev, card, workdir, reader, snapshot, serve_ms):
             raise AssertionError(f"test_net {net}: {n_det} detections, APs {aps}")
         log(f"test_net {net} (16 images at 800x1216, batch 8, bf16 trunk, SCORE_THRESH 0.0): "
             f"detections.pkl read back ({n_det} detections), 20 per-class APs and mAP "
-            f"{aps['mAP']:.4f} finite in [0, 1]; launches per batch "
-            f"{ {k: v // 2 for k, v in counts.items()} }; {16 / seconds:.2f} images/s end to end "
-            f"(reader, prep thread, detect, readback, VOC eval; {seconds:.3f} s) against "
-            f"Detector.detect_blobs' {8000.0 / batch_ms:.2f} on a device-resident batch; on {card}")
+            f"{aps['mAP']:.4f} finite in [0, 1]; launches a replay {per_batch} (2 replays of "
+            f"one graph); graphed {16 / seconds:.2f} images/s end to end (reader, prep thread, "
+            f"detect, readback, VOC eval; {seconds:.3f} s, of which the warm-up and capture "
+            f"{capture_s:.3f} s: {16 / (seconds - capture_s):.2f} images/s without them) against "
+            f"eager {16 / eager_s:.2f} ({eager_s:.3f} s) and Detector.detect_blobs' "
+            f"{8000.0 / batch_ms:.2f} on a device-resident batch; on {card}")
         all_counts.append(counts)
         all_aps.append(aps)
     return all_counts, all_aps[0]
@@ -2264,10 +2375,12 @@ def test_net_card_vs_cpu(dev, workdir, reader):
     for device in (None, "cpu"):                              # None: the card
         out = os.path.join(workdir, f"val_{device or 'card'}")
         model = build_seeded(cfg, torch.float32, seed=1)
-        before = dict(build.LAUNCH_COUNTS)
-        test_net(model, imdb, cfg, out, batch=4, reader=reader, device=device)
-        ran.append({k: v - before.get(k, 0) for k, v in build.LAUNCH_COUNTS.items()
-                    if v != before.get(k, 0)})
+        with made_detectors() as made:
+            ran.append(launches_during(lambda: test_net(model, imdb, cfg, out, batch=4,
+                                                        reader=reader, device=device))[1])
+        if device is None:       # one batch of 4: one graph captured and replayed once
+            check_graphed("f32 test_net on the card", made[0], {"nms": 2, "roi_align": 1}, 1,
+                          ran[0])
         before = dict(build.LAUNCH_COUNTS)
         single.append(im_detect(model, reader(imdb.image_path_at(0)), cfg, device=device))
         single_ran.append({k: v - before.get(k, 0) for k, v in build.LAUNCH_COUNTS.items()
@@ -2278,8 +2391,8 @@ def test_net_card_vs_cpu(dev, workdir, reader):
             all_boxes = pickle.load(f)
         dets.append([np.concatenate([np.concatenate([c[i], np.full((len(c[i]), 1), float(k))], 1)
                                      for k, c in enumerate(all_boxes)]) for i in range(4)])
-    if ran != [{"nms": 2, "roi_align": 1}, {}]:
-        raise AssertionError(f"f32 test_net launches: card {ran[0]} (want K1 x2, K2 x1), CPU {ran[1]}")
+    if ran[1] or made[0].graphs is not None:
+        raise AssertionError(f"f32 test_net on the CPU launched {ran[1]} or made graphs")
     total = 0
     for i, (got, want) in enumerate(zip(*dets)):
         match_dets(want, got, f"f32 test_net image {i}, card vs CPU")
@@ -2290,7 +2403,8 @@ def test_net_card_vs_cpu(dev, workdir, reader):
         raise AssertionError(f"f32 im_detect launches: card {single_ran[0]} (want K1 x1, K2 x1), "
                              f"CPU {single_ran[1]}")
     rois = match_im_detect(single[1], single[0], "f32 im_detect, card vs CPU")
-    log(f"test_net end to end (f32, TF32 off, 4 images at 320x480, batch 4): card (K1 x2, K2 x1) "
+    log(f"test_net end to end (f32, TF32 off, 4 images at 320x480, batch 4): card (graphed, "
+        f"K1 x2, K2 x1 a replay) "
         f"matches the CPU copy per image and class: {total} detections, score atol 1e-3, "
         f"box atol 5e-2; im_detect of image 0 on the card (K1 x1, K2 x1, model on {dev}): "
         f"{rois} rois of per-class scores and boxes matched to the CPU copy's, the same "
@@ -2460,20 +2574,22 @@ def cached_train_net_path(dev, card, workdir, reader, straight, step_ms):
 
 def throughput_path(dev, card, detector, serve_ms, iters=20, warmup=2):
     """``serve.throughput`` on phase 12's seeded res50 C4 (800x1216, bf16,
-    batch 8): images/s > 0 with ``iters + warmup`` x the serving launches.
-    Returns the launch counts."""
+    batch 8), graphed: images/s > 0, one graph captured and replayed ``iters
+    + warmup`` times with the serving launches; beside it the same loop
+    eager (``eager_copy``).  Returns the launch counts."""
     from frcnn_tpu_torch.engine.serve import Detector, throughput
     from frcnn_tpu_torch.ops.cuda import build
 
     det = Detector(detector.model)
+    eager_rate = throughput(eager_copy(det), 8, iters=iters, warmup=warmup)
     torch.cuda.synchronize()
     build.reset_launch_counts()
     rate = throughput(det, 8, iters=iters, warmup=warmup)
     torch.cuda.synchronize()
     counts = dict(build.LAUNCH_COUNTS)
-    want = {name: (iters + warmup) * n for name, n in SERVE_LAUNCHES.items()}
-    if counts != want or not (np.isfinite(rate) and rate > 0):
-        raise AssertionError(f"throughput: {rate} images/s, launch counts {counts} != {want}")
+    check_graphed("serve.throughput", det, SERVE_LAUNCHES, iters + warmup, counts)
+    if not (np.isfinite(rate) and rate > 0):
+        raise AssertionError(f"throughput: {rate} images/s")
     # 12's timing on throughput's own batch (its seed and noise), outside the counted
     # window: what separates the loop from the data (detect's time depends on it)
     h, w = det.cfg.DEVICE.BUCKETS[0]
@@ -2482,10 +2598,11 @@ def throughput_path(dev, card, detector, serve_ms, iters=20, warmup=2):
     im_info = torch.tensor([[float(h), float(w), 1.0]] * 8, device=dev)
     noise_ms = cuda_ms(lambda: det.detect_blobs(noise, im_info), iters=10, warmup=2)
     log(f"serve.throughput (res50 C4, batch 8, 800x1216, bf16 trunk, {iters} timed batches after "
-        f"{warmup}): {rate:.2f} images/s against 8000 / phase 12's batch time "
+        f"{warmup}): graphed {rate:.2f} images/s against eager {eager_rate:.2f} "
+        f"({rate / eager_rate:.4f}x), 8000 / phase 12's graphed batch time "
         f"{8000.0 / serve_ms:.2f} ({rate * serve_ms / 8000.0:.4f}x) and 8000 / 12's timing on "
-        f"throughput's noise batch {8000.0 / noise_ms:.2f} ({noise_ms:.3f} ms); launches per "
-        f"batch { {k: v // (iters + warmup) for k, v in counts.items()} }; on {card}")
+        f"throughput's noise batch {8000.0 / noise_ms:.2f} ({noise_ms:.3f} ms); launches a "
+        f"replay {SERVE_LAUNCHES}; on {card}")
     return counts
 
 
@@ -2755,13 +2872,15 @@ def profile_pool_backward(model):
 
 def profile_fpn_detect(detector, data, im_info, card):
     """Stage breakdown of a steady-state FPN detect batch (``stage_times``
-    over FPN_STAGES), then ``device_profile`` over 3 batches; all into
+    over FPN_STAGES, eager: a replay calls no Python to wrap), then
+    ``device_profile`` over 3 graphed batches; all into
     chiprun_out/profile_fpn.json."""
     from frcnn_tpu_torch.models import fpn
 
     model = detector.model
+    eager = eager_copy(detector)
     owners = {"fpn": fpn, "backbone": model.backbone, "neck": model.neck, "model": model}
-    per_step = stage_times(owners, FPN_STAGES, lambda: detector.detect_blobs(data, im_info))
+    per_step = stage_times(owners, FPN_STAGES, lambda: eager.detect_blobs(data, im_info))
     stages = {name: statistics.median(ms[name] for ms, _ in per_step) for name in per_step[0][0]}
     prof, top = device_profile(lambda: detector.detect_blobs(data, im_info))
     write_profile("profile_fpn.json", "batch", card, stages, prof, top)
@@ -2971,7 +3090,7 @@ def mesh_rank(mesh, arms, serve):
     """One rank of phases 45-47: each (net, dtype, steps) train arm on the
     rank's rows of the global batch, then, with ``serve``, ``Detector`` over
     the mesh on the requests (launches counted) and ``serve.throughput`` of
-    a global batch of 8.  Returns per arm the losses, the replica's digest,
+    a global batch of 8, graphed and eager.  Returns per arm the losses, the replica's digest,
     the launch counts and step times, and rank 0's state."""
     from frcnn_tpu_torch.engine.serve import Detector, throughput
     from frcnn_tpu_torch.ops.cuda import build
@@ -2996,7 +3115,12 @@ def mesh_rank(mesh, arms, serve):
         out["results"] = [det(images) for images in requests]
         torch.cuda.synchronize()
         out["serve_counts"] = dict(build.LAUNCH_COUNTS)
+        g = det.graphs
+        out["serve_graphs"] = {"launches": list(g.launches.values()),
+                               "captures": sum(g.captures.values()),
+                               "replays": sum(g.replays.values())}
         out["images_per_s"] = throughput(det, 8, iters=10, warmup=2)
+        out["eager_images_per_s"] = throughput(eager_copy(det), 8, iters=10, warmup=2)
         del det
         det = Detector(build_seeded(smoke_config(), torch.float32), uint8_input=True,
                        mesh=mesh)
@@ -3169,21 +3293,29 @@ def mesh_phases(card, serve_detector, serve_ms, train_ms):
         raise AssertionError(f"phase 47 bf16: {len(misses)} of the ranks' images unmatched with "
                              f"the unsharded Detector's on the whole request, fewer than "
                              f"{MESH_BF16_MATCHED} matched: {misses[:4]}")
-    want = {name: n * len(MESH_REQUESTS) for name, n in SERVE_LAUNCHES.items()}
+    # graphed: rank 0's rows of the requests, 4, 4, 4 and 3, make two keys
+    graphs = ranks[0]["serve_graphs"]
+    want = {name: 2 * n * graphs["captures"] for name, n in SERVE_LAUNCHES.items()}
     counts["c4_serve_dp"] = ranks[0]["serve_counts"]
-    if counts["c4_serve_dp"] != want:
-        raise AssertionError(f"phase 47: launches {counts['c4_serve_dp']} per rank, not {want} "
-                             f"({SERVE_LAUNCHES} a batch)")
-    rate = ranks[0]["images_per_s"]
+    if (counts["c4_serve_dp"] != want or graphs["captures"] != 2
+            or graphs["replays"] != len(MESH_REQUESTS)
+            or any(n != SERVE_LAUNCHES for n in graphs["launches"])):
+        raise AssertionError(f"phase 47: rank 0's graphs {graphs} (want 2 captures of "
+                             f"{SERVE_LAUNCHES} a replay, {len(MESH_REQUESTS)} replays), the "
+                             f"wrappers counted {counts['c4_serve_dp']}, want {want}")
+    REPLAYED["phase 47 rank 0"] = {name: n * len(MESH_REQUESTS)
+                                   for name, n in SERVE_LAUNCHES.items()}
+    rate, eager_rate = ranks[0]["images_per_s"], ranks[0]["eager_images_per_s"]
     n_images = 2 * sum(MESH_REQUESTS)
     log(f"phase 47 Detector over the mesh ({where}; res50 C4, bf16 trunk, 800x1216): requests "
         f"of {list(MESH_REQUESTS)} (5 padded to 6): every rank's list the same, each rank's "
         f"rows the unsharded Detector's on those rows bit for bit; {n_images - len(misses)} "
         f"of the ranks' {n_images} images matched one to one with the unsharded Detector's on "
         f"the whole request (at least {MESH_BF16_MATCHED} must; {misses[:2]}); in f32 (TF32 off) all {n_images}; launches per "
-        f"rank {counts['c4_serve_dp']}; serve.throughput over the mesh, global batch 8: "
-        f"{rate:.2f} images/s, {8000.0 / rate:.3f} ms a batch, against {serve_ms:.3f} ms unsharded (phase 12) on "
-        f"{card}")
+        f"rank counted by the wrappers {counts['c4_serve_dp']} (2 graphs captured, "
+        f"{SERVE_LAUNCHES} a replay); serve.throughput over the mesh, global batch 8: graphed "
+        f"{rate:.2f} images/s, {8000.0 / rate:.3f} ms a batch (eager {eager_rate:.2f}), against "
+        f"{serve_ms:.3f} ms unsharded (phase 12) on {card}")
     return counts
 
 
@@ -3281,6 +3413,7 @@ def threshold_route_path(dev, card, detector, label, extra=()):
     (_, blob, info), = iter_bucket_batches(images, saved, keep_uint8=True)
     data, im_info = torch.from_numpy(blob).to(dev), torch.from_numpy(info).to(dev)
     counts, outs, times = {}, {}, {}
+    want = {True: {**SERVE_LAUNCHES, "select": 1}, False: SERVE_LAUNCHES}
     try:
         for route in (True, False):
             model.config = smoke_config([*extra, *ROUTE_CONFIG, "DEVICE.THRESHOLD_SELECT",
@@ -3291,22 +3424,20 @@ def threshold_route_path(dev, card, detector, label, extra=()):
             dets, valid = det.detect_blobs(data, im_info)
             torch.cuda.synchronize()
             counts[route] = dict(build.LAUNCH_COUNTS)
+            check_graphed(f"{label} threshold route {'on' if route else 'off'}", det,
+                          want[route], 1, counts[route])
             outs[route] = (dets.clone(), valid.clone())
             times[route] = cuda_ms(lambda: det.detect_blobs(data, im_info), iters=10, warmup=2)
     finally:
         model.config = saved
-    want = {True: {**SERVE_LAUNCHES, "select": 1}, False: SERVE_LAUNCHES}
-    if counts != want:
-        raise AssertionError(f"{label} threshold route: launches on {counts[True]} off "
-                             f"{counts[False]}, want {want}")
     (d_on, v_on), (d_off, v_off) = outs[True], outs[False]
     if not (torch.equal(d_on, d_off) and torch.equal(v_on, v_off)):
         raise AssertionError(f"{label} threshold route: detections differ with the route on "
                              f"({(d_on != d_off).any(-1).sum().item()} rows)")
     log(f"{label} threshold route (TEST.RPN_PRE_NMS_TOP_N 1000, bf16, batch 8, {bh}x{bw}): "
         f"detections ({int(v_on.sum())} valid) and valid masks bit-equal with "
-        f"DEVICE.THRESHOLD_SELECT on and off; K5 1 a batch on, 0 off; {times[True]:.3f} ms a "
-        f"batch on, {times[False]:.3f} off (median of 10, CUDA events) on {card}")
+        f"DEVICE.THRESHOLD_SELECT on and off; K5 1 a replay on, 0 off; {times[True]:.3f} ms a "
+        f"graphed batch on, {times[False]:.3f} off (median of 10, CUDA events) on {card}")
     return counts
 
 
@@ -3460,15 +3591,15 @@ def coco_train_test_path(dev, card, serve_ms):
         test_out = os.path.join(workdir, "test")
         torch.cuda.synchronize()
         build.reset_launch_counts()
-        t0 = time.perf_counter()
-        stats = test_net(model.eval(), val, test_cfg, test_out, max_per_image=100, batch=8,
-                         reader=reader)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        with made_detectors() as made:
+            t0 = time.perf_counter()
+            stats = test_net(model.eval(), val, test_cfg, test_out, max_per_image=100, batch=8,
+                             reader=reader)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
         test_counts = dict(build.LAUNCH_COUNTS)
-        want = {name: 2 * n for name, n in SERVE_LAUNCHES.items()}
-        if test_counts != want:
-            raise AssertionError(f"COCO test_net: launch counts {test_counts} != {want}")
+        check_graphed("COCO test_net", made[0], SERVE_LAUNCHES, 2, test_counts)
+        capture_s = sum(made[0].graphs.capture_seconds.values())
         with open(os.path.join(test_out, f"detections_{val.name}_results.json")) as f:
             results = json.load(f)
         bad = {r["category_id"] for r in results} - set(ids)
@@ -3486,9 +3617,10 @@ def coco_train_test_path(dev, card, serve_ms):
         log(f"COCO test_net (res101 from the train_net snapshot, minival2014: 16 images at "
             f"800x1216, batch 8, bf16, SCORE_THRESH 0.0): {len(results)} results in the json at "
             f"their COCO category ids, the 12 stats finite in [-1, 1] (AP {stats['AP']:.4f}, "
-            f"AR100 {stats['AR100']:.4f}); launches per batch "
-            f"{ {k: v // 2 for k, v in test_counts.items()} }; {16 / seconds:.2f} images/s end "
-            f"to end ({seconds:.3f} s: reader, prep thread, detect, readback, COCOEval) against "
+            f"AR100 {stats['AR100']:.4f}); launches a replay {SERVE_LAUNCHES} (2 replays of one "
+            f"graph); {16 / seconds:.2f} images/s end to end ({seconds:.3f} s: reader, prep "
+            f"thread, detect with the graph's warm-up and capture ({capture_s:.3f} s), readback, "
+            f"COCOEval) against "
             f"detect_blobs' {8000.0 / serve_ms:.2f} on a device-resident batch; on {card}")
 
         t2 = time.perf_counter()
@@ -3511,11 +3643,12 @@ def coco_train_test_path(dev, card, serve_ms):
     return train_counts, test_counts
 
 
-def coco_phases(dev, card, serve_detector):
+def coco_phases(dev, card, serve_detector, models):
     """Phases 48-50: res101 at 81 classes and four anchor scales served, the
     C4 threshold route on it and on phase 12's res50 (``serve_detector``),
     then train_net -> test_net -> COCOEval.  Returns the launch counts by
-    path (48, 49 on and off for each model, and 50's driven runs)."""
+    path (48, 49 on and off for each model, and 50's driven runs); the
+    served model goes into ``models`` for phase 51."""
     paths = {}
     paths["coco_serve"], coco_ms, coco_detector = main_path(dev, card, "res101", SERVE_LAUNCHES,
                                                             COCO_CONFIG, COCO_CLASSES)[:3]
@@ -3524,16 +3657,252 @@ def coco_phases(dev, card, serve_detector):
         label = "res101 COCO" if name == "coco" else "res50 VOC"
         route = threshold_route_path(dev, card, det, label, extra)
         paths[f"c4_route_{name}_on"], paths[f"c4_route_{name}_off"] = route[True], route[False]
+    models["res101_coco"] = coco_detector.model
     del coco_detector
     paths["coco_train_net"], paths["coco_test_net"] = coco_train_test_path(dev, card, coco_ms)
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 51: graphed serving against eager detect
+# ---------------------------------------------------------------------------
+
+# the serving families of phases 12, 14, 23, 27, 31, 36 and 48: (name, net,
+# config, classes, launches a batch)
+SERVING_FAMILIES = (
+    ("res50", "res50", (), 21, SERVE_LAUNCHES),
+    ("res50_fpn", "res50_fpn", (), 21, FPN_LAUNCHES),
+    ("res50_fpn_gn", "res50_fpn_gn", GN_CONFIG, 21, FPN_GN_LAUNCHES),
+    ("vgg16", "vgg16", (), 21, C4_PLAIN_SERVE_LAUNCHES),
+    ("mobile", "mobile", (), 21, C4_PLAIN_SERVE_LAUNCHES),
+    ("vgg16_top", "vgg16", ("TEST.MODE", "top"), 21, TOP_SERVE_LAUNCHES),
+    ("res101_coco", "res101", COCO_CONFIG, COCO_CLASSES, SERVE_LAUNCHES),
+)
+# the device kernel each wrapper's count stands for, as torch.profiler names it
+KERNEL_SYMBOLS = {"nms": "nms_chunk_kernel", "roi_align": "roi_align_fwd_kernel",
+                  "roi_align_ml": "roi_align_ml_fwd_kernel",
+                  "fused_block": "fused_bottleneck_kernel", "select": "topk_select_kernel",
+                  "overlap": "overlap_stats_kernel", "roi_align_bwd": "roi_align_bwd_tile_kernel"}
+
+
+def profiled_kernels(step):
+    """torch.profiler over one ``step()``: the port's kernels it ran on the
+    device, by wrapper name, and the profile (``device_profile``)."""
+    prof, top = device_profile(step, n_steps=1)
+    ran = {}
+    for name, _, n in top:
+        for wrapper, symbol in KERNEL_SYMBOLS.items():
+            if symbol in name:
+                ran[wrapper] = ran.get(wrapper, 0) + int(round(n))
+    return ran, prof
+
+
+def wall_ms(step, n=10):
+    """Host milliseconds of ``n`` calls of ``step()`` queued back to back,
+    from a synchronized device to the last call's end."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def eager_detections(model, images, cfg, max_per_image, dev):
+    """``model.detect`` op by op on ``images``' bucket groups (uint8, as
+    ``Detector(uint8_input=True)`` prepares them) → per image (k, 6)
+    arrays, and the groups' (dets, valid) tensors."""
+    from frcnn_tpu_torch.engine.serve import iter_bucket_batches
+
+    results, groups = [None] * len(images), []
+    for indices, data, info in iter_bucket_batches(images, cfg, keep_uint8=True):
+        data, info = torch.from_numpy(data).to(dev), torch.from_numpy(info).to(dev)
+        with torch.inference_mode():
+            dets, valid = model.detect(data, info, max_per_image)
+        groups.append((data, info, dets, valid))
+        d, v = dets.cpu().numpy(), valid.cpu().numpy()
+        for bi, i in enumerate(indices):
+            results[i] = d[bi][v[bi]]
+    return results, groups
+
+
+def graphed_family(dev, card, name, model, per_batch):
+    """One serving family graphed against eager: a new ``Detector`` on the
+    phase's model, 3 requests of 8 at 800x1216 (phase 12's images), each
+    image's detections and each batch's (dets, valid) bit-equal to eager
+    ``model.detect`` on the same batches; the capture-time launches equal to
+    eager detect's and to a profiled replay's device kernels; batch ms
+    (median of 10 after 2, CUDA events) and the host ms of 10 queued calls,
+    both ways; the device's idle share both ways (torch.profiler, 3 calls);
+    the capture's seconds and the peak device memory with the graph
+    captured."""
+    from frcnn_tpu_torch.engine.serve import Detector
+
+    cfg = model.config
+    bh, bw = cfg.DEVICE.BUCKETS[0]
+    rng = np.random.RandomState(3)
+    requests = [synthetic_images(rng, [(bh, bw), (bh * 3 // 4, bw * 3 // 4)] * 4)
+                for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    det = Detector(model, uint8_input=True)
+    got, counts = launches_during(lambda: [det(images) for images in requests])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    check_graphed(f"phase 51 {name}", det, per_batch, 3, counts)
+    (key, capture_s), = det.graphs.capture_seconds.items()
+    for r, images in enumerate(requests):
+        want, groups = eager_detections(model, images, cfg, det.max_per_image, dev)
+        for i, (w, g) in enumerate(zip(want, got[r])):
+            if not np.array_equal(w, g):
+                raise AssertionError(f"phase 51 {name} request {r} image {i}: the graphed "
+                                     f"detections differ from eager detect's ({len(g)} rows, "
+                                     f"{len(w)} eager)")
+        for data, info, dets, valid in groups:
+            gd, gv = det.detect_blobs(data, info)
+            if not (torch.equal(gd, dets) and torch.equal(gv, valid)):
+                raise AssertionError(f"phase 51 {name} request {r}: detect_blobs' (dets, valid) "
+                                     f"differ from eager detect's by up to "
+                                     f"{(gd - dets).abs().max().item():.6g}")
+    data, info = groups[0][:2]
+
+    def eager():
+        with torch.inference_mode():
+            return model.detect(data, info, det.max_per_image)
+
+    def graphed():
+        return det.detect_blobs(data, info)
+
+    _, eager_counts = launches_during(eager)
+    on_device, _ = profiled_kernels(graphed)
+    if not (eager_counts == det.graphs.launches[key] == per_batch == on_device):
+        raise AssertionError(f"phase 51 {name}: eager detect called {eager_counts}, the capture "
+                             f"{det.graphs.launches[key]}, a profiled replay ran {on_device}; "
+                             f"want {per_batch}")
+    out = {"capture_s": capture_s, "peak_gib": peak, "reserved_gib": reserved,
+           "launches": per_batch}
+    for way, step in (("eager", eager), ("graphed", graphed)):
+        out[f"{way}_ms"] = cuda_ms(step, iters=10, warmup=2)
+        out[f"{way}_wall10_ms"] = wall_ms(step)
+        prof, _ = device_profile(step, n_steps=3)
+        out[f"{way}_idle_share"] = prof["idle_share"]
+        out[f"{way}_busy_ms"] = prof["device_busy_ms"] / 3
+    log(f"phase 51 {name} (batch 8, {bh}x{bw}, bf16): graphed detections bit-equal to eager "
+        f"detect over 3 requests of 8; launches a batch {per_batch} at capture, in eager detect "
+        f"and in a profiled replay; eager {out['eager_ms']:.3f} ms, graphed "
+        f"{out['graphed_ms']:.3f} ms a batch (median of 10, CUDA events); 10 queued calls "
+        f"{out['eager_wall10_ms']:.3f} / {out['graphed_wall10_ms']:.3f} ms; device idle "
+        f"{out['eager_idle_share']:.4f} / {out['graphed_idle_share']:.4f} (busy "
+        f"{out['eager_busy_ms']:.3f} / {out['graphed_busy_ms']:.3f} ms a batch); capture "
+        f"{capture_s:.3f} s (warm-up included); peak device memory {peak:.3f} GiB, reserved "
+        f"{reserved:.3f} GiB with the graph captured; on {card}")
+    return out
+
+
+class HostRead(torch.nn.Module):
+    """A toy ``detect`` that reads a value back (``.item()``): legal op by
+    op, refused under CUDA graph capture."""
+
+    def __init__(self, dev):
+        super().__init__()
+        self.scale = torch.nn.Parameter(torch.ones((), device=dev))
+        self.config = None
+
+    def detect(self, data, im_info, max_per_image):
+        s = data.float().sum(dim=(1, 2, 3)) * self.scale
+        if s[0].item() > 0:
+            s = s + 1.0
+        return s[:, None, None].expand(-1, 1, 6).contiguous(), (s > 0)[:, None]
+
+
+def graphed_serving(dev, card, models):
+    """Phase 51: ``graphed_family`` for each of ``SERVING_FAMILIES`` on the
+    models of their phases (``models`` by name); then two keys in one
+    ``Detector`` (phase 12's model, buckets 800x1216 and 1216x800: a request
+    of 8 landscape and 3 portrait images captures B 8 then B 3, and a
+    request with the portrait images first replays them in the reverse
+    order, both groups pending until read back), each request bit-equal to
+    eager detect, with the peak memory after the two captures; then a
+    capture that fails (``HostRead``) raises, naming its key and line, with
+    no replay, and phase 12's model still serves bit-equal to eager."""
+    from frcnn_tpu_torch.engine.graphs import DetectGraphs
+    from frcnn_tpu_torch.engine.serve import Detector
+
+    t0 = time.perf_counter()
+    families = {name: graphed_family(dev, card, name, models[name], per_batch)
+                for name, _, _, _, per_batch in SERVING_FAMILIES}
+
+    model = models["res50"]
+    cfg = smoke_config(["DEVICE.BUCKETS", "((800, 1216), (1216, 800))"])
+    rng = np.random.RandomState(19)
+    land = synthetic_images(rng, [(800, 1216), (600, 912)] * 4)
+    port = synthetic_images(rng, [(1216, 800), (912, 600), (1216, 800)])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    det = Detector(model, cfg, uint8_input=True)
+    first = det(land + port)              # captures B 8 (800x1216), then B 3 (1216x800)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    second = det(port + land)             # replays B 3, then B 8
+    keys = dict(det.graphs.captures)
+    if sorted(k[:3] for k in keys) != [(3, 1216, 800), (8, 800, 1216)] or \
+            set(keys.values()) != {1} or set(det.graphs.replays.values()) != {2}:
+        raise AssertionError(f"phase 51 two keys: captures {keys}, replays "
+                             f"{dict(det.graphs.replays)}")
+    for label, request, got in (("capture order", land + port, first),
+                                ("reverse order", port + land, second)):
+        want, _ = eager_detections(model, request, cfg, det.max_per_image, dev)
+        for i, (w, g) in enumerate(zip(want, got)):
+            if not np.array_equal(w, g):
+                raise AssertionError(f"phase 51 two keys, {label}, image {i}: the graphed "
+                                     "detections differ from eager detect's")
+    two_keys = {"peak_gib": peak, "reserved_gib": reserved,
+                "capture_s": sum(det.graphs.capture_seconds.values())}
+    log(f"phase 51 two keys in one Detector (res50 C4, buckets 800x1216 and 1216x800, one pool): "
+        f"B 8 and B 3 captured in that order, then replayed in the reverse order inside one "
+        f"request, both groups pending until read back: every image bit-equal to eager detect; "
+        f"peak device memory after the two captures {peak:.3f} GiB, reserved {reserved:.3f} GiB; "
+        f"captures {two_keys['capture_s']:.3f} s; on {card}")
+    del det
+
+    toy = DetectGraphs(HostRead(dev), 1, dev)
+    try:
+        toy(torch.ones(2, 4, 6, 3, device=dev), torch.ones(2, 3, device=dev))
+    except RuntimeError as e:
+        why = str(e)
+        if "(2, 4, 6, torch.float32, 1)" not in why or ".item()" not in why:
+            raise AssertionError(f"phase 51: a failed capture's error names no key or line: "
+                                 f"{why}") from e
+    else:
+        raise AssertionError("phase 51: a host read under capture did not raise")
+    if toy.captures or toy.replays:
+        raise AssertionError("phase 51: a failed capture was kept or replayed")
+    again = Detector(model, uint8_input=True)
+    request = synthetic_images(np.random.RandomState(3), [(800, 1216), (600, 912)] * 4)
+    want, _ = eager_detections(model, request, model.config, again.max_per_image, dev)
+    if not all(np.array_equal(w, g) for w, g in zip(want, again(request))):
+        raise AssertionError("phase 51: after the failed capture a new graph differs from eager")
+    seconds = time.perf_counter() - t0
+    log(f"phase 51 a capture that fails: a host read (.item()) under capture raised "
+        f"RuntimeError naming the key and the line ({why.splitlines()[0][:240]}), nothing kept "
+        f"or replayed; a new Detector then captured and served bit-equal to eager")
+    log(f"phase 51: {seconds:.1f} s")
+    result = {"card": card, "families": families, "two_keys": two_keys, "seconds": seconds}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "graphed_serving.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description="Smoke run of frcnn_tpu_torch on one card.")
-    parser.add_argument("--only", choices=("kernels", "coco"),
+    parser.add_argument("--only", choices=("kernels", "coco", "graphs"),
                         help="kernels: stop after the kernel phases; coco: the kernel phases, "
-                             "12 and the COCO phases 48-50 (a partial run: no ok line)")
+                             "12 and the COCO phases 48-50; graphs: 12, then phase 51 on "
+                             "models built for it (a partial run: no ok line)")
     parser.add_argument("--profile", action="store_true",
                         help="time each stage of the C4, FPN and GroupNorm FPN train steps "
                              "and of an FPN detect batch and profile the device (chiprun_out/"
@@ -3586,6 +3955,17 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log(f"ptxas: {line.strip()}")
 
+    if args.only == "graphs":
+        # a partial run: 12, then phase 51 on models built for it; no ok line
+        models = {"res50": main_path(dev, card)[2].model}
+        for name, net, extra, classes, _ in SERVING_FAMILIES[1:]:
+            models[name] = build_seeded(smoke_config(extra), torch.bfloat16, net=net,
+                                        classes=classes)
+        graphed_serving(dev, card, models)
+        print(json.dumps({"replayed_launches_by_path": REPLAYED}))
+        print(card)
+        return 0
+
     k1 = check_nms(dev)
     k2 = check_roi_align(dev)
     k3 = check_fused_block(dev)
@@ -3606,9 +3986,10 @@ def main(argv=None) -> int:
         return 0
 
     serve_counts, serve_ms, serve_detector = main_path(dev, card)[:3]
+    models = {"res50": serve_detector.model}      # phase 51's, by SERVING_FAMILIES name
     if args.only == "coco":
         # a partial run: 12, then the COCO phases alone; no ok line
-        coco_paths = coco_phases(dev, card, serve_detector)
+        coco_paths = coco_phases(dev, card, serve_detector, models)
         print(json.dumps({"kernel_checks": [{"name": name, **results[name]}
                                             for name, _, _ in KERNELS],
                           "launches_by_path": coco_paths}))
@@ -3616,6 +3997,7 @@ def main(argv=None) -> int:
         return 0
     end_to_end(dev)
     fpn_counts, fpn_detector, fpn_data, fpn_info, fpn_ms = fpn_path(dev, card)
+    models["res50_fpn"] = fpn_detector.model
     fpn_end_to_end(dev)
     train_counts, solver, train_ms = train_path(dev, card)
     train_card_vs_cpu(dev)
@@ -3635,7 +4017,9 @@ def main(argv=None) -> int:
         host_ops_path(workdir, c4_aps)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    gn_counts = fpn_path(dev, card, "res50_fpn_gn", FPN_GN_LAUNCHES)[0]
+    gn_counts, gn_detector = fpn_path(dev, card, "res50_fpn_gn", FPN_GN_LAUNCHES)[:2]
+    models["res50_fpn_gn"] = gn_detector.model
+    del gn_detector
     fpn_end_to_end(dev, "res50_fpn_gn")
     gn_train_counts, gn_solver, _ = train_path(dev, card, "res50_fpn_gn", FPN_GN_TRAIN_LAUNCHES,
                                                GN_TRAIN_CONFIG)
@@ -3643,23 +4027,30 @@ def main(argv=None) -> int:
     # VGG-16 and MobileNet (width 1.0), the other pooling modes, TEST.MODE top
     new_paths = {}
     for net in ("vgg16", "mobile"):
-        new_paths[f"{net}_serve"] = main_path(dev, card, net, C4_PLAIN_SERVE_LAUNCHES)[0]
+        new_paths[f"{net}_serve"], _, served = main_path(dev, card, net,
+                                                        C4_PLAIN_SERVE_LAUNCHES)[:3]
+        models[net] = served.model
+        del served
         end_to_end(dev, net)
         new_paths[f"{net}_train"] = train_path(dev, card, net, C4_PLAIN_TRAIN_LAUNCHES)[0]
         train_card_vs_cpu(dev, net)
     for pooling in ("pool", "crop"):
         end_to_end(dev, "mobile", ("POOLING_MODE", pooling), {"nms": 2})
         train_card_vs_cpu(dev, "mobile", pooling)
-    new_paths["vgg16_top_serve"] = top_path(dev, card)[0]
+    new_paths["vgg16_top_serve"], _, served = top_path(dev, card)
+    models["vgg16_top"] = served.model
+    del served
     # 300 rois an image: VGG-16's fc6 over the full 5000 would take the CPU copy ~10 s
     end_to_end(dev, "vgg16", ("TEST.MODE", "top", "TEST.RPN_TOP_N", "300"), TOP_SERVE_LAUNCHES)
     # the data mesh: rank 0's counts of phases 45-47
     new_paths.update(mesh_phases(card, serve_detector, serve_ms,
                                  {"res50": train_ms, "res50_fpn": fpn_train_ms}))
-    coco_paths = coco_phases(dev, card, serve_detector)
+    coco_paths = coco_phases(dev, card, serve_detector, models)
     coco_train_counts = coco_paths.pop("coco_train_net")
     coco_test_counts = coco_paths.pop("coco_test_net")
     new_paths.update(coco_paths)
+    graphed_serving(dev, card, models)
+    del models
     if args.profile:
         profile_train_step(solver, card)
         profile_fpn_detect(fpn_detector, fpn_data, fpn_info, card)
@@ -3687,8 +4078,11 @@ def main(argv=None) -> int:
         missing = [key for key in RESULTS_KEYS if key not in results[name]]
         if missing:
             raise AssertionError(f"kernel {name}: no {missing} in its results")
+        replayed = {path: c[name] for path, c in REPLAYED.items() if c.get(name)}
         entry = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                 "launches": launches, "launches_by_path": by_path, **results[name]}
+                 "launches": launches, "launches_by_path": by_path,
+                 "replayed_launches": sum(replayed.values()),
+                 "replayed_launches_by_path": replayed, **results[name]}
         if name in also:
             rep2, timing = also[name]
             entry["also_replaces"] = rep2

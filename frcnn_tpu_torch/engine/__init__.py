@@ -1,4 +1,5 @@
-"""Engines of the PyTorch port: serving (``serve.Detector``) and training
+"""Engines of the PyTorch port: serving (``serve.Detector``, which on the
+card replays ``graphs.DetectGraphs``' captured CUDA graphs) and training
 (``train.SolverWrapper``), and the device rule they share."""
 
 from __future__ import annotations

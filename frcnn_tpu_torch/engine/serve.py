@@ -9,7 +9,14 @@ replica of the model and detects its rows of each bucket group, padded to
 a multiple of the mesh size with copies of the group's last image; the
 rows are gathered on the host after readback, so every rank returns the
 whole list.  Detection is per image, so the result is the unsharded
-detector's."""
+detector's.
+
+On the card every ``detect`` call replays a CUDA graph captured once per
+(B, bh, bw, input dtype, max_per_image), the counterpart of the JAX
+engine's ``jax.jit(detect)`` (``engine/graphs.py``: all graphs of one
+``Detector`` share a memory pool; under a mesh, one set a rank, the
+collectives outside the graphs).  There is no switch, as JAX has none for
+``jit``; on the CPU (``device="cpu"``) ``detect`` runs eagerly."""
 
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 from frcnn_tpu_torch.config import Config
 from frcnn_tpu_torch.data.loader import pick_scale_and_bucket, prep_im_for_blob
 from frcnn_tpu_torch.engine import resolve_device
+from frcnn_tpu_torch.engine.graphs import DetectGraphs
 from frcnn_tpu_torch.parallel.mesh import barrier, gather_rows, replicate, shard_batch
 
 
@@ -70,7 +78,9 @@ class Detector:
     """Batched, optionally data-parallel detection service.  The model is
     moved to ``device``: ``cuda:0`` by default (a ``RuntimeError`` when
     there is no card), ``"cpu"`` on request, the mesh's device under a
-    ``mesh``, where it is replicated from rank 0.
+    ``mesh``, where it is replicated from rank 0.  On a card ``graphs`` (a
+    ``DetectGraphs``, made after the move and the replication) replays
+    ``detect``; on the CPU it is None and ``detect`` runs eagerly.
 
     Usage:
         det = Detector(model)               # or Detector(model, mesh=mesh) on every rank
@@ -90,9 +100,13 @@ class Detector:
         # uint8_input: resize/pad/ship uint8 — 4x less host→device traffic;
         # the cast and mean subtraction run on the device either way
         self.uint8_input = uint8_input
+        self.graphs = (DetectGraphs(self.model, self.max_per_image, self.device)
+                       if self.device.type == "cuda" else None)
 
     @torch.inference_mode()
     def _detect(self, data, im_info):
+        if self.graphs is not None:
+            return self.graphs(data, im_info)
         data = torch.as_tensor(data).to(self.device)
         im_info = torch.as_tensor(im_info, dtype=torch.float32).to(self.device)
         return self.model.detect(data, im_info, self.max_per_image)

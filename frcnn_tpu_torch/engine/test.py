@@ -40,7 +40,9 @@ def im_detect(model, im, cfg=None, device=None):
     numpy (scores (N, C), boxes (N, 4C) in original image coordinates,
     valid (N,)).  The model is moved to ``device`` (outside inference
     mode, so it can still be trained): ``cuda:0`` by default, ``"cpu"`` on
-    request."""
+    request.  It runs ``predict`` eagerly, also on the card: one image of a
+    size of its own is no shape a captured graph would be replayed at
+    (``Detector`` and ``test_net`` replay ``detect``'s graphs)."""
     cfg = cfg or model.config
     device = resolve_device(device)
     model = model.to(device)

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from frcnn_tpu_torch.ops.constants import device_constant
 from frcnn_tpu_torch.ops.cuda.fused_block import FusedBottleneckFunction
 
 _RESNET_DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -414,7 +415,7 @@ class MobileNetV1(nn.Module):
 
 def preprocess_images(images, cfg, dtype):
     """Mean-subtract and scale (B, H, W, 3) BGR pixels; returns NHWC in dtype."""
-    means = torch.tensor(cfg.PIXEL_MEANS, dtype=torch.float32, device=images.device)
+    means = device_constant(cfg.PIXEL_MEANS, torch.float32, images.device)
     x = (images.to(torch.float32) - means) * cfg.DEVICE.PIXEL_SCALE
     return x.to(dtype)
 

@@ -31,6 +31,7 @@ from frcnn_tpu_torch.config import Config
 from frcnn_tpu_torch.models.backbones import _conv, build_backbone, preprocess_images
 from frcnn_tpu_torch.models.losses import detection_losses_compact
 from frcnn_tpu_torch.models.proposals import proposal_layer_batch, proposal_top_layer
+from frcnn_tpu_torch.ops.constants import device_constant
 from frcnn_tpu_torch.models.targets import (anchor_target_compact, proposal_target_layer,
                                             uniform_draws)
 from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
@@ -46,10 +47,10 @@ def decode_boxes(out, im_info, cfg, num_classes: int):
     rois, bbox_pred = out["rois"], out["bbox_pred"]
     c = num_classes
     if cfg.TEST.BBOX_REG:
-        stds = torch.tensor(cfg.TRAIN.BBOX_NORMALIZE_STDS, dtype=torch.float32,
-                            device=rois.device).repeat(c)
-        means = torch.tensor(cfg.TRAIN.BBOX_NORMALIZE_MEANS, dtype=torch.float32,
-                             device=rois.device).repeat(c)
+        stds = device_constant(cfg.TRAIN.BBOX_NORMALIZE_STDS, torch.float32,
+                               rois.device).repeat(c)
+        means = device_constant(cfg.TRAIN.BBOX_NORMALIZE_MEANS, torch.float32,
+                                rois.device).repeat(c)
         boxes = bbox_transform_inv(rois, bbox_pred * stds + means)
         boxes = clip_boxes(boxes, im_info[:, :2])
     else:
@@ -68,7 +69,7 @@ def postprocess_detections(out, im_info, cfg, num_classes: int, max_per_image: i
     b, n, c = scores.shape
     cls_boxes = boxes.reshape(b, n, c, 4).permute(0, 2, 1, 3).reshape(b * c, n, 4)
     cls_scores = scores.permute(0, 2, 1).reshape(b * c, n)
-    thresh = torch.tensor(cfg.TEST.SCORE_THRESH, dtype=torch.float32, device=scores.device)
+    thresh = device_constant(float(cfg.TEST.SCORE_THRESH), torch.float32, scores.device)
     valid = (out["roi_valid"][:, None, :] & (scores.permute(0, 2, 1) > thresh)).reshape(b * c, n)
     per_cls = min(d, n)
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from frcnn_tpu_torch.ops.boxes import bbox_overlaps
+from frcnn_tpu_torch.ops.constants import device_constant
 from frcnn_tpu_torch.ops.cuda import build
 
 
@@ -49,7 +50,7 @@ def nms_mask_reference(boxes, thresh, valid=None):
     b, n = boxes.shape[:2]
     if valid is None:
         valid = torch.ones((b, n), dtype=torch.bool, device=boxes.device)
-    thr = torch.tensor(thresh, dtype=torch.float32, device=boxes.device)
+    thr = device_constant(float(thresh), torch.float32, boxes.device)
     boxes = boxes.float()
     suppressed = ~valid
     t_idx = torch.arange(_TILE, device=boxes.device)

@@ -68,6 +68,7 @@ import ctypes
 
 import torch
 
+from frcnn_tpu_torch.ops.constants import device_constant
 from frcnn_tpu_torch.ops.cuda import build
 
 
@@ -77,7 +78,7 @@ def _axis_samples(lo, hi, p: int, sr: int, size: int):
     each (B, R, p*sr); an empty sample gets zero weights."""
     # divide by tensors: PyTorch's CUDA division by a Python scalar multiplies
     # by its reciprocal, which is not the correctly rounded quotient
-    p_t, sr_t = (torch.tensor(float(v), device=lo.device) for v in (p, sr))
+    p_t, sr_t = (device_constant(float(v), torch.get_default_dtype(), lo.device) for v in (p, sr))
     bin_sz = torch.clamp(hi - lo, min=1.0) / p_t
     s = (torch.arange(p * sr, dtype=torch.float32, device=lo.device) + 0.5) / sr_t
     coords = lo[..., None] + s * bin_sz[..., None]

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from frcnn_tpu_torch.ops.constants import device_constant
 from frcnn_tpu_torch.ops.cuda.roi_align_kernel import RoIAlignFunction, RoIAlignMultilevelFunction
 from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (
     roi_align_multilevel_reference as roi_align_multilevel)
@@ -41,18 +42,16 @@ def _roi_chunks(r: int, per_roi: int):
     return [slice(r0, r0 + step) for r0 in range(0, r, step)]
 
 
-def _bin_max(x, start, end, span: int):
-    """x (N, L, ...); start, end (N, M, p) int with end - start <= span →
-    (N, M, p, ...): the max of x[n, start:end] per bin.  Only the bins' rows
-    are gathered (clamped indices past ``end`` masked to -inf), and
-    ``torch.amax`` splits the gradient over ties equally, as ``jnp.max``.  An
-    empty bin gives -inf."""
-    idx = start[..., None] + torch.arange(span, device=x.device)     # (N, M, p, span)
-    live = idx < end[..., None]
-    n = torch.arange(x.shape[0], device=x.device)[:, None, None, None]
-    rows = x[n, torch.clamp(idx, max=x.shape[1] - 1)]                # (N, M, p, span, ...)
+def _bin_max(x, start, end):
+    """x (N, L, ...); start, end (N, M, p) int → (N, M, p, ...): the max of
+    x[n, start:end] per bin, over a mask of all L positions (the JAX
+    package's masks: a shape fixed by x's, so nothing is read back and the
+    pool can be captured in a CUDA graph).  ``torch.amax`` splits the
+    gradient over ties equally, as ``jnp.max``.  An empty bin gives -inf."""
+    pos = torch.arange(x.shape[1], device=x.device)
+    live = (pos >= start[..., None]) & (pos < end[..., None])        # (N, M, p, L)
     live = live.reshape(live.shape + (1,) * (x.dim() - 2))
-    return torch.where(live, rows, float("-inf")).amax(dim=3)
+    return torch.where(live, x[:, None, None], float("-inf")).amax(dim=3)
 
 
 def roi_pool(feat, rois, output_size: int = 7, spatial_scale: float = 1.0 / 16.0):
@@ -62,8 +61,8 @@ def roi_pool(feat, rois, output_size: int = 7, spatial_scale: float = 1.0 / 16.0
     ceil((b + 1) * n / p)) cells past the corner, in exact integer
     arithmetic, clipped to the map (adjacent bins may share a cell); the max
     over the bin's cells is taken over rows, then over columns (separable,
-    as the JAX package), and an empty bin gives 0.  Only each bin's rows and
-    columns are gathered, in roi chunks that bound memory."""
+    as the JAX package), and an empty bin gives 0.  Each bin masks the whole
+    axis, as the JAX package, in roi chunks that bound memory."""
     b, h, w, c = feat.shape
     p = output_size
     q = torch.round(rois.float() * spatial_scale).long()
@@ -77,14 +76,12 @@ def roi_pool(feat, rois, output_size: int = 7, spatial_scale: float = 1.0 / 16.0
         return start, end
 
     (hs, he), (ws, we) = bins(y1, y2, h), bins(x1, x2, w)
-    span_h = int(torch.clamp((he - hs).max(), min=1))     # one read back: the widest bins
-    span_w = int(torch.clamp((we - ws).max(), min=1))
     outs = []
-    for sl in _roi_chunks(rois.shape[1], b * p * span_h * w * c):
-        rows = _bin_max(feat, hs[:, sl], he[:, sl], span_h)          # (B, r, p_y, W, C)
+    for sl in _roi_chunks(rois.shape[1], b * p * h * w * c):
+        rows = _bin_max(feat, hs[:, sl], he[:, sl])                  # (B, r, p_y, W, C)
         r = rows.shape[1]
         cols = _bin_max(rows.transpose(2, 3).reshape(b * r, w, p, c),
-                        ws[:, sl].reshape(b * r, 1, p), we[:, sl].reshape(b * r, 1, p), span_w)
+                        ws[:, sl].reshape(b * r, 1, p), we[:, sl].reshape(b * r, 1, p))
         outs.append(cols.reshape(b, r, p, p, c).transpose(2, 3))     # (B, r, p_y, p_x, C)
     out = torch.cat(outs, dim=1)
     return torch.where(torch.isfinite(out), out, 0.0)
@@ -120,7 +117,7 @@ def crop_and_resize_pool(feat, rois, output_size: int = 7, spatial_scale: float 
     acc = torch.promote_types(feat.dtype, torch.float32)
     scaled = rois.to(acc) * spatial_scale
     step = torch.arange(s, dtype=acc, device=feat.device)
-    step = step / torch.tensor(s - 1.0, dtype=acc, device=feat.device)
+    step = step / device_constant(s - 1.0, acc, feat.device)
     x1, y1, x2, y2 = scaled.unbind(-1)
     wy = _interp_matrix(y1[..., None] + step * (y2 - y1)[..., None], h)    # (B, R, s, H)
     wx = _interp_matrix(x1[..., None] + step * (x2 - x1)[..., None], w)    # (B, R, s, W)

@@ -3,7 +3,10 @@ gradients through the autograd Functions of K2, K3 and K6 (backward K6b),
 K6 (the multilevel RoIAlign) bit-equal to K2 on one level, K2b / K6b
 bit-deterministic, whatever their plan, ``test_net`` on the card
 matched to a CPU copy, a two-rank mesh step on one card against the
-unsharded step, and the launcher's refusal of a tensor of another card.
+unsharded step, the launcher's refusal of a tensor of another card, and
+graphed serving: a ``Detector`` replaying its captured graphs bit-equal to
+eager ``detect``, new weights copied in reaching the replay, rebound ones
+recaptured, a failed capture raised.
 
 Run on a machine with an NVIDIA H100 (which has no jax, so without the
 suite's conftest):  pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -590,7 +593,8 @@ def test_kernels_refuse_a_tensor_of_another_card(dev, monkeypatch):
 
 def test_test_net_on_the_card_matches_the_cpu(dev, tmp_path):
     """``test_net`` over a 2-image synthetic devkit (no image codec: the
-    pixels come from a reader) in f32 on the card (K1 twice, K2 once) and on
+    pixels come from a reader) in f32 on the card (graphed: K1 twice, K2 once
+    a replay, counted by the wrappers at the warm-up and the capture) and on
     a CPU copy of the same model: detections.pkl matched per image and
     class, the per-class APs in [0, 1]."""
     import pickle
@@ -611,7 +615,8 @@ def test_test_net_on_the_card_matches_the_cpu(dev, tmp_path):
         aps = run_test_net(chip_smoke.build_seeded(cfg, torch.float32, seed=1), imdb, cfg,
                            str(out), batch=2, reader=reader, device=device)
         assert all(0.0 <= v <= 1.0 for v in aps.values())
-        assert dict(build.LAUNCH_COUNTS) == ({"nms": 2, "roi_align": 1} if device is None else {})
+        # on the card one batch: its graph's eager warm-up and capture (K1 x2, K2 x1 each)
+        assert dict(build.LAUNCH_COUNTS) == ({"nms": 4, "roi_align": 2} if device is None else {})
         with open(out / "detections.pkl", "rb") as f:
             all_boxes = pickle.load(f)
         dets.append([np.concatenate([np.concatenate([c[i], np.full((len(c[i]), 1), float(k))], 1)
@@ -670,7 +675,8 @@ def test_clis_run_on_the_card(dev, tmp_path, monkeypatch):
     build.reset_launch_counts()
     results = test_net_cli.main(["--net", "res50", "--imdb", "voc_2007_test", "--model",
                                  str(snapshot), "--batch", "2", "--set", *common])
-    assert 0.0 <= results["mAP"] <= 1.0 and build.LAUNCH_COUNTS["nms"] == 2
+    # one batch of 2: K1 x2 at its graph's eager warm-up and again at the capture
+    assert 0.0 <= results["mAP"] <= 1.0 and build.LAUNCH_COUNTS["nms"] == 4
     out = tmp_path / "output" / "default" / "voc_2007_test" / "default"
     with open(out / "detections.pkl", "rb") as f:
         assert sum(len(b) for c in pickle.load(f) for b in c) > 0
@@ -754,3 +760,89 @@ def test_coco_model_detects_and_trains_on_the_card_matching_the_cpu(dev):
     chip_smoke.end_to_end(dev, "res101", chip_smoke.COCO_CONFIG, classes=chip_smoke.COCO_CLASSES)
     chip_smoke.train_card_vs_cpu(torch.device("cuda", 0), "res101",
                                  classes=chip_smoke.COCO_CLASSES)
+
+
+# ---------------------------------------------------------------------------
+# Graphed serving (frcnn_tpu_torch/engine/graphs.py): Detector on the card
+# replays one captured CUDA graph per batch shape
+# ---------------------------------------------------------------------------
+
+# (net, config, the kernels one replay launches) at 320x480, bf16
+GRAPHED = [("res50", (), {"nms": 2, "roi_align": 1, "fused_block": 6}),
+           ("res50_fpn", (), {"nms": 2, "roi_align_ml": 1, "select": 1, "fused_block": 6})]
+
+
+def _graphed_setup(net, extra, seed=1):
+    import chip_smoke
+
+    cfg = chip_smoke.smoke_config(["TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480",
+                                   "DEVICE.BUCKETS", "((320, 480),)", *extra])
+    model = chip_smoke.build_seeded(cfg, torch.bfloat16, seed=seed, net=net)
+    images = chip_smoke.synthetic_images(np.random.RandomState(5), [(320, 480), (240, 360)] * 2)
+    return chip_smoke, cfg, model, images
+
+
+@pytest.mark.parametrize("net,extra,launches", GRAPHED)
+def test_graphed_detector_is_bit_equal_to_eager_detect(dev, net, extra, launches):
+    """bf16, 4 images at 320x480: ``Detector`` captures one graph, replays it
+    for two requests; every image's detections equal eager ``model.detect``'s
+    on the same batch bit for bit, and a profiled replay runs the kernels the
+    capture counted, as many times."""
+    from frcnn_tpu_torch.engine.serve import Detector
+
+    chip_smoke, cfg, model, images = _graphed_setup(net, extra)
+    det = Detector(model, uint8_input=True)
+    build.reset_launch_counts()
+    got = [det(images), det(images[::-1])]
+    chip_smoke.check_graphed(f"graphed {net}", det, launches, 2,
+                             {k: v for k, v in build.LAUNCH_COUNTS.items() if v})
+    want = [chip_smoke.eager_detections(model, request, cfg, det.max_per_image, dev)[0]
+            for request in (images, images[::-1])]
+    for g_req, w_req in zip(got, want):
+        for g, w in zip(g_req, w_req):
+            np.testing.assert_array_equal(g, w)
+    _, groups = chip_smoke.eager_detections(model, images, cfg, det.max_per_image, dev)
+    data, info = groups[0][:2]
+    ran, _ = chip_smoke.profiled_kernels(lambda: det.detect_blobs(data, info))
+    assert ran == launches
+
+
+def test_copied_weights_reach_the_replay_and_rebound_ones_recapture(dev):
+    """A new state copied into the served model in place (``load_state_dict``)
+    changes the replayed detections exactly as it changes eager ones, with no
+    new capture; a parameter rebound (``.data =``) drops the graphs, and the
+    new capture serves what eager detect serves."""
+    from frcnn_tpu_torch.engine.serve import Detector
+
+    chip_smoke, cfg, model, images = _graphed_setup("res50", ())
+    det = Detector(model, uint8_input=True)
+    before = det(images)
+    model.load_state_dict(chip_smoke.build_seeded(cfg, torch.bfloat16, seed=2).state_dict())
+    after = det(images)
+    want = chip_smoke.eager_detections(model, images, cfg, det.max_per_image, dev)[0]
+    assert sum(det.graphs.captures.values()) == 1
+    assert any(b.shape != a.shape or not np.array_equal(b, a) for b, a in zip(before, after))
+    for a, w in zip(after, want):
+        np.testing.assert_array_equal(a, w)
+    weight = model.cls_score.weight
+    weight.data = weight.data * 2.0
+    rebound = det(images)
+    assert sum(det.graphs.captures.values()) == 2
+    want = chip_smoke.eager_detections(model, images, cfg, det.max_per_image, dev)[0]
+    for r, w in zip(rebound, want):
+        np.testing.assert_array_equal(r, w)
+
+
+def test_a_failed_capture_raises_and_is_not_retried(dev):
+    """A host read under capture raises ``RuntimeError`` naming the key and
+    the line; the executor keeps and replays nothing, and the card serves on."""
+    import chip_smoke
+    from frcnn_tpu_torch.engine.graphs import DetectGraphs
+
+    toy = chip_smoke.HostRead(dev)
+    graphs = DetectGraphs(toy, 1, dev)
+    with pytest.raises(RuntimeError, match=r"key \(2, 4, 6, torch.float32, 1\).*\.item\(\)"):
+        graphs(torch.ones(2, 4, 6, 3, device=dev), torch.ones(2, 3, device=dev))
+    assert not graphs.captures and not graphs.replays
+    x = torch.arange(6.0, device=dev)
+    assert (x * 2).sum().item() == 30.0
