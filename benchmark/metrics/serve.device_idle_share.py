@@ -1,0 +1,3 @@
+"""idle_share of the traced serve window (``benchmark/harness/readers.py``)."""
+
+from benchmark.harness.readers import idle_share as read  # noqa: F401
