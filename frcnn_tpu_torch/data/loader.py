@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from frcnn_tpu_torch.utils.trace import span
+
 
 def read_image(path: str):
     """The default reader: ``cv2.imread`` → (H, W, 3) BGR uint8."""
@@ -310,9 +312,10 @@ class RoIDataLayer:
         return np.asarray(out[: self._batch])
 
     def forward(self):
-        inds = self._get_next_minibatch_inds()
-        return get_minibatch([self._roidb[i] for i in inds], self._cfg, self._rng,
-                             reader=self._reader, rows=self._rows)
+        with span("frcnn.data.forward"):
+            inds = self._get_next_minibatch_inds()
+            return get_minibatch([self._roidb[i] for i in inds], self._cfg, self._rng,
+                                 reader=self._reader, rows=self._rows)
 
     def get_state(self):
         return {"cur": self._cur, "perm": np.array(self._perm), "rng": self._rng.get_state()}

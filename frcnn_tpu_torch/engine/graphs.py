@@ -40,6 +40,10 @@ the kernels one replay launches; ``replays[key]`` counts the replays and
 
 A capture that fails raises, naming the key and the failing line; nothing
 retries eagerly.
+
+Under a profiler each call records the spans ``frcnn.graphs.lookup``,
+``frcnn.graphs.capture`` (a key's first call), ``frcnn.graphs.copy_in`` and
+``frcnn.graphs.replay`` (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import traceback
 import torch
 
 from frcnn_tpu_torch.ops.cuda import build
+from frcnn_tpu_torch.utils.trace import span
 
 _TORCH = os.path.dirname(os.path.abspath(torch.__file__))
 _streams: dict = {}
@@ -157,8 +162,9 @@ class DetectGraphs:
         t0 = time.perf_counter()
         static_data = torch.empty(data.shape, dtype=data.dtype, device=self.device)
         static_info = torch.empty((data.shape[0], 3), dtype=torch.float32, device=self.device)
-        static_data.copy_(data)
-        static_info.copy_(im_info)
+        with span("frcnn.graphs.copy_in"):
+            static_data.copy_(data)
+            static_info.copy_(im_info)
 
         def run():
             return self.model.detect(static_data, static_info, self.max_per_image)
@@ -187,21 +193,25 @@ class DetectGraphs:
 
     @torch.inference_mode()
     def __call__(self, data, im_info):
-        data = torch.as_tensor(data)
-        im_info = torch.as_tensor(im_info, dtype=torch.float32)
-        key = (*data.shape[:3], data.dtype, self.max_per_image)
-        if self._entries and self._addresses() != self._fingerprint:
-            # a parameter or buffer rebound, or the config replaced: drop
-            # every graph and the pool
-            self._entries.clear()
-            self.pool = None
-        entry = self._entries.get(key)
+        with span("frcnn.graphs.lookup"):
+            data = torch.as_tensor(data)
+            im_info = torch.as_tensor(im_info, dtype=torch.float32)
+            key = (*data.shape[:3], data.dtype, self.max_per_image)
+            if self._entries and self._addresses() != self._fingerprint:
+                # a parameter or buffer rebound, or the config replaced: drop
+                # every graph and the pool
+                self._entries.clear()
+                self.pool = None
+            entry = self._entries.get(key)
         if entry is None:
-            graph, _, _, out = self._capture(key, data, im_info)
+            with span("frcnn.graphs.capture"):
+                graph, _, _, out = self._capture(key, data, im_info)
         else:
             graph, static_data, static_info, out = entry
-            static_data.copy_(data)
-            static_info.copy_(im_info)
-        graph.replay()
-        self.replays[key] += 1
-        return tuple(t.clone() for t in out)
+            with span("frcnn.graphs.copy_in"):
+                static_data.copy_(data)
+                static_info.copy_(im_info)
+        with span("frcnn.graphs.replay"):
+            graph.replay()
+            self.replays[key] += 1
+            return tuple(t.clone() for t in out)

@@ -16,7 +16,12 @@ On the card every ``detect`` call replays a CUDA graph captured once per
 engine's ``jax.jit(detect)`` (``engine/graphs.py``: all graphs of one
 ``Detector`` share a memory pool; under a mesh, one set a rank, the
 collectives outside the graphs).  There is no switch, as JAX has none for
-``jit``; on the CPU (``device="cpu"``) ``detect`` runs eagerly."""
+``jit``; on the CPU (``device="cpu"``) ``detect`` runs eagerly.
+
+Under a profiler ``detect_blobs`` and ``__call__`` record the spans
+``frcnn.serve.detect_blobs`` and ``frcnn.serve.call``, and inside the
+latter ``frcnn.serve.prep`` an image and ``frcnn.serve.readback``
+(``utils/trace.py``)."""
 
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from frcnn_tpu_torch.data.loader import pick_scale_and_bucket, prep_im_for_blob
 from frcnn_tpu_torch.engine import resolve_device
 from frcnn_tpu_torch.engine.graphs import DetectGraphs
 from frcnn_tpu_torch.parallel.mesh import barrier, gather_rows, replicate, shard_batch
+from frcnn_tpu_torch.utils.trace import span
 
 
 def prep_image(im, cfg: Config, keep_uint8: bool = False):
@@ -116,29 +122,33 @@ class Detector:
         tensors → (dets (B, D, 6), valid (B, D)) on the device.  Under a
         mesh: B a multiple of the mesh size, and the result is this rank's
         rows (``shard_batch``), as a sharded array's addressable shard."""
-        if self.mesh is not None:
-            data, im_info = shard_batch((data, im_info), self.mesh)
-        return self._detect(data, im_info)
+        with span("frcnn.serve.detect_blobs"):
+            if self.mesh is not None:
+                data, im_info = shard_batch((data, im_info), self.mesh)
+            return self._detect(data, im_info)
 
     def __call__(self, images):
         """images: list of BGR uint8 arrays → list of (k, 6) float32 arrays
         [x1, y1, x2, y2, score, class] in original image coordinates.  Under
         a mesh every rank passes the same images and gets the whole list."""
-        # launch every bucket group first, keep its detections on the device,
-        # then read back: the host never waits on one group before it has
-        # handed the device the next
-        pending = [(indices, *self._detect(data, im_info))
-                   for indices, data, im_info in self._my_rows(images)]
-        rows = []
-        for indices, dets, valid in pending:
-            dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
-            rows += [(i, dets[bi][valid[bi]]) for bi, i in enumerate(indices) if i is not None]
-        if self.mesh is not None:
-            rows = gather_rows(rows, self.mesh)
-        results = [None] * len(images)
-        for i, dets in rows:
-            results[i] = dets
-        return results
+        with span("frcnn.serve.call"):
+            # launch every bucket group first, keep its detections on the
+            # device, then read back: the host never waits on one group
+            # before it has handed the device the next
+            pending = [(indices, *self._detect(data, im_info))
+                       for indices, data, im_info in self._my_rows(images)]
+            rows = []
+            with span("frcnn.serve.readback"):
+                for indices, dets, valid in pending:
+                    dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+                    rows += [(i, dets[bi][valid[bi]]) for bi, i in enumerate(indices)
+                             if i is not None]
+            if self.mesh is not None:
+                rows = gather_rows(rows, self.mesh)
+            results = [None] * len(images)
+            for i, dets in rows:
+                results[i] = dets
+            return results
 
     def _my_rows(self, images):
         """This rank's rows of each bucket group (in the order the buckets
@@ -156,8 +166,10 @@ class Detector:
             mine = padded[rows]
             keep = [i if pos < len(indices) else None
                     for pos, i in zip(range(rows.start, rows.stop), mine)]
-            prepped = [prep_image(images[i], self.cfg, keep_uint8=self.uint8_input)
-                       for i in mine]
+            prepped = []
+            for i in mine:
+                with span("frcnn.serve.prep"):
+                    prepped.append(prep_image(images[i], self.cfg, keep_uint8=self.uint8_input))
             yield (keep, np.stack([blob for blob, _ in prepped]),
                    np.stack([info for _, info in prepped]))
 

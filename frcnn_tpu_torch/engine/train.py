@@ -63,6 +63,7 @@ from frcnn_tpu_torch.models.targets import ShardedDraws
 from frcnn_tpu_torch.parallel.mesh import (all_reduce_grads_, all_reduce_mean, barrier,
                                            broadcast_flag, rank0_first, replicate)
 from frcnn_tpu_torch.utils.timer import Timer
+from frcnn_tpu_torch.utils.trace import span
 
 
 def get_training_roidb(imdb, cfg, image_size=None):
@@ -402,13 +403,17 @@ class SolverWrapper:
 
     def _profile_window(self, profiler):
         """Open torch.profiler at DEVICE.PROFILE_START for PROFILE_STEPS
-        steps; the trace goes to PROFILE_DIR/trace_iter_<start>.json."""
+        steps, over every thread; the trace, with the ``frcnn.train.*`` and
+        ``frcnn.data.forward`` spans (``utils/trace.py``), goes to
+        PROFILE_DIR/trace_iter_<start>.json."""
         d = self.cfg.DEVICE
         if profiler is None and d.PROFILE_DIR and self.step == d.PROFILE_START:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
-            profiler = torch.profiler.profile(activities=activities)
+            every_thread = torch.profiler._ExperimentalConfig(profile_all_threads=True)
+            profiler = torch.profiler.profile(activities=activities,
+                                              experimental_config=every_thread)
             profiler.start()
         elif profiler is not None and self.step == d.PROFILE_START + d.PROFILE_STEPS:
             self._close_profile(profiler)
@@ -452,8 +457,12 @@ class SolverWrapper:
                     if lead:
                         profiler = self._profile_window(profiler)
                     timer.tic()
-                    blobs, self._layer_state_consumed = batches.get()
-                    values = {name: float(v) for name, v in self.train_step(blobs).items()}
+                    with span("frcnn.train.data_wait"):
+                        blobs, self._layer_state_consumed = batches.get()
+                    with span("frcnn.train.step"):
+                        losses = self.train_step(blobs)
+                    with span("frcnn.train.loss_readback"):
+                        values = {name: float(v) for name, v in losses.items()}
                     timer.toc()
                     history.append(values)
                     step = self.step

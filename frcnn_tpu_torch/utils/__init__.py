@@ -1,1 +1,2 @@
-"""Utilities of the PyTorch port: weight conversion, timer, summaries, box drawing."""
+"""Utilities of the PyTorch port: weight conversion, timer, summaries, box
+drawing, profiler spans."""
