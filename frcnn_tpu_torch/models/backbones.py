@@ -8,7 +8,10 @@ Parameter names and layouts are torchvision's (``conv1``, ``bn1``,
 lineage ``.pth`` loads directly.  The norm is ``make_norm``'s: frozen BN
 (y = x * mul + add with (mul, add) folded from the stored statistics, in the
 compute dtype), or, for the from-scratch FPN (``res*_fpn_gn``), GroupNorm of
-32 groups under the same names, trained.
+32 groups under the same names, trained.  Served in bf16 on the card, a
+ResNet's frozen BNs outside K3 (the stem, the strided and the wide blocks)
+run inside the BN epilogue kernel with their residual and relu
+(``ops/cuda/bn_epilogue.py``), one launch after each convolution.
 
 Activations are NCHW tensors in ``channels_last`` memory: a permute to NHWC
 is then free, which is the layout the fused bottleneck kernel (K3) and the
@@ -44,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from frcnn_tpu_torch.ops.constants import device_constant
+from frcnn_tpu_torch.ops.cuda.bn_epilogue import bn_epilogue
 from frcnn_tpu_torch.ops.cuda.fused_block import FusedBottleneckFunction
 
 _RESNET_DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -109,6 +113,17 @@ def make_norm(norm: str):
     raise ValueError(f"unknown norm: {norm}")
 
 
+def _use_epilogue(norm: str, x) -> bool:
+    """Whether a frozen BN after a convolution (with its residual and relu)
+    runs as the BN epilogue kernel: bf16 on the card with autograd off (the
+    kernel has no backward), which is serving and also the validation losses
+    (``SolverWrapper.val_losses`` runs ``train_forward`` under no_grad).
+    Training steps, GroupNorm, the CPU and f32 keep the module-by-module
+    path."""
+    return (norm == "frozen_bn" and x.is_cuda and x.dtype == torch.bfloat16
+            and not torch.is_grad_enabled())
+
+
 def _conv(x, conv: nn.Conv2d, stride: int = 1, padding: int = 0):
     """``conv`` applied in the dtype of ``x`` (weights cast per call)."""
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
@@ -148,6 +163,8 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         if self._use_fused(x):
             return self._fused_forward(x)
+        if _use_epilogue(self.norm, x):
+            return self._epilogue_forward(x)
         y = F.relu(self.bn1(_conv(x, self.conv1)))
         y = F.relu(self.bn2(_conv(y, self.conv2, self.stride, 1)))
         y = self.bn3(_conv(y, self.conv3))
@@ -155,6 +172,18 @@ class Bottleneck(nn.Module):
         if self.downsample is not None:
             res = self.downsample[1](_conv(x, self.downsample[0], self.stride))
         return F.relu(y + res)
+
+    def _epilogue_forward(self, x):
+        """The plain path's convolutions, each followed by one BN epilogue
+        launch: bn1 + relu, bn2 + relu, and bn3 + the residual (or the
+        projection shortcut's conv through its own BN) + relu."""
+        y = bn_epilogue(_conv(x, self.conv1), self.bn1)
+        y = bn_epilogue(_conv(y, self.conv2, self.stride, 1), self.bn2)
+        y = _conv(y, self.conv3)
+        if self.downsample is None:
+            return bn_epilogue(y, self.bn3, residual=x)
+        return bn_epilogue(y, self.bn3, shortcut=_conv(x, self.downsample[0], self.stride),
+                           shortcut_bn=self.downsample[1])
 
     def _fused_forward(self, x):
         """The same block as one K3 launch: frozen-BN affines folded into the
@@ -206,7 +235,11 @@ class ResNetV1(nn.Module):
             cin = ch * 4
 
     def _stem(self, x):
-        x = F.relu(self.bn1(_conv(x, self.conv1, 2, 3)))
+        x = _conv(x, self.conv1, 2, 3)
+        if _use_epilogue(self.norm, x):
+            x = bn_epilogue(x, self.bn1)
+        else:
+            x = F.relu(self.bn1(x))
         return F.max_pool2d(x, 3, 2, 1)
 
     def extract_features(self, x):

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the extern "C" launchers, the stream last (each returns a
 # cudaError_t).
 _SIGNATURES = {
@@ -46,6 +46,8 @@ _SIGNATURES = {
                                _P, _P, _P, _P, _P),
     "frcnn_anchor_overlap_stats": (_P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "frcnn_topk_threshold": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "frcnn_bn_epilogue": (_P, _L, _I, _P, _P, _P, _P, _F, _P, _I, _P, _P, _P, _P, _F, _I, _I, _I,
+                          _P, _P),
 }
 
 _lock = threading.Lock()

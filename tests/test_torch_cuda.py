@@ -6,7 +6,9 @@ matched to a CPU copy, a two-rank mesh step on one card against the
 unsharded step, the launcher's refusal of a tensor of another card, and
 graphed serving: a ``Detector`` replaying its captured graphs bit-equal to
 eager ``detect``, new weights copied in reaching the replay, rebound ones
-recaptured, a failed capture raised.
+recaptured, a failed capture raised; the BN epilogue bit-equal to its twin,
+``detect`` and the validation losses with it against the module-by-module
+path, and frozen-BN statistics copied in reaching a replay.
 
 Run on a machine with an NVIDIA H100 (which has no jax, so without the
 suite's conftest):  pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -20,6 +22,7 @@ import torch
 from frcnn_tpu_torch.models.backbones import Bottleneck
 from frcnn_tpu_torch.models.fpn import fg_logit_diff
 from frcnn_tpu_torch.ops.cuda import build
+from frcnn_tpu_torch.ops.cuda.bn_epilogue import bn_epilogue, bn_epilogue_reference
 from frcnn_tpu_torch.ops.cuda.fused_block import bottleneck_reference, fused_bottleneck
 from frcnn_tpu_torch.ops.cuda.nms_kernel import (nms_mask_batched, nms_mask_reference,
                                                  nms_plan)
@@ -768,8 +771,9 @@ def test_coco_model_detects_and_trains_on_the_card_matching_the_cpu(dev):
 # ---------------------------------------------------------------------------
 
 # (net, config, the kernels one replay launches) at 320x480, bf16
-GRAPHED = [("res50", (), {"nms": 2, "roi_align": 1, "fused_block": 6}),
-           ("res50_fpn", (), {"nms": 2, "roi_align_ml": 1, "select": 1, "fused_block": 6})]
+GRAPHED = [("res50", (), {"nms": 2, "roi_align": 1, "fused_block": 6, "bn_epilogue": 31}),
+           ("res50_fpn", (), {"nms": 2, "roi_align_ml": 1, "select": 1, "fused_block": 6,
+                              "bn_epilogue": 31})]
 
 
 def _graphed_setup(net, extra, seed=1):
@@ -803,7 +807,7 @@ def test_graphed_detector_is_bit_equal_to_eager_detect(dev, net, extra, launches
             np.testing.assert_array_equal(g, w)
     _, groups = chip_smoke.eager_detections(model, images, cfg, det.max_per_image, dev)
     data, info = groups[0][:2]
-    ran, _ = chip_smoke.profiled_kernels(lambda: det.detect_blobs(data, info))
+    ran = chip_smoke.profiled_kernels(lambda: det.detect_blobs(data, info))
     assert ran == launches
 
 
@@ -846,3 +850,230 @@ def test_a_failed_capture_raises_and_is_not_retried(dev):
     assert not graphs.captures and not graphs.replays
     x = torch.arange(6.0, device=dev)
     assert (x * 2).sum().item() == 30.0
+
+
+# ---------------------------------------------------------------------------
+# The BN epilogue (frcnn_tpu_torch/ops/cuda/bn_epilogue.py): frozen BN, the
+# residual and the relu after every unfused bottleneck convolution
+# ---------------------------------------------------------------------------
+
+def _frozen_bn(c, dev, g):
+    from frcnn_tpu_torch.models.backbones import FrozenBatchNorm
+
+    bn = FrozenBatchNorm(c)
+    with torch.no_grad():
+        bn.weight.copy_(torch.randn(c, generator=g) * 0.5)
+        bn.bias.copy_(torch.randn(c, generator=g) * 0.5)
+        bn.running_mean.copy_(torch.randn(c, generator=g) * 0.5)
+        bn.running_var.copy_(torch.rand(c, generator=g) * 4 + 1e-3)
+    return bn.to(dev)
+
+
+@pytest.mark.parametrize("c", [64, 256, 1024, 2048])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("form", [None, "residual", "shortcut"])
+def test_bn_epilogue_kernel_bit_equal_to_twin(dev, form, relu, c):
+    """One launch a call, bit-equal to the twin computed on the card, at a
+    ragged small shape (one partial loop step) and one whose threads walk
+    several grid steps and a tail."""
+    g = torch.Generator().manual_seed(c + 2 * relu + (form is not None))
+    bn, bn_ds = _frozen_bn(c, dev, g), _frozen_bn(c, dev, g)
+    for b, h, w in ((3, 13, 21), (5, 37, 61)):
+        x, other = ((torch.randn(b, c, h, w, generator=g) * 2).to(dev, torch.bfloat16)
+                    .contiguous(memory_format=torch.channels_last) for _ in range(2))
+        kw = {} if form is None else ({"residual": other} if form == "residual"
+                                      else {"shortcut": other, "shortcut_bn": bn_ds})
+        build.reset_launch_counts()
+        with torch.inference_mode():
+            got = bn_epilogue(x, bn, relu, **kw)
+            want = bn_epilogue_reference(x, bn, relu, **kw)
+        torch.cuda.synchronize()
+        assert build.LAUNCH_COUNTS["bn_epilogue"] == 1
+        assert got.is_contiguous(memory_format=torch.channels_last) and got.dtype == torch.bfloat16
+        assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+def test_bn_epilogue_refuses_what_it_cannot_take(dev):
+    """C not a multiple of 8 (the gate admits none: every ResNet width is a
+    multiple of 64), f32, a residual of another shape: refused, nothing
+    launched."""
+    g = torch.Generator().manual_seed(0)
+    bn = _frozen_bn(60, dev, g)
+    x = torch.randn(2, 60, 5, 7, generator=g).to(dev, torch.bfloat16)
+    build.reset_launch_counts()
+    with pytest.raises(ValueError):
+        bn_epilogue(x.contiguous(memory_format=torch.channels_last), bn)
+    bn = _frozen_bn(64, dev, g)
+    x = torch.randn(2, 64, 5, 7, generator=g).to(dev).contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):
+        bn_epilogue(x, bn)
+    with pytest.raises(ValueError):
+        bn_epilogue(x.to(torch.bfloat16), bn, residual=x[:1].to(torch.bfloat16))
+    assert build.LAUNCH_COUNTS["bn_epilogue"] == 0
+
+
+def _drawn_frozen_bn_(model, seed):
+    """Every frozen BN of ``model`` given drawn statistics around its own
+    (``init_random_`` leaves them the identity, and its scales powers of two,
+    where every rounding of the affine is exact): the scale times U(0.8,
+    1.2), bias and mean N(0, 0.1), variance U(0.8, 1.25)."""
+    from frcnn_tpu_torch.models.backbones import FrozenBatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FrozenBatchNorm):
+                c = m.weight.numel()
+                m.weight.mul_((0.8 + 0.4 * torch.rand(c, generator=g)).to(m.weight.device))
+                for t, draw in ((m.bias, torch.randn(c, generator=g) * 0.1),
+                                (m.running_mean, torch.randn(c, generator=g) * 0.1),
+                                (m.running_var, 0.8 + 0.45 * torch.rand(c, generator=g))):
+                    t.copy_(draw)
+    return model
+
+
+def _trunk_and_tail_gaps(model, cfg, images, dev):
+    """Eager ``detect`` on ``images``' bucket groups with the epilogue and
+    with the module-by-module path (the gate closed): per group, each path's
+    relative distance (Frobenius) from the f32 computation of the same
+    input, for the C4 features ``detect`` computed (layer3's output) and for
+    layer4 on the module path's own crops; and the epilogue's launches."""
+    import chip_smoke
+    from frcnn_tpu_torch.models import backbones
+    from frcnn_tpu_torch.models.network import preprocess_images
+
+    trunk = model.backbone
+    seen = []
+    hooks = [trunk.layer3.register_forward_hook(lambda m, i, o: seen.append(("c4", o))),
+             trunk.layer4.register_forward_hook(lambda m, i, o: seen.append(("tail", i[0], o)))]
+    gate, runs, launches = backbones._use_epilogue, {}, {}
+    try:
+        for way in ("epilogue", "plain"):
+            if way == "plain":
+                backbones._use_epilogue = lambda norm, x: False
+            seen.clear()
+            build.reset_launch_counts()
+            groups = chip_smoke.eager_detections(model, images, cfg, cfg.TEST.MAX_PER_IMAGE,
+                                                 dev)[1]
+            launches[way] = build.LAUNCH_COUNTS["bn_epilogue"]
+            runs[way] = (groups, list(seen))
+            backbones._use_epilogue = gate
+    finally:
+        backbones._use_epilogue = gate
+        for h in hooks:
+            h.remove()
+
+    def gap(v, ref):
+        return float((v.float() - ref).norm() / ref.norm())
+
+    gaps = []
+    with torch.inference_mode():
+        for g, (data, *_) in enumerate(runs["plain"][0]):
+            c4_e = runs["epilogue"][1][2 * g][1]
+            (_, c4_p), (_, crops, tail_p) = runs["plain"][1][2 * g:2 * g + 2]
+            x = preprocess_images(data, cfg, torch.bfloat16).permute(0, 3, 1, 2)
+            c4_ref = trunk.extract_features(x.float())
+            tail_ref = trunk.layer4(crops.float())
+            tail_e = trunk.layer4(crops)
+            gaps.append({"c4": (gap(c4_e, c4_ref), gap(c4_p, c4_ref)),
+                         "tail": (gap(tail_e, tail_ref), gap(tail_p, tail_ref))})
+    return gaps, launches
+
+
+# The epilogue rounds once where the module path rounds three to five times,
+# so its result is no farther from the f32 computation than the module
+# path's; the margin covers what two bf16 paths through 26 blocks scatter
+# about each other.  (Detection rows are not compared: with random heads the
+# RPN's scores tie so closely that any rounding moves the proposal NMS.)
+EPILOGUE_GAP_RATIO = 1.1
+
+
+def test_detect_with_the_bn_epilogue_matches_the_plain_path(dev, monkeypatch):
+    """res101 C4 at 81 classes and four anchor scales (``chip_smoke``'s COCO
+    model, seeded weights, drawn BN statistics, bf16), 4 images in each
+    bucket (608x1024 and 1024x608): eager ``detect`` with the epilogue (82
+    launches a batch) and with the module-by-module path (none); in each
+    bucket the C4 features ``detect`` computed, and layer4 on the same crops,
+    at most ``EPILOGUE_GAP_RATIO`` times as far from f32 as the module
+    path's (TF32 off)."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = chip_smoke.smoke_config([*chip_smoke.COCO_CONFIG, "TEST.SCALES", "(600,)",
+                                   "TEST.MAX_SIZE", "1000",
+                                   "DEVICE.BUCKETS", "((608, 1024), (1024, 608))"])
+    model = _drawn_frozen_bn_(chip_smoke.build_seeded(cfg, torch.bfloat16, seed=7,
+                                                      net="res101",
+                                                      classes=chip_smoke.COCO_CLASSES), 8).to(dev)
+    images = chip_smoke.synthetic_images(np.random.RandomState(9),
+                                         [(600, 1000)] * 4 + [(1000, 600)] * 4)
+    gaps, launches = _trunk_and_tail_gaps(model, cfg, images, dev)
+    assert launches == {"epilogue": 2 * 82, "plain": 0} and len(gaps) == 2
+    for bucket in gaps:
+        for name, (epilogue, plain) in bucket.items():
+            assert 0 < epilogue <= EPILOGUE_GAP_RATIO * plain, (name, epilogue, plain)
+
+
+# the validation losses under the epilogue against the module path: the RPN's
+# anchors are sampled from the step's seeded draws alike, the head's rois come
+# through the proposal NMS, where a rounding can flip a near tie
+VAL_RPN_RTOL, VAL_HEAD_RTOL = 1e-2, 5e-2
+
+
+def test_val_losses_take_the_bn_epilogue_within_bf16_rounding(dev, monkeypatch):
+    """``SolverWrapper.val_losses`` runs ``train_forward`` under no_grad, so
+    on the card in bf16 it takes the epilogue (31 launches for res50 at one
+    608x1024 batch of 8, drawn BN statistics), and its losses are the
+    module-by-module path's within bf16 rounding; a training step (autograd
+    on) launches none."""
+    import chip_smoke
+    from frcnn_tpu_torch.engine.train import SolverWrapper, filter_roidb
+    from frcnn_tpu_torch.models import backbones
+
+    cfg = chip_smoke.train_config()
+    model = _drawn_frozen_bn_(chip_smoke.build_seeded(cfg, torch.bfloat16), 3)
+    roidb, reader = chip_smoke.synthetic_roidb(np.random.RandomState(4), [(480, 720)] * 8)
+    solver = SolverWrapper(model, filter_roidb(roidb, cfg), cfg, reader=reader)
+    blobs = solver.data_layer.forward()
+    plain_gate = backbones._use_epilogue
+    losses = {}
+    for way in ("epilogue", "plain"):
+        if way == "plain":
+            monkeypatch.setattr(backbones, "_use_epilogue", lambda norm, x: False)
+        build.reset_launch_counts()
+        losses[way] = solver.val_losses(blobs)
+        assert build.LAUNCH_COUNTS["bn_epilogue"] == (31 if way == "epilogue" else 0)
+        monkeypatch.setattr(backbones, "_use_epilogue", plain_gate)
+    for name, want in losses["plain"].items():
+        got = losses["epilogue"][name]
+        rtol = VAL_RPN_RTOL if name.startswith("rpn") else VAL_HEAD_RTOL
+        assert np.isfinite(got) and abs(got - want) <= rtol * abs(want), (name, got, want)
+    build.reset_launch_counts()
+    solver.train_step(blobs)
+    assert build.LAUNCH_COUNTS["bn_epilogue"] == 0
+
+
+def test_bn_statistics_copied_in_reach_the_replay(dev):
+    """New frozen-BN statistics (the epilogue's norms: the stem, layer2.0,
+    layer3, layer4) copied into the served model in place: the next replay,
+    with no new capture, serves what eager detect serves with them, and
+    not what it served before (nothing folded was kept)."""
+    from frcnn_tpu_torch.engine.serve import Detector
+
+    chip_smoke, cfg, model, images = _graphed_setup("res50", ())
+    det = Detector(model, uint8_input=True)
+    before = det(images)
+    g = torch.Generator().manual_seed(4)
+    state = model.state_dict()
+    for name, t in state.items():
+        if (name.startswith(("bn1.", "layer2.0.", "layer3.", "layer4."))
+                and ("bn" in name or "downsample.1" in name)):
+            state[name] = t * (1 + 0.2 * torch.rand(t.shape, generator=g)).to(t.device)
+    model.load_state_dict(state)
+    after = det(images)
+    assert sum(det.graphs.captures.values()) == 1
+    want = chip_smoke.eager_detections(model, images, cfg, det.max_per_image, dev)[0]
+    assert any(b.shape != a.shape or not np.array_equal(b, a) for b, a in zip(before, after))
+    for a, w in zip(after, want):
+        np.testing.assert_array_equal(a, w)
