@@ -127,6 +127,14 @@ class Detector:
                 data, im_info = shard_batch((data, im_info), self.mesh)
             return self._detect(data, im_info)
 
+    def counters(self) -> dict:
+        """The model's device counters since the last read, as ints, then
+        zeroed (``FasterRCNNFPN.read_counters``: valid rois a level P2..P5,
+        valid proposals, batches); {} for a model that keeps none.  It
+        waits for the device: call it outside the timed path."""
+        read = getattr(self.model, "read_counters", None)
+        return {} if read is None else read()
+
     def __call__(self, images):
         """images: list of BGR uint8 arrays → list of (k, 6) float32 arrays
         [x1, y1, x2, y2, score, class] in original image coordinates.  Under

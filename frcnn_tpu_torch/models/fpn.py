@@ -13,6 +13,14 @@ multilevel RoIAlign with its gradient (K6 forward, K6b backward), the box
 head, the RPN loss rows gathered from the level cells at the sampled anchors
 only, and the four losses.  P6 feeds the RPN only.
 
+Serving counts the work the pyramid adds on the device, in the served graph
+itself: ``roi_counts`` (a buffer kept off the state dict) sums, over the
+``predict`` calls since the last ``read_counters()``, the valid rois each of
+P2..P5 pools (padding rois, assigned to P2, are not counted), the valid
+proposals the cross-level NMS kept, and the batches: three in-place adds
+a batch (six small kernels in an H100 replay), no host read.
+``read_counters`` (``Detector.counters``) reads them back and zeroes them.
+
 The RPN's 1x1 heads keep the JAX module's explicit (C, 2A) / (C, 4A)
 parameters ``rpn_cls_w`` / ``rpn_box_w``, channel ``a * 2 + j`` (logit j of
 anchor a) and ``a * 4 + coord``.  The FPN model has no lineage ``.pth``, so
@@ -171,6 +179,10 @@ class FasterRCNNFPN(nn.Module):
         self.cls_score = nn.Linear(1024, num_classes)
         self.bbox_pred = nn.Linear(1024, num_classes * 4)
         self._anchor_cache: dict = {}
+        # rois a level P2..P5, proposals, batches (module docstring)
+        self.register_buffer(
+            "roi_counts", torch.zeros(config.FPN.MAX_LEVEL - config.FPN.MIN_LEVEL + 3,
+                                      dtype=torch.int64), persistent=False)
 
     @property
     def _A(self) -> int:
@@ -296,13 +308,15 @@ class FasterRCNNFPN(nn.Module):
                                      + const(1e-8)))
         return torch.clamp(k, f.MIN_LEVEL, f.MAX_LEVEL).to(torch.int32)
 
-    def _pool(self, pyramid, rois):
+    def _pool(self, pyramid, rois, levels=None):
         """RoIAlign of each roi on its assigned level of P2..P5 (K6, one
         launch; its gradient K6b, one launch) → (B, N, p, p, C) in roi
-        order.  P6 is not passed: no roi gradient reaches it."""
+        order.  ``levels``: each roi's level less MIN_LEVEL, where the
+        caller has them.  P6 is not passed: no roi gradient reaches it."""
         cfg = self.config
         f = cfg.FPN
-        levels = self._assign_levels(rois) - f.MIN_LEVEL
+        if levels is None:
+            levels = self._assign_levels(rois) - f.MIN_LEVEL
         roi_levels = range(f.MIN_LEVEL, f.MAX_LEVEL + 1)
         maps = [p.permute(0, 2, 3, 1) for p in pyramid[:len(roi_levels)]]
         return extract_multilevel_features(
@@ -331,9 +345,30 @@ class FasterRCNNFPN(nn.Module):
         fg_prob, box_cells, _ = self._rpn_all_levels(pyramid)
         anchors = self._anchors(pyramid)
         rois, roi_scores, roi_valid = self._propose(pyramid, fg_prob, box_cells, anchors, im_info)
-        _, cls_prob, bbox_pred = self._classify(self._pool(pyramid, rois))
+        levels = self._assign_levels(rois) - self.config.FPN.MIN_LEVEL
+        self._count(levels, roi_valid)
+        _, cls_prob, bbox_pred = self._classify(self._pool(pyramid, rois, levels))
         return {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid,
                 "cls_prob": cls_prob, "bbox_pred": bbox_pred}
+
+    def _count(self, levels, valid):
+        """Adds one batch to ``roi_counts``: levels (B, N) in [0, L), valid
+        (B, N); in place, so a captured graph adds at every replay."""
+        counts, n = self.roi_counts, self.roi_counts.shape[0] - 2
+        counts.index_add_(0, levels.reshape(-1), valid.reshape(-1).to(counts.dtype))
+        counts[n].add_(valid.sum())
+        counts[n + 1].add_(1)
+
+    def read_counters(self) -> dict:
+        """``roi_counts`` as ints, then zeroed: ``rois_p<k>`` the valid rois
+        level k pooled, ``proposals`` the valid proposals, ``batches`` the
+        ``predict`` calls.  Reads the device back: call it outside a timed
+        path."""
+        values = self.roi_counts.tolist()
+        self.roi_counts.zero_()
+        f = self.config.FPN
+        out = {f"rois_p{k}": v for k, v in zip(range(f.MIN_LEVEL, f.MAX_LEVEL + 1), values)}
+        return {**out, "proposals": values[-2], "batches": values[-1]}
 
     def decode_detections(self, out, im_info):
         """``im_detect``'s decode of ``predict``'s outputs: (B, N, 4C) boxes

@@ -10,8 +10,11 @@ records the captured function and, like a CUDA graph, computes into the
 captured outputs only at a replay, refusing a host read at capture as CUDA
 does.  (c) Through that stand-in, a two-bucket request of mixed sizes gives
 the JAX ``Detector``'s detections.  (d) ``Detector(device="cpu")`` never
-builds a graph.  The card's own graphs: ``tests/test_torch_cuda.py`` and
-``chip_smoke.py`` phase 51."""
+builds a graph.  (e) The FPN's device counters: valid rois a level and
+valid proposals, added in place by ``detect`` (so by a replay), read and
+zeroed by ``Detector.counters``; no other serving family's ``detect``
+writes any model state, so no other graph gains an op.  The card's own
+graphs: ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase 51."""
 
 import collections
 
@@ -350,3 +353,92 @@ def test_a_cpu_detector_never_builds_a_graph(monkeypatch):
     data, im_info = _batch()
     dets, valid = det.detect_blobs(data, im_info)
     assert dets.device.type == "cpu" and valid.shape == dets.shape[:2]
+
+
+# ---------------------------------------------------------------------------
+# (e) the FPN's device counters
+# ---------------------------------------------------------------------------
+
+# every level P2-P5 takes rois at 128x192 once the canonical roi is 24 px;
+# the second image's 30x40 leaves it fewer valid proposals than slots
+COUNTED = ("TEST.RPN_POST_NMS_TOP_N", "64", "FPN.ROI_CANONICAL_SCALE", "24")
+PADDED_INFO = torch.tensor([[128.0, 192.0, 1.0], [30.0, 40.0, 1.0]])
+
+
+class StateWrites(TorchDispatchMode):
+    """Records every dispatched op that writes into one of ``storages``
+    (the data pointers of a model's parameters and buffers)."""
+
+    def __init__(self, storages):
+        super().__init__()
+        self.storages, self.hits = storages, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        for i, arg in enumerate(func._schema.arguments):
+            if arg.alias_info is None or not arg.alias_info.is_write:
+                continue
+            t = args[i] if i < len(args) else kwargs.get(arg.name)
+            if isinstance(t, torch.Tensor) and t.untyped_storage().data_ptr() in self.storages:
+                self.hits.append((func.name().split("::")[-1], t.untyped_storage().data_ptr()))
+        return func(*args, **kwargs)
+
+
+@pytest.mark.parametrize("net,classes,extra", [FAMILIES[i] for i in (0, 1, 8)],
+                         ids=["res50", "res50_fpn", "res101-coco"])
+def test_detect_writes_no_model_state_but_the_fpns_counters(net, classes, extra):
+    model = _family_model(net, classes, extra)
+    data, im_info = _batch()
+    state = dict(model.named_parameters())
+    state.update(model.named_buffers())
+    storages = {t.untyped_storage().data_ptr(): name for name, t in state.items()}
+    with torch.inference_mode():
+        model.detect(data, im_info, 100)                # the warm-up: caches filled
+        writes = StateWrites(set(storages))
+        with writes:
+            model.detect(data, im_info, 100)
+    written = [(op, storages[ptr]) for op, ptr in writes.hits]
+    if net.endswith("_fpn"):
+        # the three in-place adds of ``FasterRCNNFPN._count``, nothing else
+        assert written == [("index_add_", "roi_counts"), ("add_.Tensor", "roi_counts"),
+                           ("add_.Tensor", "roi_counts")]
+    else:
+        assert written == [] and "roi_counts" not in storages.values()
+        assert Detector(model, device="cpu").counters() == {}
+
+
+def test_fpn_counters_are_the_valid_rois_a_level_and_the_valid_proposals():
+    model = _family_model("res50_fpn", 21, COUNTED)
+    data, _ = _batch()
+    assert "roi_counts" not in model.state_dict()
+    with torch.inference_mode():
+        out = model.predict(data, PADDED_INFO)
+    counts = model.read_counters()
+    valid = out["roi_valid"]
+    levels = model._assign_levels(out["rois"])
+    assert (~valid).any() and (levels[~valid] == 2).all()      # padding sits at P2
+    want = {f"rois_p{k}": int((levels[valid] == k).sum()) for k in (2, 3, 4, 5)}
+    assert all(want.values())                                    # every level takes rois
+    assert counts == {**want, "proposals": int(valid.sum()), "batches": 1}
+    assert sum(counts[f"rois_p{k}"] for k in (2, 3, 4, 5)) == counts["proposals"]
+    assert set(model.read_counters().values()) == {0}           # zeroed by the read
+
+
+def test_fpn_counters_add_at_each_replay_and_reading_them_moves_no_detection():
+    model = _family_model("res50_fpn", 21, COUNTED)
+    det = Detector(model, device="cpu")
+    det.graphs = DetectGraphs(det.model, det.max_per_image, "cpu", graph=StandInGraph)
+    data, _ = _batch()
+    first = det.detect_blobs(data, PADDED_INFO)          # warm-up, capture, replay
+    assert det.counters()["batches"] == 3                # the stand-in runs detect thrice
+    assert set(det.counters().values()) == {0}
+    second = det.detect_blobs(data, PADDED_INFO)         # a replay, counters read before
+    third = det.detect_blobs(data, PADDED_INFO)          # a replay, counters not read
+    two = det.counters()
+    assert two["batches"] == 2 and StandInGraph.made[0].replayed == 3
+    with torch.inference_mode():
+        model.predict(data, PADDED_INFO)
+    single = model.read_counters()
+    assert two == {k: 2 * v for k, v in single.items()}
+    for got in (second, third):
+        assert all(torch.equal(a, b) for a, b in zip(first, got))
