@@ -42,6 +42,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      batch (8 at 608x1024, 2400 crops in layer4) in the form each site takes
      (no middle term, the identity residual, the projection shortcut), timed
      in CUDA graphs beside the twin and the module-by-module path it replaces;
+     then the FPN epilogue bit-equal to its twin and to the module path it
+     replaces (the conv's bias add, the nearest upsample and top-down add,
+     the relu) at the 13 launches of a res50 FPN serving batch of 8 in both
+     buckets of the FPN cell (800x1344, 1344x800), timed the same way;
   5. K1 at the train shapes (C4: 8 x 12000, FPN: 8 x 8480; t=0.7, cap 2000),
      indices and capped keep masks as in 2;
   6. K2b (RoIAlign backward) against its twin, f32 and bf16, at the train
@@ -87,7 +91,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and requests as 12: first the served RPN's bf16 logit product at P2
      against the f32 product of the same operands, then the requests with
      their launch counts per batch (K3 6, K5 2, K1 2, K6 1, the BN epilogue
-     31), then the
+     31, the FPN epilogue 13), then the
      steady-state batch time;
  15. one image through FPN ``detect`` in f32 on the card and on a CPU copy,
      matched one to one;
@@ -135,8 +139,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
  23. the GroupNorm FPN serving path: res50_fpn_gn (RESNET.FIXED_BLOCKS 0)
      with the JAX package's from-scratch init from a seed, bf16, the bucket,
      batch and requests of 14: the pyramid finite, the RPN's bf16 logits as
-     in 14, launch counts per batch K5 2, K1 2, K6 1 and K3 0 (it folds a
-     frozen BN), then the steady-state batch time and peak device memory;
+     in 14, launch counts per batch K5 2, K1 2, K6 1, the FPN epilogue 13
+     and K3 0 (it folds a frozen BN), then the steady-state batch time and
+     peak device memory;
  24. one image through the GroupNorm FPN's f32 ``detect`` on the card and on
      a CPU copy, matched one to one as in 15;
  25. the GroupNorm FPN train path: the shape, roidb and solver of 18 under
@@ -267,8 +272,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      each a new ``Detector``, 3 requests of 8 at 800x1216 whose detections
      and (dets, valid) are bit-equal to eager ``model.detect`` on the same
      batches; the capture-time launches equal to eager detect's and to the
-     device kernels of a profiled replay; eager and graphed batch ms (median
-     of 10 after 2, CUDA events), the host ms of 10 queued calls, the
+     device kernels of a profiled replay, which launches no nearest
+     upsample; eager and graphed batch ms (median of 10 after 2, CUDA
+     events), the host ms of 10 queued calls, the
      device's idle share (torch.profiler), the capture's seconds and the
      peak memory with the graph captured; then two keys in one ``Detector``
      (B 8 at 800x1216 and B 3 at 1216x800, one pool) captured in one order
@@ -300,6 +306,7 @@ import argparse
 import contextlib
 import copy
 import json
+import math
 import os
 import shutil
 import statistics
@@ -934,6 +941,122 @@ def check_bn_epilogue(dev):
         f"{total['module_ms']:.4f} ms")
     return {**total, "library_ms": None, "max_abs_err": 0.0, **bound.result(),
             "launches_a_batch": launches, "by_shape": by_shape}
+
+
+# ---------------------------------------------------------------------------
+# The FPN epilogue
+# ---------------------------------------------------------------------------
+
+FPN_EPILOGUE_BUCKETS = ((800, 1344), (1344, 800))   # the FPN serving cell's
+
+
+def fpn_epilogue_shapes(bh, bw, batch=8, c=256):
+    """(name, mode, x (B, C, H, W), top (B, C, TH, TW) or None) of the 13
+    FPN epilogue launches of a ResNet FPN serving batch at a (bh, bw)
+    bucket: the laterals of P2-P4 merged with the next coarser level, the
+    lateral of P5 and the output convs of P2-P5 with their bias alone, the
+    RPN conv on P2-P6 with its relu.  Level k is ceil(bh / 2^k) x ceil(bw /
+    2^k) (every stride-2 stage rounds up); P6 is P5 at stride 2."""
+    sizes, h, w = [], bh, bw
+    for _ in range(6):
+        h, w = -(-h // 2), -(-w // 2)
+        sizes.append((h, w))
+    levels = {k: (batch, c, *sizes[k - 1]) for k in range(2, 7)}
+    out = [(f"lateral P{k}+top-down", "merge", levels[k], levels[k + 1]) for k in (2, 3, 4)]
+    out.append(("lateral P5", "bias", levels[5], None))
+    out += [(f"output P{k}", "bias", levels[k], None) for k in range(2, 6)]
+    out += [(f"rpn P{k}", "relu", levels[k], None) for k in range(2, 7)]
+    return out
+
+
+def check_fpn_epilogue(dev):
+    """The FPN epilogue at the 13 launches of a res50 FPN serving batch of 8
+    in both buckets of the FPN cell (800x1344, 1344x800), in the mode each
+    site takes: bit-equal to its twin and to the module path it replaces
+    (cuDNN's separate bias add_, the nearest upsample and the top-down add,
+    the relu); its launches counted (``LAUNCH_COUNTS``), one a shape;
+    timed (``graphed_ms``, over enough input copies that a replay reads
+    more than L2 holds) beside the twin and the module path; bound by its
+    bytes (x and the output, and the coarser level in merge mode, each
+    once)."""
+    import torch.nn.functional as F
+
+    from frcnn_tpu_torch.ops.cuda import build
+    from frcnn_tpu_torch.ops.cuda.epilogue_grid import epilogue_plan
+    from frcnn_tpu_torch.ops.cuda.fpn_epilogue import fpn_epilogue, fpn_epilogue_reference
+
+    for entry in ptxas_report(build.BUILD_LOG, "fpn_epilogue_kernel"):
+        log(f"FPN epilogue ptxas {entry['function'].split('fpn_epilogue_kernel')[1][:4]}: "
+            f"{entry['registers']} registers, spill stores {entry['spill_stores']} B, "
+            f"loads {entry['spill_loads']} B")
+
+    def module_path(x, bias, top, relu):
+        y = x.clone()
+        y.add_(bias.to(x.dtype).reshape(1, -1, 1, 1))     # cuDNN's conv leaves its bias to this
+        if top is not None:
+            up = F.interpolate(top, scale_factor=2, mode="nearest")
+            y = y + up[:, :, :y.shape[2], :y.shape[3]]
+        return F.relu(y) if relu else y
+
+    def bf16_cl(shape, scale):
+        return ((torch.randn(*shape, device=dev) * scale).to(torch.bfloat16)
+                .contiguous(memory_format=torch.channels_last))
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    torch.manual_seed(23)
+    by_bucket, by_shape = {}, []
+    with torch.inference_mode():
+        for bh, bw in FPN_EPILOGUE_BUCKETS:
+            bound = Bound()
+            total = {"ms": 0.0, "plain_ms": 0.0, "module_ms": 0.0}
+            shapes, launches = fpn_epilogue_shapes(bh, bw), 0
+            for name, mode, xs, ts in shapes:
+                relu = mode == "relu"
+                bias = torch.randn(xs[1], device=dev, generator=g) * 0.5
+                n_bytes = 2 * 2 * math.prod(xs) + (0 if ts is None else 2 * math.prod(ts))
+                sets = [(bf16_cl(xs, 2.0), None if ts is None else bf16_cl(ts, 2.0))
+                        for _ in range(max(2, -(-2 * L2_BYTES // n_bytes)))]
+                for i, (x, top) in enumerate(sets[:2]):
+                    before = build.LAUNCH_COUNTS["fpn_epilogue"]
+                    got = fpn_epilogue(x, bias, top, relu)
+                    if i == 0:                  # one batch: each shape's first checked call
+                        launches += build.LAUNCH_COUNTS["fpn_epilogue"] - before
+                    for what, want in (("twin", fpn_epilogue_reference(x, bias, top, relu)),
+                                       ("module path", module_path(x, bias, top, relu))):
+                        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                            err = (got.float() - want.float()).abs().max().item()
+                            raise AssertionError(f"FPN epilogue {name} {xs} at {bh}x{bw}: "
+                                                 f"differs from the {what} (max abs err {err})")
+                ms = graphed_ms(lambda x, t: fpn_epilogue(x, bias, t, relu), sets)
+                plain_ms = graphed_ms(lambda x, t: fpn_epilogue_reference(x, bias, t, relu), sets)
+                module_ms = graphed_ms(lambda x, t: module_path(x, bias, t, relu), sets)
+                b_ms = bound.add(n_bytes)
+                for key, val in (("ms", ms), ("plain_ms", plain_ms), ("module_ms", module_ms)):
+                    total[key] += val
+                by_shape.append({"bucket": [bh, bw], "name": name, "mode": mode,
+                                 "shape": list(xs), "top": ts and list(ts),
+                                 "plan": epilogue_plan(math.prod(xs), xs[1]), "ms": ms,
+                                 "plain_ms": plain_ms, "module_ms": module_ms, "bound_ms": b_ms,
+                                 "copies": len(sets)})
+                log(f"FPN epilogue {bh}x{bw} {name} {xs}: bit-equal to its twin and to the "
+                    f"module path; kernel {ms:.4f} ms, bound {b_ms:.4f} "
+                    f"({100 * b_ms / ms:.1f}%), twin {plain_ms:.4f}, module path "
+                    f"{module_ms:.4f}")
+                del sets, got, want
+                torch.cuda.empty_cache()
+            if launches != len(shapes):
+                raise AssertionError(f"FPN epilogue at {bh}x{bw}: {launches} launches counted "
+                                     f"for the {len(shapes)} shapes of a batch")
+            by_bucket[f"{bh}x{bw}"] = {**total, **bound.result(), "launches": launches}
+            log(f"FPN epilogue, the {launches} launches of a res50 FPN serving batch "
+                f"(8 at {bh}x{bw}): kernel {total['ms']:.4f} ms, bound {bound.ms:.4f} ms "
+                f"({100 * bound.ms / total['ms']:.1f}%), twin {total['plain_ms']:.4f} ms, "
+                f"module path {total['module_ms']:.4f} ms")
+    n = len(by_bucket)
+    mean = {key: sum(b[key] for b in by_bucket.values()) / n
+            for key in ("ms", "plain_ms", "module_ms", "bound_ms")}
+    return {**mean, "library_ms": None, "max_abs_err": 0.0, "bound_by": "bytes",
+            "launches_a_batch": launches, "by_bucket": by_bucket, "by_shape": by_shape}
 
 
 # ---------------------------------------------------------------------------
@@ -1829,9 +1952,11 @@ def top_path(dev, card):
 # per FPN detect batch at 800x1216: the 6 stride-1 blocks of layer1-2, K5 on
 # the P2 and P3 rows, the proposal NMS and the per-class NMS, one K6 launch, the
 # BN epilogue as in the C4 trunk (layer4 on the C5 map)
-FPN_LAUNCHES = {"fused_block": 6, "select": 2, "nms": 2, "roi_align_ml": 1, "bn_epilogue": 31}
-# per GroupNorm FPN detect batch: the same without K3, which folds a frozen BN
-FPN_GN_LAUNCHES = {"select": 2, "nms": 2, "roi_align_ml": 1}
+FPN_LAUNCHES = {"fused_block": 6, "select": 2, "nms": 2, "roi_align_ml": 1, "bn_epilogue": 31,
+                "fpn_epilogue": 13}
+# per GroupNorm FPN detect batch: the same without K3, which folds a frozen BN,
+# and without the BN epilogue; the neck's FPN epilogue does not depend on the norm
+FPN_GN_LAUNCHES = {"select": 2, "nms": 2, "roi_align_ml": 1, "fpn_epilogue": 13}
 # the GroupNorm FPN trained from scratch: nothing frozen (as scripts/ap_regression.py)
 GN_CONFIG = ("RESNET.FIXED_BLOCKS", "0")
 
@@ -3826,7 +3951,10 @@ KERNEL_SYMBOLS = {"nms": "nms_chunk_kernel", "roi_align": "roi_align_fwd_kernel"
                   "roi_align_ml": "roi_align_ml_fwd_kernel",
                   "fused_block": "fused_bottleneck_kernel", "select": "topk_select_kernel",
                   "overlap": "overlap_stats_kernel", "roi_align_bwd": "roi_align_bwd_tile_kernel",
-                  "bn_epilogue": "bn_epilogue_kernel"}
+                  "bn_epilogue": "bn_epilogue_kernel", "fpn_epilogue": "fpn_epilogue_kernel",
+                  # counted by no wrapper: a family's replay must launch none (the
+                  # FPN epilogue reads the coarser level in place)
+                  "upsample_nearest2d": "upsample_nearest2d"}
 
 
 def profiled_kernels(step):
@@ -4092,6 +4220,8 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "frcnn_tpu/ops/pallas/select_kernel.py:213"),
     ("bn_epilogue", "frcnn_tpu_torch/csrc/bn_epilogue.cu",
      "none: XLA fuses frozen BN, the residual add and the relu into the convolutions"),
+    ("fpn_epilogue", "frcnn_tpu_torch/csrc/fpn_epilogue.cu",
+     "none: XLA fuses the FPN convolutions' bias, top-down add and relu into them"),
 )
 
 
@@ -4140,7 +4270,8 @@ def main(argv=None) -> int:
         "roi_align": k2, "fused_block": k3, "roi_align_bwd": check_roi_align_bwd(dev),
         "roi_align_ml_bwd": check_roi_align_ml_bwd(dev),
         "overlap": check_overlap(dev), "select": check_select(dev),
-        "roi_align_ml": check_roi_align_ml(dev), "bn_epilogue": check_bn_epilogue(dev)}
+        "roi_align_ml": check_roi_align_ml(dev), "bn_epilogue": check_bn_epilogue(dev),
+        "fpn_epilogue": check_fpn_epilogue(dev)}
     for res in results.values():
         res.setdefault("library_ms", None)       # no one library call computes it
     k1b = check_nms_single(dev)

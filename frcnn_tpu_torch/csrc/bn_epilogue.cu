@@ -33,7 +33,7 @@
 // threads measured faster there than two or more blocks an SM, and within
 // a few percent on the largest shapes (grids of 132 to 1056 blocks on an
 // H100 SXM).  The grid is chosen from the shape by a fixed rule
-// (ops/cuda/bn_epilogue.py, epilogue_plan); the launcher refuses a plan
+// (ops/cuda/epilogue_grid.py, epilogue_plan); the launcher refuses a plan
 // whose step is not a whole number of pixels.
 
 #include <cuda_bf16.h>

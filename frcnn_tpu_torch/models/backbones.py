@@ -113,15 +113,21 @@ def make_norm(norm: str):
     raise ValueError(f"unknown norm: {norm}")
 
 
+def _epilogue_gate(x) -> bool:
+    """Whether the elementwise passes after a convolution of ``x`` may run
+    as a hand-written epilogue kernel (the BN epilogue, the FPN epilogue):
+    bf16 on the card with autograd off (the kernels have no backward), which
+    is serving and also the validation losses (``SolverWrapper.val_losses``
+    runs ``train_forward`` under no_grad).  Training steps, the CPU and f32
+    keep the module-by-module path."""
+    return x.is_cuda and x.dtype == torch.bfloat16 and not torch.is_grad_enabled()
+
+
 def _use_epilogue(norm: str, x) -> bool:
     """Whether a frozen BN after a convolution (with its residual and relu)
-    runs as the BN epilogue kernel: bf16 on the card with autograd off (the
-    kernel has no backward), which is serving and also the validation losses
-    (``SolverWrapper.val_losses`` runs ``train_forward`` under no_grad).
-    Training steps, GroupNorm, the CPU and f32 keep the module-by-module
-    path."""
-    return (norm == "frozen_bn" and x.is_cuda and x.dtype == torch.bfloat16
-            and not torch.is_grad_enabled())
+    runs as the BN epilogue kernel: ``_epilogue_gate``, for frozen BN only
+    (GroupNorm keeps the module path)."""
+    return norm == "frozen_bn" and _epilogue_gate(x)
 
 
 def _conv(x, conv: nn.Conv2d, stride: int = 1, padding: int = 0):

@@ -50,7 +50,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from frcnn_tpu_torch.config import Config
-from frcnn_tpu_torch.models.backbones import GroupNorm, _conv, build_backbone, preprocess_images
+from frcnn_tpu_torch.models.backbones import (GroupNorm, _conv, _epilogue_gate, build_backbone,
+                                              preprocess_images)
 from frcnn_tpu_torch.models.losses import detection_losses_compact
 from frcnn_tpu_torch.models.network import (anchor_rows, decode_boxes, gather_anchor_rows,
                                             postprocess_detections)
@@ -59,6 +60,7 @@ from frcnn_tpu_torch.models.targets import (anchor_target_compact, proposal_targ
                                             uniform_draws)
 from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
 from frcnn_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
+from frcnn_tpu_torch.ops.cuda.fpn_epilogue import fpn_epilogue
 from frcnn_tpu_torch.ops.cuda.select_kernel import threshold_route, topk_descending
 from frcnn_tpu_torch.ops.nms import NEG_INF, nms_fixed_batched
 from frcnn_tpu_torch.ops.roi_align import extract_multilevel_features
@@ -112,10 +114,27 @@ def fg_logit_diff(tokens, dw, db):
     return d.reshape(b, hw, -1) + db
 
 
+def biased_conv(x, conv: nn.Conv2d, padding: int = 0, top=None, relu: bool = False):
+    """``conv(x)`` with its bias, then ``+ up2(top)`` (the nearest 2x
+    upsample of the coarser level ``top``, cropped to the result's size) or
+    the relu.  Through ``_epilogue_gate`` (either trunk's norm): the
+    convolution without its bias and one ``fpn_epilogue`` launch, with the
+    module path's bits."""
+    if _epilogue_gate(x):
+        y = F.conv2d(x, conv.weight.to(x.dtype), None, padding=padding)
+        return fpn_epilogue(y, conv.bias, top, relu)
+    y = _conv(x, conv, padding=padding)
+    if top is not None:
+        up = F.interpolate(top, scale_factor=2, mode="nearest")
+        y = y + up[:, :, :y.shape[2], :y.shape[3]]
+    return F.relu(y) if relu else y
+
+
 class FPNNeck(nn.Module):
     """Lateral 1x1 convs, the top-down nearest 2x upsample (cropped to the
     lateral's size where a level is odd), 3x3 output convs; P6 is P5 at
-    stride 2 (the 1x1/s2 max-pool of the JAX module)."""
+    stride 2 (the 1x1/s2 max-pool of the JAX module).  Each conv's bias and
+    the top-down add end it in one pass (``biased_conv``)."""
 
     def __init__(self, in_channels=(256, 512, 1024, 2048), out_channels: int = 256):
         super().__init__()
@@ -125,12 +144,12 @@ class FPNNeck(nn.Module):
 
     def forward(self, feats):
         """[C2..C5] NCHW → [P2..P6]."""
-        laterals = [_conv(f, getattr(self, f"lateral{i}")) for i, f in enumerate(feats, start=2)]
-        outs = [laterals[-1]]
-        for lat in laterals[-2::-1]:
-            up = F.interpolate(outs[0], scale_factor=2, mode="nearest")
-            outs.insert(0, lat + up[:, :, :lat.shape[2], :lat.shape[3]])
-        ps = [_conv(o, getattr(self, f"output{i}"), padding=1) for i, o in enumerate(outs, start=2)]
+        last = len(feats) + 1
+        outs = [biased_conv(feats[-1], getattr(self, f"lateral{last}"))]
+        for i in range(last - 1, 1, -1):
+            outs.insert(0, biased_conv(feats[i - 2], getattr(self, f"lateral{i}"), top=outs[0]))
+        ps = [biased_conv(o, getattr(self, f"output{i}"), padding=1)
+              for i, o in enumerate(outs, start=2)]
         return ps + [ps[-1][:, :, ::2, ::2]]
 
 
@@ -235,7 +254,7 @@ class FasterRCNNFPN(nn.Module):
         probs, cells, cls_cells = [], [], []
         for feat in pyramid:
             b, _, h, w = feat.shape
-            x = F.relu(_conv(feat, self.rpn_net, padding=1))
+            x = biased_conv(feat, self.rpn_net, padding=1, relu=True)
             tokens = x.permute(0, 2, 3, 1).reshape(b, h * w, x.shape[1])
             d = fg_logit_diff(tokens, dw, db)                              # (B, HW, A)
             probs.append(torch.sigmoid(d).transpose(1, 2).reshape(b, a_n * h * w))

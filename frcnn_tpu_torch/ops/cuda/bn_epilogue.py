@@ -16,8 +16,8 @@ folding each frozen BN from its four f32 buffers inside the kernel as
 f32 rounded once at the store.  Nothing is cached:
 statistics copied into the buffers in place reach the next launch or
 graph replay.  Bound on the H100: bytes (x, the residual or shortcut, the
-output, each once).  ``epilogue_plan`` is the launch geometry, a fixed rule
-of the shape: no tuning, no state.
+output, each once).  The launch geometry is ``epilogue_grid``'s rule,
+shared with the FPN epilogue.
 
 ``bn_epilogue_reference`` is the plain twin: the same arithmetic in
 PyTorch (bf16 mul/add, f32 body, one rounding).  It differs from the
@@ -27,32 +27,10 @@ each rounded to bf16) by bf16 rounding only.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from frcnn_tpu_torch.ops.cuda import build
-
-THREADS = 512          # the kernel's block (csrc/bn_epilogue.cu, kThreads)
-UNROLL = 4             # vectors of 8 channels a thread has at least, where the tensor allows
-SMS = 132              # H100 SXM
-BLOCKS_PER_SM = 1      # the kernel's __launch_bounds__(512, 1)
-
-
-def epilogue_plan(numel: int, c: int) -> dict:
-    """Launch geometry for ``numel`` bf16 values of ``c`` channels: THREADS
-    a block; enough blocks that each thread has UNROLL vectors of 8 where
-    the tensor allows, at most BLOCKS_PER_SM a streaming multiprocessor
-    (one wave), rounded up so that blocks x THREADS is a whole number of
-    pixels (c / 8 vectors): a thread's channels then stay the same in every
-    step of its grid-stride loop."""
-    if c % 8 or numel % c:
-        raise ValueError(f"bn_epilogue: {numel} values of {c} channels (need c % 8 == 0)")
-    vecs = c // 8
-    multiple = vecs // math.gcd(vecs, THREADS)
-    blocks = min(-(-numel // (8 * THREADS * UNROLL)), SMS * BLOCKS_PER_SM)
-    blocks = -(-max(blocks, 1) // multiple) * multiple
-    return {"threads": THREADS, "blocks": blocks}
+from frcnn_tpu_torch.ops.cuda.epilogue_grid import epilogue_plan
 
 
 def bn_epilogue_reference(x, bn, relu: bool = True, residual=None, shortcut=None,

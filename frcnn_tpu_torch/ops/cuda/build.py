@@ -48,6 +48,7 @@ _SIGNATURES = {
     "frcnn_topk_threshold": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "frcnn_bn_epilogue": (_P, _L, _I, _P, _P, _P, _P, _F, _P, _I, _P, _P, _P, _P, _F, _I, _I, _I,
                           _P, _P),
+    "frcnn_fpn_epilogue": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from frcnn_tpu_torch.models import backbones
 from frcnn_tpu_torch.models.backbones import Bottleneck, FrozenBatchNorm, ResNetV1
 from frcnn_tpu_torch.ops.cuda import bn_epilogue as epi
-from frcnn_tpu_torch.ops.cuda import build
+from frcnn_tpu_torch.ops.cuda import build, epilogue_grid
 
 BF = torch.bfloat16
 CASES = ("cpu", "f32", "grad", "group")
@@ -124,7 +124,7 @@ def test_launch_geometry_at_the_c4_serving_shapes(bucket):
         step = plan["blocks"] * plan["threads"]
         assert step % (c // 8) == 0, name
         nvec = numel // 8
-        assert nvec >= step * epi.UNROLL, name          # every thread has 4 vectors or more
+        assert nvec >= step * epilogue_grid.UNROLL, name          # every thread has 4 vectors or more
         for tid in (0, 1, c // 8 - 1, step - 1):
             channels = {(v * 8) % c for v in range(tid, nvec, step)}
             assert len(channels) == 1, (name, tid)

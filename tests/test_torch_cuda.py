@@ -23,6 +23,7 @@ from frcnn_tpu_torch.models.backbones import Bottleneck
 from frcnn_tpu_torch.models.fpn import fg_logit_diff
 from frcnn_tpu_torch.ops.cuda import build
 from frcnn_tpu_torch.ops.cuda.bn_epilogue import bn_epilogue, bn_epilogue_reference
+from frcnn_tpu_torch.ops.cuda.fpn_epilogue import fpn_epilogue, fpn_epilogue_reference
 from frcnn_tpu_torch.ops.cuda.fused_block import bottleneck_reference, fused_bottleneck
 from frcnn_tpu_torch.ops.cuda.nms_kernel import (nms_mask_batched, nms_mask_reference,
                                                  nms_plan)
@@ -773,7 +774,9 @@ def test_coco_model_detects_and_trains_on_the_card_matching_the_cpu(dev):
 # (net, config, the kernels one replay launches) at 320x480, bf16
 GRAPHED = [("res50", (), {"nms": 2, "roi_align": 1, "fused_block": 6, "bn_epilogue": 31}),
            ("res50_fpn", (), {"nms": 2, "roi_align_ml": 1, "select": 1, "fused_block": 6,
-                              "bn_epilogue": 31})]
+                              "bn_epilogue": 31, "fpn_epilogue": 13}),
+           ("res50_fpn_gn", ("RESNET.FIXED_BLOCKS", "0"),
+            {"nms": 2, "roi_align_ml": 1, "select": 1, "fpn_epilogue": 13})]
 
 
 def _graphed_setup(net, extra, seed=1):
@@ -1070,6 +1073,123 @@ def test_bn_statistics_copied_in_reach_the_replay(dev):
         if (name.startswith(("bn1.", "layer2.0.", "layer3.", "layer4."))
                 and ("bn" in name or "downsample.1" in name)):
             state[name] = t * (1 + 0.2 * torch.rand(t.shape, generator=g)).to(t.device)
+    model.load_state_dict(state)
+    after = det(images)
+    assert sum(det.graphs.captures.values()) == 1
+    want = chip_smoke.eager_detections(model, images, cfg, det.max_per_image, dev)[0]
+    assert any(b.shape != a.shape or not np.array_equal(b, a) for b, a in zip(before, after))
+    for a, w in zip(after, want):
+        np.testing.assert_array_equal(a, w)
+
+
+# ---------------------------------------------------------------------------
+# The FPN epilogue (frcnn_tpu_torch/ops/cuda/fpn_epilogue.py): the bias of the
+# FPN's convolutions with the top-down add or the RPN conv's relu
+# ---------------------------------------------------------------------------
+
+def _fpn_module_path(x, bias, top, relu):
+    """The passes the FPN epilogue replaces, as they ran on the card: cuDNN's
+    convolution leaves its bias to a broadcast ``add_``, then the nearest
+    upsample cropped and the top-down add, or the relu."""
+    import torch.nn.functional as F
+
+    y = x.clone()
+    y.add_(bias.to(x.dtype).reshape(1, -1, 1, 1))
+    if top is not None:
+        y = y + F.interpolate(top, scale_factor=2, mode="nearest")[:, :, :y.shape[2], :y.shape[3]]
+    return F.relu(y) if relu else y
+
+
+def _bf16_cl(shape, dev, g, scale=2.0):
+    return ((torch.randn(*shape, generator=g) * scale).to(dev, torch.bfloat16)
+            .contiguous(memory_format=torch.channels_last))
+
+
+def _assert_fpn_epilogue_bits(dev, x, bias, top, relu):
+    build.reset_launch_counts()
+    with torch.inference_mode():
+        got = fpn_epilogue(x, bias, top, relu)
+        twin = fpn_epilogue_reference(x, bias, top, relu)
+        module = _fpn_module_path(x, bias, top, relu)
+    torch.cuda.synchronize()
+    assert build.LAUNCH_COUNTS["fpn_epilogue"] == 1
+    assert got.is_contiguous(memory_format=torch.channels_last) and got.dtype == torch.bfloat16
+    for want in (twin, module):
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), float(
+            (got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("bucket", [(800, 1344), (1344, 800)])
+def test_fpn_epilogue_bit_equal_at_the_fpn_cell_shapes(dev, bucket):
+    """The 13 launches of a res50 FPN serving batch of 8 in each bucket of the
+    FPN cell, each in its mode: bit-equal to the twin and to the module
+    path (the bias add_, the upsample and top-down add, the relu)."""
+    import chip_smoke
+
+    g = torch.Generator().manual_seed(sum(bucket))
+    shapes = chip_smoke.fpn_epilogue_shapes(*bucket)
+    assert len(shapes) == 13
+    for name, mode, xs, ts in shapes:
+        bias = (torch.randn(xs[1], generator=g) * 0.5).to(dev)
+        x = _bf16_cl(xs, dev, g)
+        top = None if ts is None else _bf16_cl(ts, dev, g)
+        _assert_fpn_epilogue_bits(dev, x, bias, top, mode == "relu")
+
+
+@pytest.mark.parametrize("c", [8, 64, 256, 264])
+@pytest.mark.parametrize("mode", ["bias", "relu", "merge"])
+def test_fpn_epilogue_kernel_bit_equal_at_ragged_shapes(dev, mode, c):
+    """Small ragged shapes (a partial grid step; odd levels, where the merge
+    crops the upsampled coarser level; a top wider than it needs to be) and
+    widths that are not a power of two: bit-equal to the twin and to the
+    module path."""
+    g = torch.Generator().manual_seed(c + len(mode))
+    for b, h, w, th, tw in ((1, 1, 1, 1, 1), (3, 13, 21, 7, 11), (2, 37, 60, 19, 30),
+                            (5, 50, 84, 25, 42), (2, 9, 9, 6, 5)):
+        bias = (torch.randn(c, generator=g) * 4).to(dev)
+        x = _bf16_cl((b, c, h, w), dev, g)
+        top = _bf16_cl((b, c, th, tw), dev, g) if mode == "merge" else None
+        _assert_fpn_epilogue_bits(dev, x, bias, top, mode == "relu")
+
+
+def test_fpn_epilogue_refuses_what_it_cannot_take(dev):
+    """The top-down add with the relu, C not a multiple of 8, f32, a top not
+    half the size of x or of another batch, a bias of another width:
+    refused, nothing launched."""
+    g = torch.Generator().manual_seed(1)
+    bias = torch.randn(64, generator=g).to(dev)
+    x, top = _bf16_cl((2, 64, 10, 14), dev, g), _bf16_cl((2, 64, 5, 7), dev, g)
+    build.reset_launch_counts()
+    with pytest.raises(ValueError):
+        fpn_epilogue(x, bias, top, relu=True)
+    with pytest.raises(ValueError):
+        fpn_epilogue(_bf16_cl((2, 60, 10, 14), dev, g), bias[:60])
+    with pytest.raises(ValueError):
+        fpn_epilogue(x.float(), bias)
+    with pytest.raises(ValueError):
+        fpn_epilogue(x, bias, _bf16_cl((2, 64, 4, 7), dev, g))
+    with pytest.raises(ValueError):
+        fpn_epilogue(x, bias, top[:1])
+    with pytest.raises(ValueError):
+        fpn_epilogue(x, bias[:32])
+    assert build.LAUNCH_COUNTS["fpn_epilogue"] == 0
+
+
+def test_fpn_biases_copied_in_reach_the_replay(dev):
+    """New biases of the neck's convolutions and of the RPN conv (the FPN
+    epilogue's) copied into the served model in place: the next replay, with
+    no new capture, serves what eager detect serves with them, and not what
+    it served before (nothing was folded or kept at capture)."""
+    from frcnn_tpu_torch.engine.serve import Detector
+
+    chip_smoke, cfg, model, images = _graphed_setup("res50_fpn", ())
+    det = Detector(model, uint8_input=True)
+    before = det(images)
+    g = torch.Generator().manual_seed(6)
+    state = model.state_dict()
+    for name, t in state.items():
+        if name.startswith(("neck.", "rpn_net.")) and name.endswith(".bias"):
+            state[name] = (torch.randn(t.shape, generator=g) * 0.5).to(t.device)
     model.load_state_dict(state)
     after = det(images)
     assert sum(det.graphs.captures.values()) == 1
