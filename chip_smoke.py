@@ -210,7 +210,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      warm-up and 20 timed batches) with 12's launches;
  44. the host libraries on the card's machine: ``native.host_ops`` builds
      (g++) and loads; ``apply_nms`` over 21's C4 detections.pkl keeps the
-     rows of ``nms_fixed(..., use_kernels=False)`` at 0.3 and 0.1;
+     rows of ``nms_fixed`` on CPU tensors (K1's twin) at 0.3 and 0.1;
      ``tools/reval.py`` on that directory returns and prints 21's APs; whether
      ``native.data_prep`` built (opencv4 dev files) is logged;
  45. the data mesh (``frcnn_tpu_torch/parallel``): 2 ranks, over NCCL with
@@ -248,7 +248,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      CPU copy, matched one to one as in 13;
  49. (D) the C4 threshold route: 48's model and then 12's at
      TEST.RPN_PRE_NMS_TOP_N 1000 (45600 and 34200 >= 24 x 1000 open K5's
-     gate), one batch of 8 with DEVICE.THRESHOLD_SELECT on and off: bf16
+     gate), one batch of 8 with the K5 route on and shut: bf16
      detections and valid masks bit-equal, K5 1 a batch on and 0 off, the
      batch time of each;
  50. (E) COCO train -> test -> evaluate over a synthetic COCO written into a
@@ -349,6 +349,22 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def nms_twin():
+    """``ops.nms`` with K1's plain twin for its keep mask on every device:
+    the same sorts, gathers and padding around the twin's uncapped mask, so
+    that a call inside compares with the same call outside on the card."""
+    from frcnn_tpu_torch.ops import nms
+
+    kernel = nms.nms_mask_batched
+    nms.nms_mask_batched = lambda boxes, thresh, valid, max_keep=None: nms.nms_mask(
+        boxes, thresh, valid)
+    try:
+        yield
+    finally:
+        nms.nms_mask_batched = kernel
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W)
@@ -469,8 +485,9 @@ def check_nms(dev):
         args = (torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev),
                 thresh, cap)
         kw = dict(valid=torch.from_numpy(valid).to(dev), presorted=presorted)
-        ki, kv = nms_fixed_batched(*args, use_kernels=True, **kw)
-        ti, tv = nms_fixed_batched(*args, use_kernels=False, **kw)
+        ki, kv = nms_fixed_batched(*args, **kw)
+        with nms_twin():
+            ti, tv = nms_fixed_batched(*args, **kw)
         torch.cuda.synchronize()
         if not (torch.equal(ki, ti) and torch.equal(kv, tv)):
             raise AssertionError(f"K1 {name}: nms_fixed_batched idx/valid differ from the twin")
@@ -1088,8 +1105,8 @@ def check_nms_train(dev):
         valid = torch.from_numpy(np.arange(n)[None, :]
                                  < rng.randint(n_valid_min, n + 1, (b, 1))).to(dev)
         ki, kv = nms_fixed_batched(boxes, scores, 0.7, cap, valid=valid, presorted=True)
-        ti, tv = nms_fixed_batched(boxes, scores, 0.7, cap, valid=valid, presorted=True,
-                                   use_kernels=False)
+        with nms_twin():
+            ti, tv = nms_fixed_batched(boxes, scores, 0.7, cap, valid=valid, presorted=True)
         torch.cuda.synchronize()
         if not (torch.equal(ki, ti) and torch.equal(kv, tv)):
             raise AssertionError(f"K1 {name} shape: nms_fixed_batched idx/valid differ from "
@@ -1619,13 +1636,14 @@ def check_nms_single(dev):
     scores = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(dev)
     valid = torch.from_numpy(rng.uniform(0, 1, n) > 0.1).to(dev)
     ki, kv = nms_fixed(boxes, scores, 0.7, 300, valid=valid)
-    ti, tv = nms_fixed(boxes, scores, 0.7, 300, valid=valid, use_kernels=False)
+    with nms_twin():
+        ti, tv = nms_fixed(boxes, scores, 0.7, 300, valid=valid)
     torch.cuda.synchronize()
     if not (torch.equal(ki, ti) and torch.equal(kv, tv)):
         raise AssertionError("K1b (nms_fixed, one problem of 6000): idx/valid differ from the twin")
     k_ms = cuda_ms(lambda: nms_fixed(boxes, scores, 0.7, 300, valid=valid))
-    t_ms = cuda_ms(lambda: nms_fixed(boxes, scores, 0.7, 300, valid=valid, use_kernels=False),
-                   iters=3, warmup=1)
+    with nms_twin():
+        t_ms = cuda_ms(lambda: nms_fixed(boxes, scores, 0.7, 300, valid=valid), iters=3, warmup=1)
     # the kernel's launch alone, on the sorted boxes: nms_fixed adds a sort,
     # gathers and a dozen small ops, which the host enqueues
     order = torch.argsort(-torch.where(valid, scores, -1e10), stable=True)
@@ -1882,6 +1900,8 @@ def match_im_detect(want, got, label, score_atol=1e-3, box_atol=5e-2):
 
 
 E2E_LAUNCHES = {"nms": 2, "roi_align": 1}
+# the same under POOLING_MODE pool and crop, which pool in plain PyTorch
+E2E_PLAIN_POOL_LAUNCHES = {"nms": 2}
 
 
 def end_to_end(dev, net="res50", extra=(), launches=E2E_LAUNCHES, classes=21):
@@ -1930,8 +1950,8 @@ def top_path(dev, card):
             raise AssertionError(f"TEST.MODE top: {n} rois a image, "
                                  f"{int(out['roi_valid'].sum())} valid")
         got = postprocess_detections(out, im_info, cfg, 21, cfg.TEST.MAX_PER_IMAGE)
-        want = postprocess_detections(out, im_info, cfg, 21, cfg.TEST.MAX_PER_IMAGE,
-                                      use_kernels=False)
+        with nms_twin():
+            want = postprocess_detections(out, im_info, cfg, 21, cfg.TEST.MAX_PER_IMAGE)
     torch.cuda.synchronize()
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError("TEST.MODE top: the per-class NMS through K1 (168 x 5000, cap "
@@ -1939,9 +1959,10 @@ def top_path(dev, card):
     with torch.inference_mode():
         k_ms = cuda_ms(lambda: postprocess_detections(out, im_info, cfg, 21,
                                                       cfg.TEST.MAX_PER_IMAGE))
-        t_ms = cuda_ms(lambda: postprocess_detections(out, im_info, cfg, 21,
-                                                      cfg.TEST.MAX_PER_IMAGE,
-                                                      use_kernels=False), iters=3, warmup=1)
+        with nms_twin():
+            t_ms = cuda_ms(lambda: postprocess_detections(out, im_info, cfg, 21,
+                                                          cfg.TEST.MAX_PER_IMAGE),
+                           iters=3, warmup=1)
     log(f"TEST.MODE top: the per-class NMS of a served batch (168 problems x {n} rois, cap 100) "
         f"through K1 equals its twin's: detections and valid masks equal "
         f"({int(got[1].sum())} detections); postprocess_detections {k_ms:.4f} ms with K1, "
@@ -2874,7 +2895,7 @@ def throughput_path(dev, card, detector, serve_ms, iters=20, warmup=2):
 def host_ops_path(workdir, aps):
     """The host libraries on this machine: ``host_ops`` must build and load;
     ``apply_nms`` over phase 21's C4 detections.pkl keeps the rows of
-    ``nms_fixed(..., use_kernels=False)``; ``tools/reval.py`` on that
+    ``nms_fixed`` on CPU tensors (K1's twin); ``tools/reval.py`` on that
     directory gives phase 21's APs; whether ``data_prep`` built."""
     import contextlib
     import io
@@ -2899,7 +2920,7 @@ def host_ops_path(workdir, aps):
                 if len(dets) == 0:
                     continue
                 t = torch.from_numpy(np.asarray(dets, np.float32))
-                idx, keep = nms_fixed(t[:, :4], t[:, 4], thresh, len(dets), use_kernels=False)
+                idx, keep = nms_fixed(t[:, :4], t[:, 4], thresh, len(dets))
                 if not np.array_equal(got[cls][im], dets[idx[keep].numpy()]):
                     raise AssertionError(f"apply_nms at {thresh}, class {cls} image {im}: "
                                          "nms_cpu keeps other rows than nms_fixed's twin")
@@ -3663,26 +3684,27 @@ ROUTE_CONFIG = ("TEST.RPN_PRE_NMS_TOP_N", "1000")
 
 def threshold_route_path(dev, card, detector, label, extra=(), per_batch=SERVE_LAUNCHES):
     """The C4 threshold route: ``detector``'s model (bf16, 800x1216) at
-    TEST.RPN_PRE_NMS_TOP_N 1000 with DEVICE.THRESHOLD_SELECT on and off, one
+    TEST.RPN_PRE_NMS_TOP_N 1000 with the K5 route on and shut
+    (``select_kernel.threshold_route`` patched to the sorted route), one
     batch of 8 (half the images 600x912, so that the anchors centred on
     their padding give each row a NEG_INF tail): K5 once a batch with the
     route on and never with it off, the detections and valid masks
     bit-equal, the batch time of each.  Returns {True: launches on, False:
     launches off}."""
     from frcnn_tpu_torch.engine.serve import Detector, iter_bucket_batches
-    from frcnn_tpu_torch.ops.cuda import build
+    from frcnn_tpu_torch.ops.cuda import build, select_kernel
 
-    model, saved = detector.model, detector.model.config
+    model, saved, route_gate = detector.model, detector.model.config, select_kernel.threshold_route
     bh, bw = saved.DEVICE.BUCKETS[0]
     images = synthetic_images(np.random.RandomState(18), [(bh, bw), (bh * 3 // 4, bw * 3 // 4)] * 4)
     (_, blob, info), = iter_bucket_batches(images, saved, keep_uint8=True)
     data, im_info = torch.from_numpy(blob).to(dev), torch.from_numpy(info).to(dev)
     counts, outs, times = {}, {}, {}
     want = {True: {**per_batch, "select": 1}, False: per_batch}
+    model.config = smoke_config([*extra, *ROUTE_CONFIG])
     try:
         for route in (True, False):
-            model.config = smoke_config([*extra, *ROUTE_CONFIG, "DEVICE.THRESHOLD_SELECT",
-                                         str(route)])
+            select_kernel.threshold_route = route_gate if route else lambda scores: False
             det = Detector(model, uint8_input=True)
             torch.cuda.synchronize()
             build.reset_launch_counts()
@@ -3694,6 +3716,7 @@ def threshold_route_path(dev, card, detector, label, extra=(), per_batch=SERVE_L
             outs[route] = (dets.clone(), valid.clone())
             times[route] = cuda_ms(lambda: det.detect_blobs(data, im_info), iters=10, warmup=2)
     finally:
+        select_kernel.threshold_route = route_gate
         model.config = saved
     (d_on, v_on), (d_off, v_off) = outs[True], outs[False]
     if not (torch.equal(d_on, d_off) and torch.equal(v_on, v_off)):
@@ -3701,7 +3724,7 @@ def threshold_route_path(dev, card, detector, label, extra=(), per_batch=SERVE_L
                              f"({(d_on != d_off).any(-1).sum().item()} rows)")
     log(f"{label} threshold route (TEST.RPN_PRE_NMS_TOP_N 1000, bf16, batch 8, {bh}x{bw}): "
         f"detections ({int(v_on.sum())} valid) and valid masks bit-equal with "
-        f"DEVICE.THRESHOLD_SELECT on and off; K5 1 a replay on, 0 off; {times[True]:.3f} ms a "
+        f"the K5 route on and shut; K5 1 a replay on, 0 off; {times[True]:.3f} ms a "
         f"graphed batch on, {times[False]:.3f} off (median of 10, CUDA events) on {card}")
     return counts
 
@@ -4332,7 +4355,7 @@ def main(argv=None) -> int:
         new_paths[f"{net}_train"] = train_path(dev, card, net, C4_PLAIN_TRAIN_LAUNCHES)[0]
         train_card_vs_cpu(dev, net)
     for pooling in ("pool", "crop"):
-        end_to_end(dev, "mobile", ("POOLING_MODE", pooling), {"nms": 2})
+        end_to_end(dev, "mobile", ("POOLING_MODE", pooling), E2E_PLAIN_POOL_LAUNCHES)
         train_card_vs_cpu(dev, "mobile", pooling)
     new_paths["vgg16_top_serve"], _, served = top_path(dev, card)
     models["vgg16_top"] = served.model

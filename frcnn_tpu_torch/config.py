@@ -7,10 +7,12 @@ Differences from the JAX package:
     compute dtype, sampling ratio) are device-neutral.  The YAML/``--set``
     loaders still accept ``TPU.*`` keys and route them here, so the
     ``experiments/cfgs/*.yml`` files load unchanged;
-  * ``TPU.USE_PALLAS`` becomes ``DEVICE.USE_KERNELS``: True runs the
-    hand-written CUDA kernels on CUDA tensors (and their plain twins on CPU
-    tensors); False runs the plain PyTorch versions everywhere.  It never
-    selects a fallback: a kernel that cannot run raises.
+  * ``TPU.USE_PALLAS`` becomes ``DEVICE.USE_KERNELS``.  The port has one
+    path: each kernel's wrapper runs it on CUDA tensors (or raises) and its
+    plain twin on CPU tensors, and each kernel's module gates where a call
+    site may take it.  So ``USE_KERNELS``, ``THRESHOLD_SELECT`` and
+    ``FUSED_RESNET_BLOCKS`` keep their names and defaults, no module reads
+    them, and False is refused, not ignored.
 """
 
 from __future__ import annotations
@@ -129,7 +131,7 @@ class DeviceConfig:
     DTYPE: str = "bfloat16"
     PIXEL_SCALE: float = 1.0
     ROI_SAMPLING_RATIO: int = 2
-    USE_KERNELS: bool = True        # hand-written CUDA kernels on CUDA tensors
+    USE_KERNELS: bool = True        # these three: only True (module docstring)
     THRESHOLD_SELECT: bool = True
     FUSED_RESNET_BLOCKS: bool = True
     MESH_AXIS: str = "data"
@@ -138,6 +140,14 @@ class DeviceConfig:
     PROFILE_START: int = 10
     PROFILE_STEPS: int = 5
     DEBUG_NANS: bool = False
+
+    def __post_init__(self):
+        for key in ("USE_KERNELS", "THRESHOLD_SELECT", "FUSED_RESNET_BLOCKS"):
+            if getattr(self, key) is not True:
+                jax_key = "USE_PALLAS" if key == "USE_KERNELS" else key
+                raise ValueError(f"DEVICE.{key} (TPU.{jax_key}) is {getattr(self, key)!r}: the "
+                                 "port has one path, the kernels on CUDA tensors and their "
+                                 "twins on CPU tensors, so only True is accepted")
 
 
 @dataclass(frozen=True)

@@ -47,8 +47,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from frcnn_tpu_torch.ops.constants import device_constant
+from frcnn_tpu_torch.ops.cuda import epilogue_grid, fused_block
 from frcnn_tpu_torch.ops.cuda.bn_epilogue import bn_epilogue
-from frcnn_tpu_torch.ops.cuda.fused_block import FusedBottleneckFunction
 
 _RESNET_DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
@@ -113,24 +113,7 @@ def make_norm(norm: str):
     raise ValueError(f"unknown norm: {norm}")
 
 
-def _epilogue_gate(x) -> bool:
-    """Whether the elementwise passes after a convolution of ``x`` may run
-    as a hand-written epilogue kernel (the BN epilogue, the FPN epilogue):
-    bf16 on the card with autograd off (the kernels have no backward), which
-    is serving and also the validation losses (``SolverWrapper.val_losses``
-    runs ``train_forward`` under no_grad).  Training steps, the CPU and f32
-    keep the module-by-module path."""
-    return x.is_cuda and x.dtype == torch.bfloat16 and not torch.is_grad_enabled()
-
-
-def _use_epilogue(norm: str, x) -> bool:
-    """Whether a frozen BN after a convolution (with its residual and relu)
-    runs as the BN epilogue kernel: ``_epilogue_gate``, for frozen BN only
-    (GroupNorm keeps the module path)."""
-    return norm == "frozen_bn" and _epilogue_gate(x)
-
-
-def _conv(x, conv: nn.Conv2d, stride: int = 1, padding: int = 0):
+def cast_conv(x, conv: nn.Conv2d, stride: int = 1, padding: int = 0):
     """``conv`` applied in the dtype of ``x`` (weights cast per call)."""
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
     return F.conv2d(x, conv.weight.to(x.dtype), bias, stride=stride, padding=padding)
@@ -159,36 +142,33 @@ class Bottleneck(nn.Module):
                 nn.Conv2d(cin, cout, 1, stride=stride, bias=False), bn(cout))
 
     def _use_fused(self, x) -> bool:
-        # The TPU gate also required a row tile that fits VMEM
-        # (pick_row_tile); the CUDA kernel tiles any H and W, so that
-        # condition is gone.  K3 folds a frozen BN into its weights: a
-        # GroupNorm block never takes it.
-        return (self.fused and self.norm == "frozen_bn" and self.stride == 1 and x.is_cuda
-                and x.dtype == torch.bfloat16)
+        # K3 folds a frozen BN into its weights: a GroupNorm block never
+        # takes it
+        return self.fused and self.norm == "frozen_bn" and self.stride == 1 and fused_block.gate(x)
 
     def forward(self, x):
         if self._use_fused(x):
             return self._fused_forward(x)
-        if _use_epilogue(self.norm, x):
+        if self.norm == "frozen_bn" and epilogue_grid.gate(x):
             return self._epilogue_forward(x)
-        y = F.relu(self.bn1(_conv(x, self.conv1)))
-        y = F.relu(self.bn2(_conv(y, self.conv2, self.stride, 1)))
-        y = self.bn3(_conv(y, self.conv3))
+        y = F.relu(self.bn1(cast_conv(x, self.conv1)))
+        y = F.relu(self.bn2(cast_conv(y, self.conv2, self.stride, 1)))
+        y = self.bn3(cast_conv(y, self.conv3))
         res = x
         if self.downsample is not None:
-            res = self.downsample[1](_conv(x, self.downsample[0], self.stride))
+            res = self.downsample[1](cast_conv(x, self.downsample[0], self.stride))
         return F.relu(y + res)
 
     def _epilogue_forward(self, x):
         """The plain path's convolutions, each followed by one BN epilogue
         launch: bn1 + relu, bn2 + relu, and bn3 + the residual (or the
         projection shortcut's conv through its own BN) + relu."""
-        y = bn_epilogue(_conv(x, self.conv1), self.bn1)
-        y = bn_epilogue(_conv(y, self.conv2, self.stride, 1), self.bn2)
-        y = _conv(y, self.conv3)
+        y = bn_epilogue(cast_conv(x, self.conv1), self.bn1)
+        y = bn_epilogue(cast_conv(y, self.conv2, self.stride, 1), self.bn2)
+        y = cast_conv(y, self.conv3)
         if self.downsample is None:
             return bn_epilogue(y, self.bn3, residual=x)
-        return bn_epilogue(y, self.bn3, shortcut=_conv(x, self.downsample[0], self.stride),
+        return bn_epilogue(y, self.bn3, shortcut=cast_conv(x, self.downsample[0], self.stride),
                            shortcut_bn=self.downsample[1])
 
     def _fused_forward(self, x):
@@ -206,8 +186,8 @@ class Bottleneck(nn.Module):
         if self.downsample is not None:
             md, bds = self.downsample[1].folded(dt)
             wds = self.downsample[0].weight[:, :, 0, 0].t().to(dt) * md
-        out = FusedBottleneckFunction.apply(x.permute(0, 2, 3, 1), w1, a1, w2, a2, w3, a3,
-                                            wds, bds)
+        out = fused_block.FusedBottleneckFunction.apply(x.permute(0, 2, 3, 1), w1, a1, w2, a2,
+                                                        w3, a3, wds, bds)
         return out.permute(0, 3, 1, 2)
 
 
@@ -241,8 +221,8 @@ class ResNetV1(nn.Module):
             cin = ch * 4
 
     def _stem(self, x):
-        x = _conv(x, self.conv1, 2, 3)
-        if _use_epilogue(self.norm, x):
+        x = cast_conv(x, self.conv1, 2, 3)
+        if self.norm == "frozen_bn" and epilogue_grid.gate(x):
             x = bn_epilogue(x, self.bn1)
         else:
             x = F.relu(self.bn1(x))
@@ -335,7 +315,7 @@ class VGG16(nn.Module):
     def extract_features(self, x):
         """x (B, 3, H, W) in the compute dtype → (B, 512, H/16, W/16)."""
         for idx, conv in self.features.items():
-            x = F.relu(_conv(x, conv, padding=1))
+            x = F.relu(cast_conv(x, conv, padding=1))
             if int(idx) in self._pool_after:
                 x = F.max_pool2d(x, 2, 2)
         return x
@@ -400,7 +380,7 @@ class SeparableConv(nn.Module):
         w = self.depthwise.weight.to(x.dtype)
         x = F.conv2d(_same_pad(x, self.stride), w, stride=self.stride, groups=x.shape[1])
         x = F.relu6(self.bn_dw(x))
-        return F.relu6(self.bn_pw(_conv(x, self.pointwise)))
+        return F.relu6(self.bn_pw(cast_conv(x, self.pointwise)))
 
 
 class MobileNetV1(nn.Module):
@@ -428,7 +408,7 @@ class MobileNetV1(nn.Module):
 
     def extract_features(self, x):
         """x (B, 3, H, W) in the compute dtype → (B, 512 x dm, ~H/16, ~W/16)."""
-        x = F.relu6(self.bn0(_conv(_same_pad(x, 2), self.conv0, 2)))
+        x = F.relu6(self.bn0(cast_conv(_same_pad(x, 2), self.conv0, 2)))
         for i in range(1, 12):
             x = getattr(self, f"sep{i}")(x)
         return x
@@ -465,8 +445,7 @@ def build_backbone(name: str, cfg, norm: str = "frozen_bn"):
     if name == "vgg16":
         return VGG16()
     if name in ("res50", "res101", "res152"):
-        net = ResNetV1(depth=int(name[3:]),
-                       fused=cfg.DEVICE.FUSED_RESNET_BLOCKS and cfg.DEVICE.USE_KERNELS, norm=norm)
+        net = ResNetV1(depth=int(name[3:]), norm=norm)
         net.freeze_fixed_blocks(cfg.RESNET.FIXED_BLOCKS)
         return net
     if name == "mobile":

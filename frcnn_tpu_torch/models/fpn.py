@@ -50,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from frcnn_tpu_torch.config import Config
-from frcnn_tpu_torch.models.backbones import (GroupNorm, _conv, _epilogue_gate, build_backbone,
+from frcnn_tpu_torch.models.backbones import (GroupNorm, build_backbone, cast_conv,
                                               preprocess_images)
 from frcnn_tpu_torch.models.losses import detection_losses_compact
 from frcnn_tpu_torch.models.network import (anchor_rows, decode_boxes, gather_anchor_rows,
@@ -60,8 +60,9 @@ from frcnn_tpu_torch.models.targets import (anchor_target_compact, proposal_targ
                                             uniform_draws)
 from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
 from frcnn_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
+from frcnn_tpu_torch.ops.cuda import epilogue_grid, select_kernel
 from frcnn_tpu_torch.ops.cuda.fpn_epilogue import fpn_epilogue
-from frcnn_tpu_torch.ops.cuda.select_kernel import threshold_route, topk_descending
+from frcnn_tpu_torch.ops.cuda.select_kernel import topk_descending
 from frcnn_tpu_torch.ops.nms import NEG_INF, nms_fixed_batched
 from frcnn_tpu_torch.ops.roi_align import extract_multilevel_features
 
@@ -117,13 +118,13 @@ def fg_logit_diff(tokens, dw, db):
 def biased_conv(x, conv: nn.Conv2d, padding: int = 0, top=None, relu: bool = False):
     """``conv(x)`` with its bias, then ``+ up2(top)`` (the nearest 2x
     upsample of the coarser level ``top``, cropped to the result's size) or
-    the relu.  Through ``_epilogue_gate`` (either trunk's norm): the
+    the relu.  Through ``epilogue_grid.gate`` (either trunk's norm): the
     convolution without its bias and one ``fpn_epilogue`` launch, with the
     module path's bits."""
-    if _epilogue_gate(x):
+    if epilogue_grid.gate(x):
         y = F.conv2d(x, conv.weight.to(x.dtype), None, padding=padding)
         return fpn_epilogue(y, conv.bias, top, relu)
-    y = _conv(x, conv, padding=padding)
+    y = cast_conv(x, conv, padding=padding)
     if top is not None:
         up = F.interpolate(top, scale_factor=2, mode="nearest")
         y = y + up[:, :, :y.shape[2], :y.shape[3]]
@@ -212,10 +213,6 @@ class FasterRCNNFPN(nn.Module):
         f = self.config.FPN
         return tuple(range(f.MIN_LEVEL, f.MAX_LEVEL + 2))  # P2..P6 (RPN)
 
-    @property
-    def use_kernels(self) -> bool:
-        return self.config.DEVICE.USE_KERNELS
-
     def _init_heads_(self, normal_):
         """``init_random_``'s weights past the trunk: the neck convs (no relu
         after them) N(0, 1/fan_in) and the box head's fcs N(0, 2/fan_in), so
@@ -294,7 +291,7 @@ class FasterRCNNFPN(nn.Module):
         sizes = [p.shape[2] * p.shape[3] * self._A for p in pyramid]
         sel, sel_scores, sel_deltas = select_pre_nms(
             fg_prob, box_cells, sizes, per, self._A,
-            use_threshold=threshold_route(cfg, self.use_kernels, fg_prob))
+            use_threshold=select_kernel.threshold_route(fg_prob))
         sel_anchors = anchors[sel]                                      # (B, n, 4)
         proposals = clip_boxes(bbox_transform_inv(sel_anchors, sel_deltas), im_info[:, :2])
         scores = torch.where(_anchor_validity(sel_anchors, im_info), sel_scores, NEG_INF)
@@ -302,7 +299,7 @@ class FasterRCNNFPN(nn.Module):
         top_boxes = torch.take_along_dim(proposals, top_idx[..., None], dim=1)
         keep_idx, keep_valid = nms_fixed_batched(
             top_boxes, top_scores, thresh, post,
-            valid=top_scores > NEG_INF / 2, use_kernels=self.use_kernels, presorted=True)
+            valid=top_scores > NEG_INF / 2, presorted=True)
         keep_idx = keep_idx.long()
         rois = torch.take_along_dim(top_boxes, keep_idx[..., None], dim=1)
         roi_scores = torch.where(keep_valid, torch.take_along_dim(top_scores, keep_idx, dim=1),
@@ -340,7 +337,7 @@ class FasterRCNNFPN(nn.Module):
         maps = [p.permute(0, 2, 3, 1) for p in pyramid[:len(roi_levels)]]
         return extract_multilevel_features(
             maps, rois, levels, [2 ** lv for lv in roi_levels], output_size=cfg.POOLING_SIZE,
-            sampling_ratio=cfg.DEVICE.ROI_SAMPLING_RATIO, use_kernels=self.use_kernels)
+            sampling_ratio=cfg.DEVICE.ROI_SAMPLING_RATIO)
 
     def _classify(self, pooled):
         """(B, N, p, p, C) → (cls_logits, cls_prob (B, N, classes),
@@ -399,8 +396,7 @@ class FasterRCNNFPN(nn.Module):
         in original image coordinates, valid (B, D))."""
         out = self.predict(images, im_info)
         return postprocess_detections(out, im_info, self.config, self.num_classes,
-                                      max_per_image or self.config.TEST.MAX_PER_IMAGE,
-                                      use_kernels=self.use_kernels)
+                                      max_per_image or self.config.TEST.MAX_PER_IMAGE)
 
     def train_forward(self, images, im_info, gt_boxes, gt_labels, gt_valid, draws):
         """TRAIN forward, the C4 model's signature: images (B, H, W, 3) BGR,

@@ -2,8 +2,8 @@
 Faster R-CNN with fixed output shapes.
 
   * ``predict``: preprocess → backbone trunk → RPN → proposal layer
-    (K1, and K5 for the pre-NMS top-k where DEVICE.THRESHOLD_SELECT and
-    its gate let it; under TEST.MODE "top" the top RPN_TOP_N anchors, no
+    (K1, and K5 for the pre-NMS top-k on the card where its row-length
+    gate lets it; under TEST.MODE "top" the top RPN_TOP_N anchors, no
     NMS) → RoI pool (POOLING_MODE "align": K2; "pool", "crop": plain
     PyTorch, as the JAX package) → tail + heads; raw outputs.
   * ``detect``: predict + delta decode, clip, rescale to original image
@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from frcnn_tpu_torch.config import Config
-from frcnn_tpu_torch.models.backbones import _conv, build_backbone, preprocess_images
+from frcnn_tpu_torch.models.backbones import build_backbone, cast_conv, preprocess_images
 from frcnn_tpu_torch.models.losses import detection_losses_compact
 from frcnn_tpu_torch.models.proposals import proposal_layer_batch, proposal_top_layer
 from frcnn_tpu_torch.ops.constants import device_constant
@@ -36,7 +36,7 @@ from frcnn_tpu_torch.models.targets import (anchor_target_compact, proposal_targ
                                             uniform_draws)
 from frcnn_tpu_torch.ops.anchors import generate_anchors_pre
 from frcnn_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
-from frcnn_tpu_torch.ops.cuda.select_kernel import threshold_route
+from frcnn_tpu_torch.ops.cuda import select_kernel
 from frcnn_tpu_torch.ops.nms import batched_class_nms
 from frcnn_tpu_torch.ops.roi_align import extract_roi_features
 
@@ -58,8 +58,7 @@ def decode_boxes(out, im_info, cfg, num_classes: int):
     return boxes / im_info[:, 2][:, None, None]
 
 
-def postprocess_detections(out, im_info, cfg, num_classes: int, max_per_image: int,
-                           use_kernels: bool = True):
+def postprocess_detections(out, im_info, cfg, num_classes: int, max_per_image: int):
     """Per-class score threshold + NMS over all B*C problems in one call,
     then a global top-k.  Returns (detections (B, D, 6)
     [x1, y1, x2, y2, score, class], valid (B, D))."""
@@ -73,8 +72,7 @@ def postprocess_detections(out, im_info, cfg, num_classes: int, max_per_image: i
     valid = (out["roi_valid"][:, None, :] & (scores.permute(0, 2, 1) > thresh)).reshape(b * c, n)
     per_cls = min(d, n)
 
-    idx, keep = batched_class_nms(cls_boxes, cls_scores, cfg.TEST.NMS, per_cls,
-                                  valid=valid, use_kernels=use_kernels)
+    idx, keep = batched_class_nms(cls_boxes, cls_scores, cfg.TEST.NMS, per_cls, valid=valid)
     idx = idx.long()
     g_boxes = torch.take_along_dim(cls_boxes, idx[..., None], dim=1)
     g_scores = torch.where(keep, torch.take_along_dim(cls_scores, idx, dim=1), -1.0)
@@ -140,10 +138,6 @@ class FasterRCNN(nn.Module):
         self.bbox_pred = nn.Linear(backbone.tail_dim, num_classes * 4)
         self._anchor_cache: dict = {}
 
-    @property
-    def use_kernels(self) -> bool:
-        return self.config.DEVICE.USE_KERNELS
-
     def _init_heads_(self, normal_):
         """``init_random_``'s RPN and head weights: N(0, 0.01) / N(0, 0.001)
         as the lineage, except the RPN's class weights at 0.05 so the RPN
@@ -162,9 +156,9 @@ class FasterRCNN(nn.Module):
         (B, S, 2), read from the bg-block/fg-block channel layout."""
         b, _, h, w = feat.shape
         a = self.config.num_anchors
-        x = F.relu(_conv(feat, self.rpn_net, padding=1))
-        cls = _conv(x, self.rpn_cls_score).float()
-        box = _conv(x, self.rpn_bbox_pred).float()
+        x = F.relu(cast_conv(feat, self.rpn_net, padding=1))
+        cls = cast_conv(x, self.rpn_cls_score).float()
+        box = cast_conv(x, self.rpn_bbox_pred).float()
         prob = torch.sigmoid(cls[:, a:] - cls[:, :a]).permute(0, 2, 3, 1).reshape(b, h * w * a)
         deltas = box.permute(0, 2, 3, 1).reshape(b, h * w * a, 4)
         if sel is None:
@@ -188,7 +182,7 @@ class FasterRCNN(nn.Module):
         return extract_roi_features(
             feat.permute(0, 2, 3, 1), rois, mode=cfg.POOLING_MODE,
             output_size=cfg.POOLING_SIZE, spatial_scale=1.0 / cfg.FEAT_STRIDE[0],
-            sampling_ratio=cfg.DEVICE.ROI_SAMPLING_RATIO, use_kernels=self.use_kernels)
+            sampling_ratio=cfg.DEVICE.ROI_SAMPLING_RATIO)
 
     def _classify(self, pooled, drop=None):
         """(B, N, p, p, C) → (cls_logits (B, N, classes), cls_prob (B, N,
@@ -220,8 +214,8 @@ class FasterRCNN(nn.Module):
                 fg_prob, deltas, anchors, im_info,
                 pre_nms_top_n=cfg.TEST.RPN_PRE_NMS_TOP_N,
                 post_nms_top_n=cfg.TEST.RPN_POST_NMS_TOP_N,
-                nms_thresh=cfg.TEST.RPN_NMS_THRESH, use_kernels=self.use_kernels,
-                use_threshold=threshold_route(cfg, self.use_kernels, fg_prob))
+                nms_thresh=cfg.TEST.RPN_NMS_THRESH,
+                use_threshold=select_kernel.threshold_route(fg_prob))
         _, cls_prob, bbox_pred = self._classify(self._pool(feat, rois))
         return {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid,
                 "cls_prob": cls_prob, "bbox_pred": bbox_pred}
@@ -236,8 +230,7 @@ class FasterRCNN(nn.Module):
         in original image coordinates, valid (B, D))."""
         out = self.predict(images, im_info)
         return postprocess_detections(out, im_info, self.config, self.num_classes,
-                                      max_per_image or self.config.TEST.MAX_PER_IMAGE,
-                                      use_kernels=self.use_kernels)
+                                      max_per_image or self.config.TEST.MAX_PER_IMAGE)
 
     def train_forward(self, images, im_info, gt_boxes, gt_labels, gt_valid, draws):
         """TRAIN forward: images (B, H, W, 3) BGR, im_info (B, 3), gt_boxes
@@ -266,8 +259,7 @@ class FasterRCNN(nn.Module):
         rois, roi_scores, roi_valid = proposal_layer_batch(
             fg_prob.detach(), deltas.detach(), anchors, im_info,
             pre_nms_top_n=t.RPN_PRE_NMS_TOP_N, post_nms_top_n=t.RPN_POST_NMS_TOP_N,
-            nms_thresh=t.RPN_NMS_THRESH, use_kernels=self.use_kernels,
-            use_threshold=threshold_route(cfg, self.use_kernels, fg_prob))
+            nms_thresh=t.RPN_NMS_THRESH, use_threshold=select_kernel.threshold_route(fg_prob))
         pt = proposal_target_layer(rois, roi_valid, gt_boxes, gt_labels, gt_valid,
                                    draws["roi_fg"], draws["roi_bg"], cfg, self.num_classes)
 

@@ -22,8 +22,7 @@ def _anchor_validity(anchors, im_info):
 
 
 def proposal_layer_batch(scores, deltas, anchors, im_info, *, pre_nms_top_n: int,
-                         post_nms_top_n: int, nms_thresh: float,
-                         use_kernels: bool = True, use_threshold: bool = False):
+                         post_nms_top_n: int, nms_thresh: float, use_threshold: bool = False):
     """scores (B, K) foreground probabilities, deltas (B, K, 4), anchors
     (K, 4), im_info (B, 3) [h, w, scale] → (rois (B, P, 4), scores (B, P),
     valid (B, P)), P = post_nms_top_n; padding rois are zero boxes.
@@ -41,8 +40,7 @@ def proposal_layer_batch(scores, deltas, anchors, im_info, *, pre_nms_top_n: int
 
     # sorted with invalid entries last: the NMS needs no second sort
     keep_idx, keep_valid = nms_fixed_batched(
-        top_boxes, top_scores, nms_thresh, post_nms_top_n, valid=top_valid,
-        use_kernels=use_kernels, presorted=True)
+        top_boxes, top_scores, nms_thresh, post_nms_top_n, valid=top_valid, presorted=True)
     keep_idx = keep_idx.long()
     rois = torch.take_along_dim(top_boxes, keep_idx[..., None], dim=1)
     roi_scores = torch.where(keep_valid, torch.take_along_dim(top_scores, keep_idx, dim=1),
@@ -52,14 +50,14 @@ def proposal_layer_batch(scores, deltas, anchors, im_info, *, pre_nms_top_n: int
 
 
 def proposal_layer(scores, deltas, anchors, im_info, *, pre_nms_top_n: int,
-                   post_nms_top_n: int, nms_thresh: float, use_kernels: bool = True):
+                   post_nms_top_n: int, nms_thresh: float):
     """One image (``frcnn_tpu/models/proposals.py::proposal_layer``): scores
     (K,), deltas (K, 4), anchors (K, 4), im_info (3,) → (rois (P, 4),
     scores (P,), valid (P,)).  The batched layer at B = 1: its NMS is K1 at
     B = 1, where the TPU package ran its single-problem kernel."""
     rois, roi_scores, valid = proposal_layer_batch(
         scores[None], deltas[None], anchors, im_info[None], pre_nms_top_n=pre_nms_top_n,
-        post_nms_top_n=post_nms_top_n, nms_thresh=nms_thresh, use_kernels=use_kernels)
+        post_nms_top_n=post_nms_top_n, nms_thresh=nms_thresh)
     return rois[0], roi_scores[0], valid[0]
 
 

@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from frcnn_tpu_torch.ops.boxes import bbox_overlaps, bbox_transform
 from frcnn_tpu_torch.ops.cuda.overlap_kernel import (MAX_GT, anchor_overlap_stats,
                                                      anchor_overlap_stats_reference)
-from frcnn_tpu_torch.ops.cuda.select_kernel import threshold_route, topk_descending
+from frcnn_tpu_torch.ops.cuda import select_kernel
+from frcnn_tpu_torch.ops.cuda.select_kernel import topk_descending
 
 
 def _f32(value, device):
@@ -119,8 +120,7 @@ def _anchor_pre_labels(anchors, gt_boxes, gt_valid, im_info, cfg):
               & (anchors[:, 2] < im_info[:, 1:2]) & (anchors[:, 3] < im_info[:, 0:1]))
     # K4 beats the twin on the H100 at every K from 864 anchors up (PERF.md):
     # no gate on K, unlike the TPU's (frcnn_tpu/models/targets.py:130-131)
-    use_kernel = cfg.DEVICE.USE_KERNELS and gt_boxes.shape[1] <= MAX_GT
-    stats = anchor_overlap_stats if use_kernel else anchor_overlap_stats_reference
+    stats = anchor_overlap_stats if gt_boxes.shape[1] <= MAX_GT else anchor_overlap_stats_reference
     max_overlaps, argmax, is_gt_argmax = stats(anchors, gt_boxes, gt_valid, inside)
 
     dev = anchors.device
@@ -156,7 +156,7 @@ def anchor_target_compact(anchors, gt_boxes, gt_valid, im_info, u_fg, u_bg,
     labels0, argmax = _anchor_pre_labels(anchors, gt_boxes, gt_valid, im_info, cfg)
     num_fg = int(t.RPN_FG_FRACTION * t.RPN_BATCHSIZE)
     fg_mask, bg_mask = labels0 == 1, labels0 == 0
-    use_th = threshold_route(cfg, cfg.DEVICE.USE_KERNELS, anchors)
+    use_th = select_kernel.threshold_route(anchors)
     fg_idx, fg_take = _subsample_idx(fg_mask, num_fg, num_fg, u_fg, use_th)
     n_fg = torch.clamp(fg_mask.sum(-1), max=num_fg)
     bg_idx, bg_take = _subsample_idx(bg_mask, t.RPN_BATCHSIZE, t.RPN_BATCHSIZE - n_fg, u_bg,

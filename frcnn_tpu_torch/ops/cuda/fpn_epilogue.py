@@ -16,7 +16,7 @@ tensor, in one of three modes:
 
 ``up2(top)`` is the nearest 2x upsample of the coarser level, cropped to x's
 size where a level is odd, read in place (``top[..., y // 2, x // 2]``).
-The roundings are the module path's (``_conv``, then ``+``, ``relu``): the
+The roundings are the module path's (``cast_conv``, then ``+``, ``relu``): the
 bias cast to bf16, a rounding after the bias add and another after the
 top-down add, so the result is bit-equal to the passes it replaces.
 Nothing is cached: a bias copied into the parameter in place reaches the

@@ -12,9 +12,10 @@ Only the block input is read and the output written (16-byte stores).
 Bound on the H100 by the count: bytes (the unfused chain moves three
 activation tensors through device memory per conv); in fact by the traffic
 from L2 into shared memory, since every block stages all the weights again
-(``scripts/ablate_fused_block.py``), which is why the tile is as large as a
-block can hold.  Intermediates are rounded to bf16 after bias + relu, where
-the TPU kernel rounds them.  ``fused_plan`` is the launch geometry (tiles,
+(timed with parts of the kernel switched off by the ablation script of
+commit 06a1628), which is why the tile is as large as a block can hold.
+Intermediates are rounded to bf16 after bias + relu, where the TPU kernel
+rounds them.  ``fused_plan`` is the launch geometry (tiles,
 shared-memory bytes); the launcher refuses a plan that is not the kernel's
 layout.
 
@@ -29,7 +30,8 @@ summation order.
 twin on CPU tensors), backward autograd of ``bottleneck_reference``
 recomputed from the saved inputs, as the JAX module's ``_id_bwd`` /
 ``_ds_bwd``.  The TPU package has no backward kernel for the block, so
-neither has this one.
+neither has this one.  ``gate`` is where a block may take the kernel; which
+blocks may (frozen BN, stride 1, the width rule) is the model's to say.
 """
 
 from __future__ import annotations
@@ -48,6 +50,13 @@ OUT_ROWS = TILE_H * PITCH                      # conv2's and conv3's rows
 Y1_ROWS = OUT_ROWS + 2 * PITCH + 2             # the last tap of the last output row
 WARPGROUPS = OUT_ROWS // 64                    # one 64-row output tile each
 STEP_CHANNELS, TAP_ROWS, PANEL, STAGES = 32, 64, 64, 3
+
+
+def gate(x) -> bool:
+    """Whether a block's input ``x`` may go through K3: bf16 on the card.
+    The TPU gate also required a row tile that fits VMEM (pick_row_tile);
+    the CUDA kernel tiles any H and W, so that condition is gone."""
+    return x.is_cuda and x.dtype == torch.bfloat16
 
 
 def fused_plan(h: int, w: int, mid: int, cout: int) -> dict:

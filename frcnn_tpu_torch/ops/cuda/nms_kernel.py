@@ -28,17 +28,16 @@ import torch
 from frcnn_tpu_torch.ops.boxes import bbox_overlaps
 from frcnn_tpu_torch.ops.constants import device_constant
 from frcnn_tpu_torch.ops.cuda import build
+from frcnn_tpu_torch.ops.cuda.card import MAX_CLUSTER, SMS as SM_COUNT
 
 
 _TILE = 128  # boxes resolved sequentially per step of the twin
 
 CHUNK = 64                    # candidates a step of the kernel
-MAX_CLUSTER = 16              # blocks a problem, at most (above 8: non-portable)
 MAX_THREADS = 1024
 SLOT_BYTES = 20               # a kept box (4 floats) and its area
 MAX_LIST_BYTES = 200 * 1024   # dynamic shared memory a block gives its kept list
 STATIC_SMEM_BYTES = 64 * 16 + 64 * 4 + 64 * 8 + 16 + 2 * 16 * 8 + 8   # the kernel's own arrays
-SM_COUNT = 132                # of one H100
 SINGLE_BLOCK_PAIRS = 1 << 18  # N x cap up to which one block walks a problem
 
 

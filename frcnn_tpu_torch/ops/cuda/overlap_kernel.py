@@ -29,10 +29,9 @@ import torch
 
 from frcnn_tpu_torch.ops.boxes import bbox_overlaps
 from frcnn_tpu_torch.ops.cuda import build
+from frcnn_tpu_torch.ops.cuda.card import MAX_CLUSTER, SMS
 
 MAX_GT = 64            # gt boxes per image the kernel holds in shared memory
-MAX_CLUSTER = 16       # blocks a cluster; above 8 a non-portable cluster size
-SMS = 132              # streaming multiprocessors of an H100 SXM
 THREADS = 1024         # threads a block: 32 warps
 MAX_MASK_BYTES = 224 * 1024   # the chunk masks' dynamic shared memory (+ ~2 KB static)
 

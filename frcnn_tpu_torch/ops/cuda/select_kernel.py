@@ -64,11 +64,11 @@ def use_threshold_select(n: int, k: int) -> bool:
     return n >= THRESHOLD_SELECT_MIN_S and n >= THRESHOLD_SELECT_MIN_RATIO * k
 
 
-def threshold_route(config, use_kernels: bool, scores) -> bool:
-    """Whether a top-k call site takes the K5 route: the JAX call sites'
-    condition (kernels on, DEVICE.THRESHOLD_SELECT) with the card in place
-    of the TPU.  The row-length gate is ``use_threshold_select``'s."""
-    return bool(use_kernels and config.DEVICE.THRESHOLD_SELECT and scores.is_cuda)
+def threshold_route(scores) -> bool:
+    """Whether a top-k call site takes the K5 route: on the card, where the
+    JAX call sites ask for the TPU.  The row-length gate is
+    ``use_threshold_select``'s."""
+    return scores.is_cuda
 
 
 def topk_descending(scores, k: int, use_threshold: bool = False):

@@ -2,10 +2,10 @@
 
 Greedy semantics of the lineage: boxes in descending score order; box j is
 suppressed iff an earlier *kept* box i has IoU(i, j) > thresh.  The keep
-mask comes from K1 (``ops/cuda/nms_kernel.py``) on CUDA tensors, or from
-its plain twin ``nms_mask``.  One problem (``nms_fixed``) is K1 at B = 1:
-the TPU package's single-problem kernel (``nms_mask_pallas``) computes the
-same keep mask.  Sorts are stable, so ties keep the lowest
+mask comes from K1 (``ops/cuda/nms_kernel.py``) on CUDA tensors and from
+its plain twin ``nms_mask`` on CPU tensors.  One problem (``nms_fixed``) is
+K1 at B = 1: the TPU package's single-problem kernel (``nms_mask_pallas``)
+computes the same keep mask.  Sorts are stable, so ties keep the lowest
 index first, as ``jnp.argsort`` and ``lax.top_k`` do.
 """
 
@@ -20,7 +20,7 @@ NEG_INF = -1e10
 
 
 def nms_fixed_batched(boxes, scores, thresh, max_out: int, valid=None,
-                      use_kernels: bool = True, presorted: bool = False):
+                      presorted: bool = False):
     """Batched sort + greedy NMS + pad: boxes (B, N, 4), scores (B, N),
     valid (B, N) → (indices (B, max_out) int32, keep_valid (B, max_out)).
 
@@ -38,12 +38,9 @@ def nms_fixed_batched(boxes, scores, thresh, max_out: int, valid=None,
         sboxes = torch.take_along_dim(boxes, order[..., None], dim=1)
         svalid = torch.take_along_dim(valid, order, dim=1)
 
-    if use_kernels:
-        # rows past the first max_out kept are dropped below, so the kernel
-        # may stop once every problem has max_out kept
-        keep = nms_mask_batched(sboxes, thresh, svalid, max_keep=max_out)
-    else:
-        keep = nms_mask(sboxes, thresh, svalid)
+    # rows past the first max_out kept are dropped below, so the kernel may
+    # stop once every problem has max_out kept
+    keep = nms_mask_batched(sboxes, thresh, svalid, max_keep=max_out)
 
     arange = torch.arange(n, device=scores.device)
     rank = torch.where(keep, arange[None, :], n)
@@ -57,19 +54,16 @@ def nms_fixed_batched(boxes, scores, thresh, max_out: int, valid=None,
     return out_idx, out_valid
 
 
-def nms_fixed(boxes, scores, thresh, max_out: int, valid=None, use_kernels: bool = True):
+def nms_fixed(boxes, scores, thresh, max_out: int, valid=None):
     """One problem: boxes (N, 4), scores (N,), valid (N,) → (indices
     (max_out,) int32, keep_valid (max_out,)); padding indices point at the
     best box."""
     idx, keep = nms_fixed_batched(boxes[None], scores[None], thresh, max_out,
-                                  valid=None if valid is None else valid[None],
-                                  use_kernels=use_kernels)
+                                  valid=None if valid is None else valid[None])
     return idx[0], keep[0]
 
 
-def batched_class_nms(boxes, scores, thresh, max_out: int, valid=None,
-                      use_kernels: bool = True):
+def batched_class_nms(boxes, scores, thresh, max_out: int, valid=None):
     """Per-class test-time NMS: boxes (P, N, 4), scores (P, N), valid (P, N)
     for P = images x classes problems → (indices (P, max_out), keep)."""
-    return nms_fixed_batched(boxes, scores, thresh, max_out, valid=valid,
-                             use_kernels=use_kernels)
+    return nms_fixed_batched(boxes, scores, thresh, max_out, valid=valid)

@@ -2,21 +2,19 @@
 ``cfg.POOLING_MODE`` paths of ``extract_roi_features``.
 
 Batched over images: feat (B, H, W, C) channels-last, rois (B, R, 4) in
-image coordinates → (B, R, p, p, C).  "align": with ``use_kernels``
-``extract_roi_features`` goes through ``RoIAlignFunction``: K2 forward and
-K2b backward (``ops/cuda/roi_align_kernel.py``) on CUDA tensors, one launch
-each for the batch, their twins on CPU tensors.  ``roi_align`` is the plain
-twin, differentiated by autograd when the kernels are off.  "pool"
-(``roi_pool``) and "crop" (``crop_and_resize_pool``) are plain PyTorch on
-every device, differentiated by autograd: the JAX package computes them
-outside any Pallas kernel too.
+image coordinates → (B, R, p, p, C).  "align": ``extract_roi_features``
+goes through ``RoIAlignFunction``: K2 forward and K2b backward
+(``ops/cuda/roi_align_kernel.py``) on CUDA tensors, one launch each for the
+batch, their twins on CPU tensors.  ``roi_align`` is the plain forward twin.
+"pool" (``roi_pool``) and "crop" (``crop_and_resize_pool``) are plain
+PyTorch on every device, differentiated by autograd: the JAX package
+computes them outside any Pallas kernel too.
 
 FPN: ``extract_multilevel_features`` pools each roi from its assigned
-pyramid level.  With ``use_kernels`` it goes through
-``RoIAlignMultilevelFunction``: K6 forward and K6b backward on CUDA tensors,
-one launch each for all levels and images, their twins on CPU tensors.
-``roi_align_multilevel`` is the plain twin, differentiated by autograd when
-the kernels are off.
+pyramid level.  It goes through ``RoIAlignMultilevelFunction``: K6 forward
+and K6b backward on CUDA tensors, one launch each for all levels and images,
+their twins on CPU tensors.  ``roi_align_multilevel`` is the plain forward
+twin.
 """
 
 from __future__ import annotations
@@ -25,7 +23,7 @@ import torch
 
 from frcnn_tpu_torch.ops.constants import device_constant
 from frcnn_tpu_torch.ops.cuda.roi_align_kernel import RoIAlignFunction, RoIAlignMultilevelFunction
-from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (
+from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (  # noqa: F401
     roi_align_multilevel_reference as roi_align_multilevel)
 from frcnn_tpu_torch.ops.cuda.roi_align_kernel import roi_align_reference as roi_align  # noqa: F401
 
@@ -131,15 +129,12 @@ def crop_and_resize_pool(feat, rois, output_size: int = 7, spatial_scale: float 
 
 
 def extract_roi_features(feat, rois, mode: str = "align", output_size: int = 7,
-                         spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2,
-                         use_kernels: bool = True):
+                         spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2):
     """cfg.POOLING_MODE dispatcher (reference Network._crop_pool_layer):
     "align", "pool" or "crop".  rois get no gradient."""
     rois = rois.detach()
     if mode == "align":
-        if use_kernels:
-            return RoIAlignFunction.apply(feat, rois, output_size, spatial_scale, sampling_ratio)
-        return roi_align(feat, rois, output_size, spatial_scale, sampling_ratio)
+        return RoIAlignFunction.apply(feat, rois, output_size, spatial_scale, sampling_ratio)
     if mode == "pool":
         return roi_pool(feat, rois, output_size, spatial_scale)
     if mode == "crop":
@@ -148,12 +143,9 @@ def extract_roi_features(feat, rois, mode: str = "align", output_size: int = 7,
 
 
 def extract_multilevel_features(feats, rois, levels, strides, output_size: int = 7,
-                                sampling_ratio: int = 2, use_kernels: bool = True):
+                                sampling_ratio: int = 2):
     """feats: L channels-last maps (B, H_l, W_l, C); rois (B, R, 4) image
     coordinates; levels (B, R) in [0, L); strides: L ints → (B, R, p, p, C),
     in roi order.  rois get no gradient."""
-    rois = rois.detach()
-    if use_kernels:
-        return RoIAlignMultilevelFunction.apply(rois, levels, strides, output_size,
-                                                sampling_ratio, *feats)
-    return roi_align_multilevel(feats, rois, levels, strides, output_size, sampling_ratio)
+    return RoIAlignMultilevelFunction.apply(rois.detach(), levels, strides, output_size,
+                                            sampling_ratio, *feats)

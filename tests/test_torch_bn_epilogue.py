@@ -52,12 +52,12 @@ def _input(g, b, c, h, w, dtype):
 
 def _plain_block(block, x):
     """The module-by-module path as it stood before the epilogue."""
-    y = F.relu(block.bn1(backbones._conv(x, block.conv1)))
-    y = F.relu(block.bn2(backbones._conv(y, block.conv2, block.stride, 1)))
-    y = block.bn3(backbones._conv(y, block.conv3))
+    y = F.relu(block.bn1(backbones.cast_conv(x, block.conv1)))
+    y = F.relu(block.bn2(backbones.cast_conv(y, block.conv2, block.stride, 1)))
+    y = block.bn3(backbones.cast_conv(y, block.conv3))
     res = x
     if block.downsample is not None:
-        res = block.downsample[1](backbones._conv(x, block.downsample[0], block.stride))
+        res = block.downsample[1](backbones.cast_conv(x, block.downsample[0], block.stride))
     return F.relu(y + res)
 
 
@@ -67,14 +67,17 @@ def _refuse(*args, **kwargs):
 
 @pytest.mark.parametrize("case", CASES)
 def test_gate_keeps_the_plain_path(case, monkeypatch):
-    """CPU, f32, autograd on, GroupNorm: each alone shuts the gate, even on a
-    tensor that says it lies on the card; the block and the stem then give
-    the module path's bits and launch nothing."""
+    """CPU, f32, autograd on: each alone shuts the gate, even on a tensor
+    that says it lies on the card; GroupNorm keeps the plain path with the
+    gate open.  The block and the stem then give the module path's bits and
+    launch nothing."""
     dtype = torch.float32 if case == "f32" else BF
     norm = "group" if case == "group" else "frozen_bn"
     on_card = SimpleNamespace(is_cuda=case != "cpu", dtype=dtype)
     with torch.set_grad_enabled(case == "grad"):
-        assert not backbones._use_epilogue(norm, on_card)
+        assert epilogue_grid.gate(on_card) == (case == "group")
+    if case == "group":
+        monkeypatch.setattr(epilogue_grid, "gate", lambda x: True)
     monkeypatch.setattr(backbones, "bn_epilogue", _refuse)
     g = torch.Generator().manual_seed(7)
     blocks = [_seeded(Bottleneck(64, 32, stride=2, norm=norm), g),
@@ -86,7 +89,7 @@ def test_gate_keeps_the_plain_path(case, monkeypatch):
             x = _input(g, 2, cin, 9, 14, dtype)
             assert torch.equal(block(x), _plain_block(block, x))
         im = _input(g, 2, 3, 20, 28, dtype)
-        want = F.max_pool2d(F.relu(net.bn1(backbones._conv(im, net.conv1, 2, 3))), 3, 2, 1)
+        want = F.max_pool2d(F.relu(net.bn1(backbones.cast_conv(im, net.conv1, 2, 3))), 3, 2, 1)
         assert torch.equal(net._stem(im), want)
     assert build.LAUNCH_COUNTS["bn_epilogue"] == 0
 
@@ -94,11 +97,11 @@ def test_gate_keeps_the_plain_path(case, monkeypatch):
 def test_gate_engages_for_bf16_on_the_card_without_autograd():
     on_card = SimpleNamespace(is_cuda=True, dtype=BF)
     with torch.no_grad():
-        assert backbones._use_epilogue("frozen_bn", on_card)
+        assert epilogue_grid.gate(on_card)
     with torch.inference_mode():
-        assert backbones._use_epilogue("frozen_bn", on_card)
+        assert epilogue_grid.gate(on_card)
     with torch.enable_grad():
-        assert not backbones._use_epilogue("frozen_bn", on_card)
+        assert not epilogue_grid.gate(on_card)
 
 
 def _c4_serving_shapes(bh, bw, crops=2400):
@@ -248,7 +251,7 @@ def test_blocks_and_stem_wire_the_epilogue(cin, channels, stride, monkeypatch):
     with torch.no_grad():
         want_block = _plain_block(block, x)
         want_stem = net._stem(im)
-        monkeypatch.setattr(backbones, "_use_epilogue", lambda norm, t: norm == "frozen_bn")
+        monkeypatch.setattr(epilogue_grid, "gate", lambda t: True)
         monkeypatch.setattr(backbones, "bn_epilogue", spy)
         got_block = block(x)
         got_stem = net._stem(im)

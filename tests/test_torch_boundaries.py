@@ -222,10 +222,29 @@ def test_config_keys_and_defaults_match_jax():
     assert cfg.DEVICE.BUCKETS == ((800, 1344),) and cfg.TEST.SCALES == (800,)
     cfg = cfg_from_file(default_config(), os.path.join(ROOT, "experiments/cfgs/res101-fpn.yml"))
     assert cfg.TRAIN.IMS_PER_BATCH == 2 and cfg.DEVICE.BUCKETS == ((800, 1344),)
-    cfg = cfg_from_list(default_config(), ["TPU.USE_PALLAS", "False", "TPU.MAX_GT", "32"])
-    assert cfg.DEVICE.USE_KERNELS is False and cfg.DEVICE.MAX_GT == 32
+    cfg = cfg_from_list(default_config(), ["TPU.USE_PALLAS", "True", "TPU.MAX_GT", "32"])
+    assert cfg.DEVICE.USE_KERNELS is True and cfg.DEVICE.MAX_GT == 32
     with pytest.raises(KeyError):
         cfg_from_list(default_config(), ["TPU.NO_SUCH_KEY", "1"])
+
+
+@pytest.mark.parametrize("key", ["DEVICE.USE_KERNELS", "DEVICE.THRESHOLD_SELECT",
+                                 "DEVICE.FUSED_RESNET_BLOCKS", "TPU.USE_PALLAS"])
+def test_a_false_kernel_switch_is_refused(key, tmp_path):
+    """The port has one path: each JAX switch of it loads as True and is
+    refused, naming its key, as False, from --set pairs, from a YAML file
+    and from the dataclass itself."""
+    assert cfg_from_list(default_config(), [key, "True"]) == default_config()
+    name = key.replace("TPU.USE_PALLAS", "DEVICE.USE_KERNELS").split(".")[1]
+    with pytest.raises(ValueError, match=f"DEVICE.{name} .*only True is accepted"):
+        cfg_from_list(default_config(), [key, "False"])
+    section, field = key.split(".")
+    path = tmp_path / "switch.yml"
+    path.write_text(f"{section}:\n  {field}: False\n")
+    with pytest.raises(ValueError, match=f"DEVICE.{name} "):
+        cfg_from_file(default_config(), str(path))
+    with pytest.raises(ValueError, match=f"DEVICE.{name} "):
+        dataclasses.replace(default_config().DEVICE, **{name: False})
 
 
 def test_wrappers_on_cpu_run_twins_and_count_nothing(rng):

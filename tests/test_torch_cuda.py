@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from frcnn_tpu_torch.models.backbones import Bottleneck
 from frcnn_tpu_torch.models.fpn import fg_logit_diff
 from frcnn_tpu_torch.ops.cuda import build
@@ -603,7 +604,6 @@ def test_test_net_on_the_card_matches_the_cpu(dev, tmp_path):
     class, the per-class APs in [0, 1]."""
     import pickle
 
-    import chip_smoke
     from frcnn_tpu_torch.data.pascal_voc import pascal_voc
     from frcnn_tpu_torch.engine.test import test_net as run_test_net
 
@@ -634,7 +634,6 @@ def test_im_detect_on_the_card_matches_the_cpu(dev):
     """``im_detect`` with no ``device`` moves the model to the card and runs
     its proposal NMS (K1) and RoIAlign (K2) there; its valid rois, rows of
     per-class scores and boxes, match a CPU copy's one to one."""
-    import chip_smoke
     from frcnn_tpu_torch.engine.test import im_detect
 
     cfg = chip_smoke.smoke_config(["TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480",
@@ -657,7 +656,6 @@ def test_clis_run_on_the_card(dev, tmp_path, monkeypatch):
     the devkit's are empty placeholders."""
     import pickle
 
-    import chip_smoke
     from frcnn_tpu_torch.data import loader
     from frcnn_tpu_torch.tools import test_net as test_net_cli
     from frcnn_tpu_torch.tools import trainval_net as trainval_net_cli
@@ -699,24 +697,24 @@ def test_nms_kernel_at_the_top_mode_shape(dev, rng):
     build.reset_launch_counts()
     ki, kv = nms_fixed_batched(boxes, scores, 0.3, 100, valid=valid)
     assert build.LAUNCH_COUNTS["nms"] == 1
-    ti, tv = nms_fixed_batched(boxes, scores, 0.3, 100, valid=valid, use_kernels=False)
+    with chip_smoke.nms_twin():
+        ti, tv = nms_fixed_batched(boxes, scores, 0.3, 100, valid=valid)
     assert torch.equal(ki, ti) and torch.equal(kv, tv) and kv.sum(1).max().item() == 100
 
 
 # (net, config, launches of the card's detect): VGG-16, MobileNet and the other modes
-NEW_PATHS = [("vgg16", (), {"nms": 2, "roi_align": 1}),
-             ("mobile", (), {"nms": 2, "roi_align": 1}),
-             ("mobile", ("POOLING_MODE", "pool"), {"nms": 2}),
-             ("mobile", ("POOLING_MODE", "crop"), {"nms": 2}),
-             ("vgg16", ("TEST.MODE", "top", "TEST.RPN_TOP_N", "300"), {"nms": 1, "roi_align": 1})]
+NEW_PATHS = [("vgg16", (), chip_smoke.E2E_LAUNCHES),
+             ("mobile", (), chip_smoke.E2E_LAUNCHES),
+             ("mobile", ("POOLING_MODE", "pool"), chip_smoke.E2E_PLAIN_POOL_LAUNCHES),
+             ("mobile", ("POOLING_MODE", "crop"), chip_smoke.E2E_PLAIN_POOL_LAUNCHES),
+             ("vgg16", ("TEST.MODE", "top", "TEST.RPN_TOP_N", "300"),
+              chip_smoke.TOP_SERVE_LAUNCHES)]
 
 
 @pytest.mark.parametrize("net,extra,launches", NEW_PATHS)
 def test_new_nets_and_modes_detect_on_the_card_match_the_cpu(dev, net, extra, launches):
     """``chip_smoke.end_to_end``: f32 ``detect`` at 320x480 on the card and on
     a CPU copy, detections matched one to one, the card's launches counted."""
-    import chip_smoke
-
     chip_smoke.end_to_end(dev, net, extra, launches)
 
 
@@ -726,8 +724,6 @@ def test_new_nets_and_modes_train_step_on_the_card_matches_the_cpu(dev, net, poo
     """``chip_smoke.train_card_vs_cpu``: one f32 train step at 320x480 on the
     card and on a CPU copy from the same weights and draws (VGG-16's dropout
     uniforms too): losses and the compared updates matched."""
-    import chip_smoke
-
     chip_smoke.train_card_vs_cpu(torch.device("cuda", 0), net, pooling)
 
 
@@ -759,8 +755,6 @@ def test_coco_model_detects_and_trains_on_the_card_matching_the_cpu(dev):
     """``chip_smoke``'s COCO model (res101, 81 classes, four anchor scales):
     f32 ``detect`` at 320x480 matched to a CPU copy, and one f32 train step
     on the card and on a CPU copy (losses and compared updates)."""
-    import chip_smoke
-
     chip_smoke.end_to_end(dev, "res101", chip_smoke.COCO_CONFIG, classes=chip_smoke.COCO_CLASSES)
     chip_smoke.train_card_vs_cpu(torch.device("cuda", 0), "res101",
                                  classes=chip_smoke.COCO_CLASSES)
@@ -771,22 +765,20 @@ def test_coco_model_detects_and_trains_on_the_card_matching_the_cpu(dev):
 # replays one captured CUDA graph per batch shape
 # ---------------------------------------------------------------------------
 
-# (net, config, the kernels one replay launches) at 320x480, bf16
-GRAPHED = [("res50", (), {"nms": 2, "roi_align": 1, "fused_block": 6, "bn_epilogue": 31}),
-           ("res50_fpn", (), {"nms": 2, "roi_align_ml": 1, "select": 1, "fused_block": 6,
-                              "bn_epilogue": 31, "fpn_epilogue": 13}),
-           ("res50_fpn_gn", ("RESNET.FIXED_BLOCKS", "0"),
-            {"nms": 2, "roi_align_ml": 1, "select": 1, "fpn_epilogue": 13})]
+# (net, config, the kernels one replay launches) at 320x480, bf16: the served
+# families' launches, where of the FPN's levels only P2's row (28800 anchors)
+# is long enough for K5's gate (at 800x1216 P3's too)
+GRAPHED = [("res50", (), chip_smoke.SERVE_LAUNCHES),
+           ("res50_fpn", (), {**chip_smoke.FPN_LAUNCHES, "select": 1}),
+           ("res50_fpn_gn", chip_smoke.GN_CONFIG, {**chip_smoke.FPN_GN_LAUNCHES, "select": 1})]
 
 
 def _graphed_setup(net, extra, seed=1):
-    import chip_smoke
-
     cfg = chip_smoke.smoke_config(["TEST.SCALES", "(320,)", "TEST.MAX_SIZE", "480",
                                    "DEVICE.BUCKETS", "((320, 480),)", *extra])
     model = chip_smoke.build_seeded(cfg, torch.bfloat16, seed=seed, net=net)
     images = chip_smoke.synthetic_images(np.random.RandomState(5), [(320, 480), (240, 360)] * 2)
-    return chip_smoke, cfg, model, images
+    return cfg, model, images
 
 
 @pytest.mark.parametrize("net,extra,launches", GRAPHED)
@@ -797,7 +789,7 @@ def test_graphed_detector_is_bit_equal_to_eager_detect(dev, net, extra, launches
     capture counted, as many times."""
     from frcnn_tpu_torch.engine.serve import Detector
 
-    chip_smoke, cfg, model, images = _graphed_setup(net, extra)
+    cfg, model, images = _graphed_setup(net, extra)
     det = Detector(model, uint8_input=True)
     build.reset_launch_counts()
     got = [det(images), det(images[::-1])]
@@ -821,7 +813,7 @@ def test_copied_weights_reach_the_replay_and_rebound_ones_recapture(dev):
     new capture serves what eager detect serves."""
     from frcnn_tpu_torch.engine.serve import Detector
 
-    chip_smoke, cfg, model, images = _graphed_setup("res50", ())
+    cfg, model, images = _graphed_setup("res50", ())
     det = Detector(model, uint8_input=True)
     before = det(images)
     model.load_state_dict(chip_smoke.build_seeded(cfg, torch.bfloat16, seed=2).state_dict())
@@ -843,7 +835,6 @@ def test_copied_weights_reach_the_replay_and_rebound_ones_recapture(dev):
 def test_a_failed_capture_raises_and_is_not_retried(dev):
     """A host read under capture raises ``RuntimeError`` naming the key and
     the line; the executor keeps and replays nothing, and the card serves on."""
-    import chip_smoke
     from frcnn_tpu_torch.engine.graphs import DetectGraphs
 
     toy = chip_smoke.HostRead(dev)
@@ -941,28 +932,27 @@ def _trunk_and_tail_gaps(model, cfg, images, dev):
     relative distance (Frobenius) from the f32 computation of the same
     input, for the C4 features ``detect`` computed (layer3's output) and for
     layer4 on the module path's own crops; and the epilogue's launches."""
-    import chip_smoke
-    from frcnn_tpu_torch.models import backbones
     from frcnn_tpu_torch.models.network import preprocess_images
+    from frcnn_tpu_torch.ops.cuda import epilogue_grid
 
     trunk = model.backbone
     seen = []
     hooks = [trunk.layer3.register_forward_hook(lambda m, i, o: seen.append(("c4", o))),
              trunk.layer4.register_forward_hook(lambda m, i, o: seen.append(("tail", i[0], o)))]
-    gate, runs, launches = backbones._use_epilogue, {}, {}
+    gate, runs, launches = epilogue_grid.gate, {}, {}
     try:
         for way in ("epilogue", "plain"):
             if way == "plain":
-                backbones._use_epilogue = lambda norm, x: False
+                epilogue_grid.gate = lambda x: False
             seen.clear()
             build.reset_launch_counts()
             groups = chip_smoke.eager_detections(model, images, cfg, cfg.TEST.MAX_PER_IMAGE,
                                                  dev)[1]
             launches[way] = build.LAUNCH_COUNTS["bn_epilogue"]
             runs[way] = (groups, list(seen))
-            backbones._use_epilogue = gate
+            epilogue_grid.gate = gate
     finally:
-        backbones._use_epilogue = gate
+        epilogue_grid.gate = gate
         for h in hooks:
             h.remove()
 
@@ -999,8 +989,6 @@ def test_detect_with_the_bn_epilogue_matches_the_plain_path(dev, monkeypatch):
     bucket the C4 features ``detect`` computed, and layer4 on the same crops,
     at most ``EPILOGUE_GAP_RATIO`` times as far from f32 as the module
     path's (TF32 off)."""
-    import chip_smoke
-
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = chip_smoke.smoke_config([*chip_smoke.COCO_CONFIG, "TEST.SCALES", "(600,)",
@@ -1030,24 +1018,23 @@ def test_val_losses_take_the_bn_epilogue_within_bf16_rounding(dev, monkeypatch):
     608x1024 batch of 8, drawn BN statistics), and its losses are the
     module-by-module path's within bf16 rounding; a training step (autograd
     on) launches none."""
-    import chip_smoke
     from frcnn_tpu_torch.engine.train import SolverWrapper, filter_roidb
-    from frcnn_tpu_torch.models import backbones
+    from frcnn_tpu_torch.ops.cuda import epilogue_grid
 
     cfg = chip_smoke.train_config()
     model = _drawn_frozen_bn_(chip_smoke.build_seeded(cfg, torch.bfloat16), 3)
     roidb, reader = chip_smoke.synthetic_roidb(np.random.RandomState(4), [(480, 720)] * 8)
     solver = SolverWrapper(model, filter_roidb(roidb, cfg), cfg, reader=reader)
     blobs = solver.data_layer.forward()
-    plain_gate = backbones._use_epilogue
+    plain_gate = epilogue_grid.gate
     losses = {}
     for way in ("epilogue", "plain"):
         if way == "plain":
-            monkeypatch.setattr(backbones, "_use_epilogue", lambda norm, x: False)
+            monkeypatch.setattr(epilogue_grid, "gate", lambda x: False)
         build.reset_launch_counts()
         losses[way] = solver.val_losses(blobs)
         assert build.LAUNCH_COUNTS["bn_epilogue"] == (31 if way == "epilogue" else 0)
-        monkeypatch.setattr(backbones, "_use_epilogue", plain_gate)
+        monkeypatch.setattr(epilogue_grid, "gate", plain_gate)
     for name, want in losses["plain"].items():
         got = losses["epilogue"][name]
         rtol = VAL_RPN_RTOL if name.startswith("rpn") else VAL_HEAD_RTOL
@@ -1064,7 +1051,7 @@ def test_bn_statistics_copied_in_reach_the_replay(dev):
     not what it served before (nothing folded was kept)."""
     from frcnn_tpu_torch.engine.serve import Detector
 
-    chip_smoke, cfg, model, images = _graphed_setup("res50", ())
+    cfg, model, images = _graphed_setup("res50", ())
     det = Detector(model, uint8_input=True)
     before = det(images)
     g = torch.Generator().manual_seed(4)
@@ -1124,8 +1111,6 @@ def test_fpn_epilogue_bit_equal_at_the_fpn_cell_shapes(dev, bucket):
     """The 13 launches of a res50 FPN serving batch of 8 in each bucket of the
     FPN cell, each in its mode: bit-equal to the twin and to the module
     path (the bias add_, the upsample and top-down add, the relu)."""
-    import chip_smoke
-
     g = torch.Generator().manual_seed(sum(bucket))
     shapes = chip_smoke.fpn_epilogue_shapes(*bucket)
     assert len(shapes) == 13
@@ -1182,7 +1167,7 @@ def test_fpn_biases_copied_in_reach_the_replay(dev):
     it served before (nothing was folded or kept at capture)."""
     from frcnn_tpu_torch.engine.serve import Detector
 
-    chip_smoke, cfg, model, images = _graphed_setup("res50_fpn", ())
+    cfg, model, images = _graphed_setup("res50_fpn", ())
     det = Detector(model, uint8_input=True)
     before = det(images)
     g = torch.Generator().manual_seed(6)

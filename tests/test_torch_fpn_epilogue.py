@@ -1,6 +1,8 @@
 """The FPN epilogue (``frcnn_tpu_torch/ops/cuda/fpn_epilogue.py``) on the
-CPU: its gate, which keeps the CPU, f32 and training on the module-by-module
-path bit for bit and opens for either FPN trunk in serving; its plain twin
+CPU: its gate (``epilogue_grid.gate``, the BN epilogue's too), which keeps
+the CPU, f32 and training on the module-by-module path bit for bit, opens
+for either FPN trunk in serving and, open or shut, decides both epilogues
+of a res50 FPN forward; its plain twin
 against the module path as it ran on the card (the conv's bias as a separate
 add, the nearest upsample cropped, the top-down add, the relu), bit for bit
 in every mode, odd levels included; the neck's and the RPN's wiring of it,
@@ -16,11 +18,12 @@ import torch
 import torch.nn.functional as F
 
 import chip_smoke
-from frcnn_tpu_torch import cfg_from_list, default_config
+from frcnn_tpu_torch import default_config
 from frcnn_tpu_torch.models import fpn
-from frcnn_tpu_torch.models.backbones import _conv
+from frcnn_tpu_torch.models import backbones
+from frcnn_tpu_torch.models.backbones import cast_conv
 from frcnn_tpu_torch.models.network import build_model
-from frcnn_tpu_torch.ops.cuda import build
+from frcnn_tpu_torch.ops.cuda import build, epilogue_grid
 from frcnn_tpu_torch.ops.cuda import fpn_epilogue as epi
 from frcnn_tpu_torch.ops.cuda.epilogue_grid import epilogue_plan
 
@@ -61,17 +64,18 @@ def _feats(g, dtype, b=2):
 def _parent_neck(neck, feats):
     """The neck as the module-by-module path wrote it: every lateral conv,
     then the top-down upsample (cropped) and add, then the output convs."""
-    laterals = [_conv(f, getattr(neck, f"lateral{i}")) for i, f in enumerate(feats, start=2)]
+    laterals = [cast_conv(f, getattr(neck, f"lateral{i}")) for i, f in enumerate(feats, start=2)]
     outs = [laterals[-1]]
     for lat in laterals[-2::-1]:
         up = F.interpolate(outs[0], scale_factor=2, mode="nearest")
         outs.insert(0, lat + up[:, :, :lat.shape[2], :lat.shape[3]])
-    ps = [_conv(o, getattr(neck, f"output{i}"), padding=1) for i, o in enumerate(outs, start=2)]
+    ps = [cast_conv(o, getattr(neck, f"output{i}"), padding=1)
+          for i, o in enumerate(outs, start=2)]
     return ps + [ps[-1][:, :, ::2, ::2]]
 
 
 def _card_conv(x, conv, stride=1, padding=0):
-    """``_conv`` as cuDNN runs it on the card: the convolution without its
+    """``cast_conv`` as cuDNN runs it on the card: the convolution without its
     bias, then the bias cast to x's dtype in a separate add_ (a rounding
     between the two, which the CPU's convolution does not make)."""
     y = F.conv2d(x, conv.weight.to(x.dtype), None, stride=stride, padding=padding)
@@ -85,8 +89,8 @@ def _refuse(*args, **kwargs):
 def _as_on_the_card(monkeypatch):
     """The gate as it decides for a bf16 tensor on the card: the real rule,
     handed a stand-in that says it lies there."""
-    gate = fpn._epilogue_gate
-    monkeypatch.setattr(fpn, "_epilogue_gate",
+    gate = epilogue_grid.gate
+    monkeypatch.setattr(epilogue_grid, "gate",
                         lambda x: gate(SimpleNamespace(is_cuda=True, dtype=x.dtype)))
 
 
@@ -111,7 +115,7 @@ def test_gate_keeps_the_module_path(case, monkeypatch):
     dtype = torch.float32 if case == "f32" else BF
     on_card = SimpleNamespace(is_cuda=case != "cpu", dtype=dtype)
     with torch.set_grad_enabled(case == "grad"):
-        assert not fpn._epilogue_gate(on_card)
+        assert not epilogue_grid.gate(on_card)
     monkeypatch.setattr(fpn, "fpn_epilogue", _refuse)
     g = torch.Generator().manual_seed(3)
     neck, rpn = _seeded_neck(g), torch.nn.Conv2d(32, 32, 3, padding=1)
@@ -122,7 +126,7 @@ def test_gate_keeps_the_module_path(case, monkeypatch):
         for p_got, p_want in zip(got, want):
             _assert_bits_equal(p_got, p_want)
             _assert_bits_equal(fpn.biased_conv(p_got, rpn, padding=1, relu=True),
-                               F.relu(_conv(p_want, rpn, padding=1)))
+                               F.relu(cast_conv(p_want, rpn, padding=1)))
     assert build.LAUNCH_COUNTS["fpn_epilogue"] == 0
 
 
@@ -134,11 +138,10 @@ def test_gate_opens_for_either_trunk_in_serving(net, monkeypatch):
     autograd on, none."""
     on_card = SimpleNamespace(is_cuda=True, dtype=BF)
     with torch.inference_mode():
-        assert fpn._epilogue_gate(on_card)
+        assert epilogue_grid.gate(on_card)
     with torch.no_grad():
-        assert fpn._epilogue_gate(on_card)
-    cfg = cfg_from_list(default_config(), ["DEVICE.USE_KERNELS", "False"])
-    model = build_model(net, 21, cfg, dtype=BF)
+        assert epilogue_grid.gate(on_card)
+    model = build_model(net, 21, default_config(), dtype=BF)
     _as_on_the_card(monkeypatch)
     calls, _ = _spy(monkeypatch)
     images = torch.from_numpy(
@@ -153,6 +156,33 @@ def test_gate_opens_for_either_trunk_in_serving(net, monkeypatch):
             assert modes == []
         else:
             assert sorted(modes) == ["bias"] * 5 + ["merge"] * 3 + ["relu"] * 5
+
+
+@pytest.mark.parametrize("opened", [True, False])
+def test_both_epilogues_follow_the_one_gate(opened, monkeypatch):
+    """``epilogue_grid.gate`` alone decides both epilogues.  Forced open on
+    the CPU (the wrappers then run their twins), a bf16 res50 FPN forward
+    ends every frozen BN of the trunk in a BN epilogue (the stem and three a
+    block in all 16 blocks, since K3's gate stays shut off the card) and
+    every neck and RPN conv in an FPN epilogue (13); forced shut, neither
+    runs."""
+    model = build_model("res50_fpn", 21, default_config(), dtype=BF)
+    monkeypatch.setattr(epilogue_grid, "gate", lambda x: opened)
+    calls = {"bn": 0, "fpn": 0}
+
+    def counted(name, kernel):
+        def spy(*args, **kwargs):
+            calls[name] += 1
+            return kernel(*args, **kwargs)
+        return spy
+
+    monkeypatch.setattr(backbones, "bn_epilogue", counted("bn", backbones.bn_epilogue))
+    monkeypatch.setattr(fpn, "fpn_epilogue", counted("fpn", fpn.fpn_epilogue))
+    images = torch.from_numpy(
+        np.random.RandomState(3).randint(0, 255, (1, 64, 96, 3)).astype(np.float32))
+    with torch.no_grad():
+        model._rpn_all_levels(model._pyramid(images))
+    assert calls == ({"bn": 49, "fpn": 13} if opened else {"bn": 0, "fpn": 0})
 
 
 SHAPES = {"even": ((2, 24, 12, 16), (2, 24, 6, 8)), "odd": ((3, 16, 13, 19), (3, 16, 7, 10))}
@@ -231,7 +261,7 @@ def test_neck_wires_the_epilogue(monkeypatch):
     g = torch.Generator().manual_seed(5)
     neck = _seeded_neck(g)
     feats = _feats(g, BF)
-    monkeypatch.setattr(fpn, "_conv", _card_conv)
+    monkeypatch.setattr(fpn, "cast_conv", _card_conv)
     with torch.inference_mode():
         want = neck(feats)
         _as_on_the_card(monkeypatch)
@@ -254,8 +284,7 @@ def test_rpn_wires_the_epilogue(monkeypatch):
     """With the gate open, ``_rpn_all_levels`` ends the RPN conv in the
     epilogue with its relu on each of P2-P6, and its fg probabilities and
     box cells are the module path's as it ran on the card, bit for bit."""
-    cfg = cfg_from_list(default_config(), ["DEVICE.USE_KERNELS", "False"])
-    model = build_model("res50_fpn", 21, cfg, dtype=BF)
+    model = build_model("res50_fpn", 21, default_config(), dtype=BF)
     g = torch.Generator().manual_seed(8)
     with torch.no_grad():
         for t in (model.rpn_net.weight, model.rpn_cls_w, model.rpn_box_w):
@@ -264,7 +293,7 @@ def test_rpn_wires_the_epilogue(monkeypatch):
             t.copy_(torch.randn(t.shape, generator=g) * 0.5)
     pyramid = [_cl(torch.randn(2, 256, h, w, generator=g).to(BF))
                for h, w in ((12, 18), (6, 9), (3, 5), (2, 3), (1, 2))]
-    monkeypatch.setattr(fpn, "_conv", _card_conv)
+    monkeypatch.setattr(fpn, "cast_conv", _card_conv)
     with torch.inference_mode():
         want = model._rpn_all_levels(pyramid)
         _as_on_the_card(monkeypatch)

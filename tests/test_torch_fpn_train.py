@@ -48,7 +48,8 @@ from frcnn_tpu_torch.engine.train import SolverWrapper, make_optimizer
 from frcnn_tpu_torch.models.network import build_model, gather_anchor_rows
 from frcnn_tpu_torch.ops.cuda import build
 from frcnn_tpu_torch.ops.cuda.roi_align_kernel import (RoIAlignMultilevelFunction,
-                                                       roi_align_multilevel_backward)
+                                                       roi_align_multilevel_backward,
+                                                       roi_align_multilevel_reference)
 from frcnn_tpu_torch.ops.roi_align import extract_multilevel_features
 from frcnn_tpu_torch.utils.weight_convert import convert_fpn_from_jax
 from tests.test_torch_fpn import H, NUM_CLASSES, STRIDES, W, _ml_inputs, _numpy_params
@@ -127,26 +128,35 @@ def test_multilevel_function_passes_gradcheck_f64():
         tuple(feats))
 
 
-@pytest.mark.parametrize("use_kernels", [True, False])
-def test_multilevel_pool_carries_the_twins_gradient(use_kernels):
+@pytest.mark.parametrize("empty_level", [True, False])
+def test_multilevel_pool_carries_the_twins_gradient(empty_level):
     """Level maps that require grad get dense gradients through
-    ``extract_multilevel_features``: the Function's (K6b's twin here) and
-    autograd of the forward twin agree; a level out of range adds nothing."""
+    ``extract_multilevel_features``: the Function's (K6b's twin here),
+    autograd of the forward twin ``roi_align_multilevel_reference`` and the
+    backward twin agree, with one level empty (its gradient dense zeros) and
+    with every level populated; a level out of range adds nothing."""
     rng = np.random.RandomState(23)
     hws = LEVEL_HW[:4]
     feats, rois, levels = _ml_inputs(rng, 8, 21, hws)
+    if not empty_level:
+        levels[:, 2:6] = 2
     levels[0, :2] = [-1, 4]
     g = rng.randn(2, 21, 7, 7, 8).astype(np.float32)
     want = _twin_grads(g, rois, levels, hws)
     maps = [_t(f).requires_grad_(True) for f in feats]
-    out = extract_multilevel_features(maps, _t(rois), _t(levels), STRIDES,
-                                      use_kernels=use_kernels)
+    out = extract_multilevel_features(maps, _t(rois), _t(levels), STRIDES)
     assert out.grad_fn is not None and not out[0, :2].any()
     out.backward(_t(g))
-    for m, w in zip(maps, want):
+    plain = [_t(f).requires_grad_(True) for f in feats]
+    ref = roi_align_multilevel_reference(plain, _t(rois), _t(levels), STRIDES)
+    assert torch.equal(out, ref)
+    ref.backward(_t(g))
+    for m, p, w in zip(maps, plain, want):
         assert m.grad.shape == m.shape
-        np.testing.assert_allclose(m.grad.numpy(), w, rtol=0, atol=1e-5 * max(np.abs(w).max(), 1))
-    assert not maps[2].grad.any()
+        tol = 1e-5 * max(np.abs(w).max(), 1)
+        np.testing.assert_allclose(m.grad.numpy(), w, rtol=0, atol=tol)
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=0, atol=tol)
+    assert maps[2].grad.any() != empty_level
 
 
 @pytest.mark.parametrize("d", [2, 4])
