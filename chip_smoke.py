@@ -6,7 +6,7 @@
     python3 chip_smoke.py --only coco      # the kernel phases, 12 and the COCO
                                            # phases 48-50 alone
     python3 chip_smoke.py --only graphs    # 12, then phase 51 on models built
-                                           # for it (no kernel checks)
+                                           # for it, then 52 (no kernel checks)
     python3 chip_smoke.py --profile        # and stage breakdowns of the three train
                                            # steps and of FPN detect (38-41)
 
@@ -282,7 +282,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the peak memory after the two captures; then a capture that fails (a
      host read in a toy ``detect``) raises naming its key and line, keeps
      and replays nothing, and a new capture still serves bit-equal; all in
-     chiprun_out/graphed_serving.json.
+     chiprun_out/graphed_serving.json;
+ 52. the copy-in (``check_copy_in``): a served batch (both cells' request
+     shapes) into a graph's static inputs from 24 distinct host batches:
+     pageable, staged at chunks of 1, 2, 4 and 8 MB and whole (bit-equal),
+     and from page-locked memory; the link's page-locked rate and the host's
+     fill rate at torch's thread count and at one; chiprun_out/copy_in.json.
 Then one JSON line of per-kernel results, the card line, and, last, the
 JSON ok line.  Each kernel's line carries its launches on the paths of 12,
 14, 16, 18, 23, 25, 27, 29, 31, 33, 36, 43, 45-47 (rank 0's), 48 and 49
@@ -4212,12 +4217,124 @@ def graphed_serving(dev, card, models):
     return result
 
 
+# The served cells' requests (BENCHMARK.json): 8 uint8 blobs of one bucket
+COPY_IN_SHAPES = {"res50_fpn_voc 800x1344": (8, 800, 1344, 3),
+                  "res50_fpn_voc 1344x800": (8, 1344, 800, 3),
+                  "res101_c4_coco 608x1024": (8, 608, 1024, 3)}
+COPY_IN_CHUNKS_MB = (1, 2, 4, 8, None)      # None: the whole batch in one chunk
+COPY_IN_SOURCES = 24                         # the cells' pre-stacked requests, read in turn
+COPY_IN_GAP_CYCLES = 25_000_000              # ~15 ms of the card's clock: a request's device time
+
+
+def check_copy_in(dev, card, reps=24):
+    """Phase 52: a served batch's copy into a graph's static inputs at each
+    of ``COPY_IN_SHAPES``, from ``COPY_IN_SOURCES`` distinct host batches
+    read in turn (cold, as in the cells): the pageable copy the executor
+    made before it staged (``static.copy_(numpy batch)``), the staged copy
+    (``engine/graphs.stage``) at chunks of ``COPY_IN_CHUNKS_MB``, each
+    landing bit-equal, and the whole batch from page-locked memory; each as
+    the host's ms until the call returns and until the copy is on the card
+    (medians of ``reps``, from a synchronized card), and the host's ms again
+    (median and 95th percentile) when the copy follows ~15 ms of a busy
+    card, as a served request follows the last one's readback.  Also the
+    link's page-locked rate (CUDA events around the whole-batch copy) and
+    the host's fill rate into a page-locked block: ``native/stage_fill``'s
+    (the caller and its helpers), and a CPU ``copy_`` at torch's thread
+    count and at one thread.  In chiprun_out/copy_in.json."""
+    from frcnn_tpu_torch.engine import graphs
+    from frcnn_tpu_torch.native import stage_fill
+
+    threads = torch.get_num_threads()
+    out = {"card": card, "cpu": host_cpu(), "threads": threads,
+           "chunk_bytes": graphs.STAGE_CHUNK_BYTES, "shapes": {}}
+    for name, shape in COPY_IN_SHAPES.items():
+        rng = np.random.default_rng(0)
+        sources = [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+                   for _ in range(COPY_IN_SOURCES)]
+        info = torch.ones(shape[0], 3)
+        n = sources[0].numel()
+        _, _, total = graphs.stage_plan(n, info.numel() * 4)
+        dst = torch.empty(total, dtype=torch.uint8, device=dev)
+        static = dst[:n].view(shape)
+        block = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        pinned = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+        pinned.copy_(sources[0])
+
+        def timed(copy):
+            host, wall, gap = [], [], []
+            for i in range(2 * reps + 4):
+                src = sources[i % COPY_IN_SOURCES]
+                if i % 2:
+                    torch.cuda._sleep(COPY_IN_GAP_CYCLES)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                copy(src)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                if i >= 4:
+                    (gap if i % 2 else host).append((t1 - t0) * 1e3)
+                    if not i % 2:
+                        wall.append((time.perf_counter() - t0) * 1e3)
+            return {"host_ms": statistics.median(host), "ms": statistics.median(wall),
+                    "after_gap_ms": statistics.median(gap),
+                    "after_gap_p95_ms": statistics.quantiles(gap, n=20)[-1]}
+
+        def landed(label):
+            if not (torch.equal(static.cpu(), sources[(2 * reps + 3) % COPY_IN_SOURCES])
+                    and torch.equal(dst[-info.numel() * 4:].view(torch.float32).cpu(),
+                                    info.view(-1))):
+                raise AssertionError(f"phase 52 {name} {label}: the static input differs "
+                                     "from its source")
+
+        dst.zero_()
+        row = {"bytes": n, "pageable": timed(static.copy_), "staged": {}}
+        dst[-info.numel() * 4:].copy_(info.view(-1).view(torch.uint8))  # im_info apart
+        landed("pageable")
+        try:
+            for mb in COPY_IN_CHUNKS_MB:
+                label = "whole" if mb is None else f"{mb}MB"
+                graphs.STAGE_CHUNK_BYTES = n if mb is None else mb << 20
+                dst.zero_()
+                row["staged"][label] = timed(lambda src: graphs.stage(dst, block, src, info))
+                landed(f"staged {label}")
+        finally:
+            graphs.STAGE_CHUNK_BYTES = out["chunk_bytes"]
+        row["pinned_whole"] = timed(lambda src: static.copy_(pinned, non_blocking=True))
+        static.copy_(pinned)
+        link_ms = cuda_ms(lambda: static.copy_(pinned, non_blocking=True), iters=reps)
+
+        def native_fill(src):
+            with stage_fill.filling(block, src.view(-1)):
+                pass
+
+        fills = {"stage_fill": timed(native_fill)}
+        for t in (threads, 1):
+            torch.set_num_threads(t)
+            fills[f"torch_{t}"] = timed(lambda src: block[:n].copy_(src.view(-1)))
+        torch.set_num_threads(threads)
+        row.update(link_ms=link_ms, link_gb_s=n / link_ms / 1e6, bound_ms=n / 64e9 * 1e3,
+                   fill=fills, fill_gb_s={k: n / v["host_ms"] / 1e6 for k, v in fills.items()})
+        out["shapes"][name] = row
+        sweep = ", ".join(f"{k} {v['ms']:.3f} ({v['host_ms']:.3f} host)"
+                          for k, v in row["staged"].items())
+        log(f"phase 52 copy-in {name} ({n} bytes): pageable {row['pageable']['ms']:.3f} ms; "
+            f"staged {sweep}; page-locked whole batch {row['pinned_whole']['ms']:.3f} ms; link "
+            f"{row['link_gb_s']:.2f} GB/s ({link_ms:.3f} ms on the card; bound at 64 GB/s "
+            f"{row['bound_ms']:.3f} ms); host fill GB/s "
+            + ", ".join(f"{k} {v:.2f}" for k, v in row["fill_gb_s"].items()) + f"; on {card}")
+        del sources, block, pinned
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "copy_in.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description="Smoke run of frcnn_tpu_torch on one card.")
     parser.add_argument("--only", choices=("kernels", "coco", "graphs"),
                         help="kernels: stop after the kernel phases; coco: the kernel phases, "
                              "12 and the COCO phases 48-50; graphs: 12, then phase 51 on "
-                             "models built for it (a partial run: no ok line)")
+                             "models built for it, then 52 (a partial run: no ok line)")
     parser.add_argument("--profile", action="store_true",
                         help="time each stage of the C4, FPN and GroupNorm FPN train steps "
                              "and of an FPN detect batch and profile the device (chiprun_out/"
@@ -4275,12 +4392,13 @@ def main(argv=None) -> int:
             log(f"ptxas: {line.strip()}")
 
     if args.only == "graphs":
-        # a partial run: 12, then phase 51 on models built for it; no ok line
+        # a partial run: 12, then phase 51 on models built for it, then 52; no ok line
         models = {"res50": main_path(dev, card)[2].model}
         for name, net, extra, classes, _ in SERVING_FAMILIES[1:]:
             models[name] = build_seeded(smoke_config(extra), torch.bfloat16, net=net,
                                         classes=classes)
         graphed_serving(dev, card, models)
+        check_copy_in(dev, card)
         print(json.dumps({"replayed_launches_by_path": REPLAYED}))
         print(card)
         return 0
@@ -4371,6 +4489,7 @@ def main(argv=None) -> int:
     new_paths.update(coco_paths)
     graphed_serving(dev, card, models)
     del models
+    check_copy_in(dev, card)
     if args.profile:
         profile_train_step(solver, card)
         profile_fpn_detect(fpn_detector, fpn_data, fpn_info, card)

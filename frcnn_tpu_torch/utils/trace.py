@@ -30,7 +30,10 @@ The names, outermost first:
 ``frcnn.graphs.lookup``      ``DetectGraphs``: the inputs as tensors, the
                              key, the weights' address check, the lookup
 ``frcnn.graphs.capture``     a key's first call: warm-up and capture
-``frcnn.graphs.copy_in``     the batch's copy into the static inputs
+``frcnn.graphs.copy_in``     the batch's copy into the static inputs; for a
+                             pageable host batch the chunked fill of its
+                             page-locked block and each chunk's enqueued
+                             copy to the card (``engine/graphs.stage``)
 ``frcnn.graphs.replay``      the graph's replay and the outputs' clones
 ``frcnn.train.data_wait``    ``train_model``'s wait for the next batch
 ``frcnn.train.step``         ``train_step``: the host's launches of a step

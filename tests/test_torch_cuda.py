@@ -6,7 +6,9 @@ matched to a CPU copy, a two-rank mesh step on one card against the
 unsharded step, the launcher's refusal of a tensor of another card, and
 graphed serving: a ``Detector`` replaying its captured graphs bit-equal to
 eager ``detect``, new weights copied in reaching the replay, rebound ones
-recaptured, a failed capture raised; the BN epilogue bit-equal to its twin,
+recaptured, a failed capture raised, a pageable batch staged into the static
+inputs bit for bit (a pinned or device batch not staged), two calls queued
+with no readback each served its own batch, no pageable copy; the BN epilogue bit-equal to its twin,
 ``detect`` and the validation losses with it against the module-by-module
 path, and frozen-BN statistics copied in reaching a replay.
 
@@ -844,6 +846,98 @@ def test_a_failed_capture_raises_and_is_not_retried(dev):
     assert not graphs.captures and not graphs.replays
     x = torch.arange(6.0, device=dev)
     assert (x * 2).sum().item() == 30.0
+
+
+class _Echo(torch.nn.Module):
+    """A ``detect`` that returns copies of its inputs: a replay's outputs
+    are then the static inputs as the copy-in left them."""
+
+    def __init__(self):
+        super().__init__()
+        self.config = None
+
+    def detect(self, data, im_info, max_per_image):
+        return data.clone(), im_info.clone()
+
+
+# the FPN cell's two buckets, and odd shapes whose bytes divide neither the
+# chunk nor the alignment of im_info
+STAGED = [(8, 800, 1344, np.uint8), (8, 1344, 800, np.uint8), (3, 517, 771, np.uint8),
+          (2, 333, 501, np.float32)]
+
+
+@pytest.mark.parametrize("shape_dtype", STAGED, ids=lambda s: "x".join(map(str, s[:3])))
+def test_a_staged_static_input_is_bit_equal_to_its_source(dev, shape_dtype):
+    """Pageable numpy batches of one key, two in turn (the capture's copy-in
+    and a replay's, the block reused): the static inputs a replay reads
+    equal each source and its im_info bit for bit, and both calls were
+    staged with no wait."""
+    from frcnn_tpu_torch.engine.graphs import DetectGraphs
+
+    *shape, dtype = shape_dtype
+    graphs = DetectGraphs(_Echo(), 1, dev)
+    rng = np.random.RandomState(7)
+    for _ in range(2):
+        data = (rng.randint(0, 256, (*shape, 3)) if dtype == np.uint8
+                else rng.standard_normal((*shape, 3))).astype(dtype)
+        info = rng.uniform(1, 1400, (shape[0], 3)).astype(np.float32)
+        got_data, got_info = graphs(data, info)
+        assert torch.equal(got_data.cpu(), torch.from_numpy(data))
+        assert torch.equal(got_info.cpu(), torch.from_numpy(info))
+    key = (*shape, torch.from_numpy(data).dtype, 1)
+    assert graphs.staged == {key: 2} and graphs.stage_waits == {}
+
+
+def test_a_pinned_or_device_batch_is_not_staged(dev):
+    from frcnn_tpu_torch.engine.graphs import DetectGraphs
+
+    graphs = DetectGraphs(_Echo(), 1, dev)
+    data = torch.randint(0, 256, (2, 40, 60, 3), dtype=torch.uint8)
+    info = torch.rand(2, 3)
+    for d, i in ((data.pin_memory(), info.pin_memory()), (data.to(dev), info.to(dev)),
+                 (data.pin_memory(), info)):
+        got_data, got_info = graphs(d, i)
+        assert torch.equal(got_data.cpu(), data) and torch.equal(got_info.cpu(), info)
+    assert graphs.staged == {} and graphs.replays == {(2, 40, 60, torch.uint8, 1): 3}
+
+
+def test_two_staged_calls_with_no_readback_return_their_own_detections(dev):
+    """Two ``detect_blobs`` calls of one key from numpy, queued behind a
+    long kernel with no readback between them: the second call's fill waits
+    on the first's event (``stage_waits``), so neither overwrites the other's
+    block before its copy to the card; each call's detections equal eager
+    detect's on its own batch, and no served call copies from pageable
+    memory (a profiled call)."""
+    from frcnn_tpu_torch.engine.serve import Detector, iter_bucket_batches
+
+    cfg, model, images = _graphed_setup("res50", ())
+    det = Detector(model, uint8_input=True)
+    (_, a, a_info), = iter_bucket_batches(images, cfg, keep_uint8=True)
+    (_, b, b_info), = iter_bucket_batches(images[::-1], cfg, keep_uint8=True)
+    key = (*a.shape[:3], torch.uint8, det.max_per_image)
+    for data, info in ((a, a_info), (b, b_info)):            # the capture, a replay
+        [t.cpu() for t in det.detect_blobs(data, info)]
+    with torch.inference_mode():
+        want = [[t.cpu() for t in model.detect(torch.from_numpy(d).to(dev),
+                                               torch.from_numpy(i).to(dev), det.max_per_image)]
+                for d, i in ((a, a_info), (b, b_info))]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(500_000_000)                   # the copies queue behind ~0.25 s
+    got = [det.detect_blobs(a, a_info), det.detect_blobs(b, b_info)]
+    got = [[t.cpu() for t in pair] for pair in got]
+    assert det.graphs.stage_waits == {key: 1} and det.graphs.staged == {key: 4}
+    for g, w in zip(got, want):
+        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+    assert not torch.equal(want[0][0], want[1][0])
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        [t.cpu() for t in det.detect_blobs(a, a_info)]
+    copies = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and "Memcpy HtoD" in e.name]
+    assert copies and not any("Pageable" in name for name in copies), copies
 
 
 # ---------------------------------------------------------------------------

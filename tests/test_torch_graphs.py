@@ -8,7 +8,8 @@ both fail a capture), for every serving family at a small size.
 (b) The executor's bookkeeping through a stand-in for the graph, which
 records the captured function and, like a CUDA graph, computes into the
 captured outputs only at a replay, refusing a host read at capture as CUDA
-does.  (c) Through that stand-in, a two-bucket request of mixed sizes gives
+does; the staged copy-in's byte plan and fill, and the straight copy of an
+executor on the CPU.  (c) Through that stand-in, a two-bucket request of mixed sizes gives
 the JAX ``Detector``'s detections.  (d) ``Detector(device="cpu")`` never
 builds a graph.  (e) The FPN's device counters: valid rois a level and
 valid proposals, added in place by ``detect`` (so by a replay), read and
@@ -17,6 +18,7 @@ writes any model state, so no other graph gains an op.  The card's own
 graphs: ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase 51."""
 
 import collections
+import os
 
 import numpy as np
 import pytest
@@ -29,6 +31,7 @@ from frcnn_tpu.engine.serve import Detector as JaxDetector
 from frcnn_tpu.models import build_model as jax_build_model
 from frcnn_tpu.utils.weight_convert import convert_detector
 from frcnn_tpu_torch import cfg_from_list, default_config
+from frcnn_tpu_torch.engine import graphs as graphs_mod
 from frcnn_tpu_torch.engine import serve
 from frcnn_tpu_torch.engine.graphs import DetectGraphs
 from frcnn_tpu_torch.engine.serve import Detector
@@ -280,6 +283,173 @@ def test_rebound_weights_drop_the_graphs_and_copied_weights_reach_the_replay():
     model.config = object()                                # a new config
     graphs(*_toy_batch(2, 1.0))
     assert graphs.captures[key] == 3
+
+
+# (B, bh, bw, dtype): both cells' buckets, the raw route's f32 at B 1, a batch
+# smaller than one chunk, and odd sizes whose bytes divide neither the chunk
+# nor STAGE_ALIGN
+PLANS = [(8, 800, 1344, np.uint8), (8, 1344, 800, np.uint8), (8, 608, 1024, np.uint8),
+         (1, 800, 1216, np.float32), (1, 128, 192, np.uint8), (3, 517, 771, np.uint8),
+         (2, 7, 5, np.float32)]
+
+
+@pytest.mark.parametrize("b,bh,bw,dtype", PLANS,
+                         ids=[f"{b}x{h}x{w}-{np.dtype(t).name}" for b, h, w, t in PLANS])
+def test_the_stage_plan_covers_the_batch_once_in_order_then_im_info(b, bh, bw, dtype):
+    data_bytes, info_bytes = b * bh * bw * 3 * np.dtype(dtype).itemsize, b * 3 * 4
+    chunks, info_offset, total = graphs_mod.stage_plan(data_bytes, info_bytes)
+    step = graphs_mod.STAGE_CHUNK_BYTES
+    assert info_offset % graphs_mod.STAGE_ALIGN == 0
+    assert data_bytes <= info_offset < data_bytes + graphs_mod.STAGE_ALIGN
+    assert total == info_offset + info_bytes
+    assert len(chunks) == -(-data_bytes // step)
+    assert [a for a, _ in chunks] == list(range(0, data_bytes, step))
+    assert [a for a, _ in chunks[1:]] == [z for _, z in chunks[:-1]]   # no gap, no overlap
+    assert all(z - a == step for a, z in chunks[:-1])
+    assert chunks[-1][1] == total            # the rest of the batch and im_info, last
+    assert 0 < data_bytes - chunks[-1][0] <= step
+
+
+def test_a_staged_copy_lands_the_batch_and_im_info_bit_for_bit(monkeypatch):
+    """``stage`` with ordinary CPU tensors for the block and the static
+    inputs (on the card: page-locked and device memory), in chunks of 4 KB:
+    every byte of the batch and of im_info where ``stage_plan`` puts them, a
+    partial last chunk, and a non-contiguous source."""
+    monkeypatch.setattr(graphs_mod, "STAGE_CHUNK_BYTES", 4096)
+    rng = np.random.RandomState(0)
+    for data in (torch.from_numpy(rng.randint(0, 256, (3, 17, 41, 3)).astype(np.uint8)),
+                 torch.from_numpy(rng.standard_normal((2, 3, 23, 19)).astype(np.float32))
+                 .permute(0, 2, 3, 1)):
+        im_info = torch.from_numpy(rng.uniform(1, 900, (data.shape[0], 3)).astype(np.float32))
+        data_bytes = data.numel() * data.element_size()
+        chunks, info_offset, total = graphs_mod.stage_plan(data_bytes, im_info.numel() * 4)
+        assert len(chunks) > 1 and data_bytes % 4096
+        block = torch.zeros(total + 100, dtype=torch.uint8)
+        dst = torch.zeros(total, dtype=torch.uint8)
+        graphs_mod.stage(dst, block, data, im_info)
+        assert torch.equal(dst[:data_bytes].view(data.dtype).view(data.shape), data)
+        assert torch.equal(dst[info_offset:].view(torch.float32).view(-1, 3), im_info)
+
+
+def test_a_cpu_executor_copies_straight_and_stages_nothing():
+    graphs = DetectGraphs(ToyModel(), 100, "cpu", graph=StandInGraph)
+    for b, value in ((2, 1.0), (2, 3.0), (5, 2.0)):
+        dets, _ = graphs(*_toy_batch(b, value, dtype=torch.uint8))
+        assert torch.equal(dets, torch.full((b, 2, 6), 72.0 * value + 1.0))
+    assert graphs.staged == {} and graphs.stage_waits == {} and graphs._blocks == {}
+    # the static inputs: one buffer in the staged layout, whichever the route
+    _, (buf, data, info), _ = graphs._entries[(5, 4, 6, torch.uint8, 100)]
+    assert data.data_ptr() == buf.data_ptr() and info.shape == (5, 3)
+    assert info.data_ptr() - buf.data_ptr() == graphs_mod.stage_plan(5 * 72, 60)[1]
+
+
+# bytes: none, one, about one piece of stage_fill.cc (256 KB) and many pieces
+# with a partial last one
+FILLS = [0, 1, (256 << 10) - 1, (256 << 10) + 1, 3 * (256 << 10) - 5, 2_500_001]
+
+
+@pytest.mark.parametrize("n", FILLS)
+def test_the_native_fill_has_every_prefix_in_when_its_wait_returns(n):
+    """``stage_fill.filling`` on its pool of helpers: after each ``fill(upto)``
+    bytes [0, upto) of the block equal the source's, waits past the end
+    stop at it, the whole source is in when the block exits, and nothing
+    after it is written."""
+    from frcnn_tpu_torch.native import stage_fill
+
+    src = torch.from_numpy(np.random.RandomState(n % 97).randint(0, 256, n).astype(np.uint8))
+    block = torch.zeros(n + 4096, dtype=torch.uint8)
+    with stage_fill.filling(block, src) as fill:
+        for upto in sorted({0, n // 3, n // 3 + 1, n, n + 100}):
+            fill(upto)
+            assert torch.equal(block[:min(upto, n)], src[:min(upto, n)])
+    assert torch.equal(block[:n], src) and not block[n:].any()
+
+
+def test_native_fills_from_more_threads_than_cores_each_land_whole():
+    """Fills of one pool from more Python threads than cores, each in turn
+    (the pool takes one fill at a time) into its own block, some left at
+    their first wait: every block ends equal to its source."""
+    import sys
+    import threading
+
+    from frcnn_tpu_torch.native import stage_fill
+
+    rng = np.random.RandomState(3)
+    workers = 2 * (os.cpu_count() or 1) + 1
+    sources = [torch.from_numpy(rng.randint(0, 256, 300_001 + 999 * i).astype(np.uint8))
+               for i in range(3 * workers)]
+    blocks = [torch.zeros(s.numel(), dtype=torch.uint8) for s in sources]
+
+    def run(ids):
+        for i in ids:
+            with stage_fill.filling(blocks[i], sources[i]) as fill:
+                fill(sources[i].numel() // 2 if i % 2 else 1)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(range(k, len(sources), workers),))
+                   for k in range(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert all(torch.equal(b, s) for b, s in zip(blocks, sources))
+    for block, src in ((blocks[0][:10], sources[0]), (blocks[0], sources[0].float()),
+                       (blocks[0], sources[0][::2])):
+        with pytest.raises(ValueError):
+            with stage_fill.filling(block, src):
+                pass
+
+
+def test_a_fill_with_no_helpers_is_the_callers_alone():
+    from frcnn_tpu_torch.native import stage_fill
+
+    stage_fill._pool()
+    lib = stage_fill._lib
+    pool = lib.frcnn_stage_pool(0)
+    src = torch.from_numpy(np.arange(1_000_003, dtype=np.int64).astype(np.uint8))
+    block = torch.zeros_like(src)
+    assert lib.frcnn_stage_wait(pool, 10) == -1            # no fill open
+    lib.frcnn_stage_begin(pool, block.data_ptr(), src.data_ptr(), src.numel())
+    assert lib.frcnn_stage_wait(pool, 300_000) == 0
+    assert torch.equal(block[:300_000], src[:300_000])
+    assert lib.frcnn_stage_wait(pool, src.numel()) == 0 and torch.equal(block, src)
+    assert lib.frcnn_stage_wait(pool, 1) == -1              # the last wait closed it
+
+
+def test_the_fill_library_signatures_match_its_source():
+    import re
+
+    from frcnn_tpu_torch.native import build as native_build
+    from frcnn_tpu_torch.native import stage_fill
+
+    with open(os.path.join(native_build.NATIVE, "stage_fill.cc")) as f:
+        text = f.read()
+    text = text[text.index('extern "C" {'):]
+    declared = {fn: len(params.split(",")) for fn, params in
+                re.findall(r"^(?:int|void\*?) (frcnn_\w+)\(([^)]*)\)", text, re.M)}
+    assert declared == {name: len(args) for name, (_, args) in stage_fill._SIGNATURES.items()}
+
+
+def test_a_fill_whose_library_does_not_build_raises_and_is_retried(monkeypatch):
+    from frcnn_tpu_torch.native import stage_fill
+
+    def no_compiler(*args, **kwargs):
+        raise FileNotFoundError("g++")
+
+    monkeypatch.setattr(stage_fill, "build_library", no_compiler)
+    monkeypatch.setattr(stage_fill, "_lib", None)
+    monkeypatch.setattr(stage_fill, "_pools", {})
+    src = torch.arange(10, dtype=torch.uint8)
+    for _ in range(2):
+        with pytest.raises(FileNotFoundError):
+            with stage_fill.filling(torch.zeros(10, dtype=torch.uint8), src):
+                pass
+    assert stage_fill._lib is None and stage_fill._pools == {}
 
 
 # ---------------------------------------------------------------------------
